@@ -1,0 +1,32 @@
+"""Model factory (counterpart of ``de6d_tpu/models/__init__.py``).
+
+``build_network(model_cfg, num_class, dataset, device)`` returns an
+eval-mode ``nn.Module`` composed from the registry by cfg NAME strings,
+on ``device`` (default ``"cuda"``).
+"""
+
+from __future__ import annotations
+
+from .. import resolve_device
+from ..registry import DETECTORS
+from . import backbones_2d  # noqa: F401  (registers modules)
+from . import backbones_3d  # noqa: F401
+from . import dense_heads  # noqa: F401
+from . import detectors  # noqa: F401
+
+_MODULE_SLOTS = (
+    "VFE", "BACKBONE_3D", "MAP_TO_BEV", "PFE", "BACKBONE_2D",
+    "DENSE_HEAD", "POINT_HEAD", "ROI_HEAD",
+)
+
+
+def build_network(model_cfg, num_class, dataset, device="cuda"):
+    # thread the model-level compute dtype into every module slot
+    dtype_name = str(model_cfg.get("COMPUTE_DTYPE", "float32"))
+    if dtype_name != "float32":
+        for slot in _MODULE_SLOTS:
+            if slot in model_cfg:
+                model_cfg[slot]["_COMPUTE_DTYPE"] = dtype_name
+    cls = DETECTORS.get(model_cfg["NAME"])
+    model = cls(model_cfg=model_cfg, num_class=num_class, dataset=dataset)
+    return model.to(resolve_device(device)).eval()

@@ -1,0 +1,4 @@
+from . import pointpillar  # noqa: F401  (registers PointPillar)
+from .detector3d_template import DatasetSpec, post_processing
+
+__all__ = ["DatasetSpec", "post_processing"]

@@ -1,0 +1,127 @@
+"""Builds and loads the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
+started together) for ``sm_90a`` into an object, and the objects are
+linked into one shared library under ``de6d_tpu_torch/build/``, named by
+a hash of the sources and flags. The library has a plain C interface
+and is loaded with ``ctypes``; nothing here includes PyTorch's headers.
+The build happens on first use, never at import.
+
+``-fmad=false`` keeps ``nvcc`` from contracting ``a*b+c`` into FMAs so
+the NMS kernel's IoU rounds exactly like the plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+SOURCES = ("canvas.cu", "nms_fused.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+# facts about the last build in this process (for chip_smoke's report)
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([Path(home) / "bin" / "nvcc"] if home else []) + [
+        Path("/usr/local/cuda/bin/nvcc")
+    ]:
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile (if needed) and return the path of the shared library."""
+    key = _digest()
+    so = BUILD_DIR / f"libde6d_kernels_{key}.so"
+    if so.exists():
+        build_info.update(path=str(so), seconds=0.0, cached=True)
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for name in SOURCES:
+            obj = Path(tmp) / (Path(name).stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / name),
+                   "-o", str(obj)]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            )))
+        logs = {}
+        for name, _, proc in procs:
+            logs[name] = proc.communicate()[0]
+        failed = [n for n, _, p in procs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(
+                "nvcc failed for " + ", ".join(failed) + ":\n"
+                + "\n".join(logs[n] for n in failed)
+            )
+        tmp_so = Path(tmp) / so.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp_so),
+             *(str(o) for _, o, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        os.replace(tmp_so, so)
+    build_info.update(
+        path=str(so), seconds=time.perf_counter() - t0, cached=False,
+        ptxas="\n".join(logs[n] for n in SOURCES),
+    )
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library with every entry point's C signature."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            handle.de6d_scatter_canvas.argtypes = [p, p, p, i, i, i, i, p]
+            handle.de6d_scatter_canvas.restype = i
+            handle.de6d_nms_keep_batched.argtypes = [
+                p, p, p, i, i, f, i, i, p,
+            ]
+            handle.de6d_nms_keep_batched.restype = i
+            _lib = handle
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

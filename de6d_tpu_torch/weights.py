@@ -1,0 +1,93 @@
+"""flax → torch weight carry-over.
+
+``load_flax_npz`` reads a flat ``.npz`` of flax variables (keys like
+``params/backbone_2d/ConvBlock_0/Conv_0/kernel`` and
+``batch_stats/vfe/PFNLayer_0/bn/mean``, as ``bench_assets/*_params.npz``
+stores them). ``flax_to_torch`` turns that dict into a state dict for a
+port model whose submodule paths mirror the flax module names.
+
+Layout mapping, by the layer's ``FLAX_KIND``:
+  * Dense: kernel (in, out) → weight (out, in);
+  * Conv: kernel HWIO → weight OIHW;
+  * ConvTranspose: kernel (kh, kw, in, out) → weight
+    ``kernel[::-1, ::-1].transpose(2, 3, 0, 1)`` — torch flips the kernel
+    of a transposed convolution and flax does not;
+  * BatchNorm: params scale/bias and batch_stats mean/var → weight, bias,
+    running_mean, running_var.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+
+def load_flax_npz(path) -> dict:
+    """``.npz`` of flax variables → ``{"params/...": float32 ndarray}``."""
+    with np.load(path, allow_pickle=False) as raw:
+        return {k: raw[k].astype(np.float32) for k in raw.files}
+
+
+def _flax_entries(kind: str, path: str):
+    """(torch name, flax key, converter) for one layer."""
+    p = "/".join(x for x in ("params", path) if x)
+    s = "/".join(x for x in ("batch_stats", path) if x)
+    if kind == "BatchNorm":
+        return [
+            ("weight", f"{p}/scale", None),
+            ("bias", f"{p}/bias", None),
+            ("running_mean", f"{s}/mean", None),
+            ("running_var", f"{s}/var", None),
+        ]
+    kernel = {
+        "Dense": lambda k: k.T,
+        "Conv": lambda k: k.transpose(3, 2, 0, 1),
+        "ConvTranspose": lambda k: k[::-1, ::-1].transpose(2, 3, 0, 1),
+    }[kind]
+    return [("weight", f"{p}/kernel", kernel), ("bias", f"{p}/bias", None)]
+
+
+def flax_to_torch(flat: dict, model: torch.nn.Module) -> OrderedDict:
+    """Map flat flax variables onto ``model``'s state dict. Every flax key
+    must be consumed and every shape must match, else ``ValueError``."""
+    target = model.state_dict()
+    out = OrderedDict()
+    used = set()
+    for name, module in model.named_modules():
+        kind = getattr(module, "FLAX_KIND", None)
+        if kind is None:
+            continue
+        for attr, key, conv in _flax_entries(kind, name.replace(".", "/")):
+            tname = f"{name}.{attr}" if name else attr
+            if tname not in target:
+                if key in flat:
+                    raise ValueError(f"{key} has no torch slot ({tname})")
+                continue  # e.g. a layer without bias
+            if key not in flat:
+                raise ValueError(f"missing flax key {key} for {tname}")
+            arr = flat[key]
+            arr = conv(arr) if conv else arr
+            if tuple(arr.shape) != tuple(target[tname].shape):
+                raise ValueError(
+                    f"{key}: shape {arr.shape} vs torch "
+                    f"{tuple(target[tname].shape)}"
+                )
+            out[tname] = torch.from_numpy(np.array(arr, order="C")).to(
+                target[tname].dtype
+            )
+            used.add(key)
+    unused = sorted(set(flat) - used)
+    if unused:
+        raise ValueError(f"unconsumed flax keys: {unused[:8]}")
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise ValueError(f"torch state not covered by flax keys: {missing[:8]}")
+    return out
+
+
+def load_into(model: torch.nn.Module, flat: dict) -> torch.nn.Module:
+    """``flax_to_torch`` + a strict ``load_state_dict``."""
+    model.load_state_dict(flax_to_torch(flat, model), strict=True)
+    return model
