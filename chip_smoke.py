@@ -6,19 +6,36 @@ NVIDIA card.
 
 Phases, one status line each; any failure exits non-zero:
 
-1. build   — compile ``de6d_tpu_torch/csrc/*.cu`` for sm_90a.
-2. kernels — each CUDA kernel against its plain PyTorch version on the
-             card at the main path's shapes (canvas bit-exact in bf16 and
-             fp32; NMS keep flags identical on the realistic candidates
-             of the first served batch and on a SCORE_THRESH 0 worst
-             case), with timings and the card's bound.
-3. serve   — ``StreamingDetector`` with ``configs/kitti_models/
-             pointpillar.yaml`` in bf16, the trained
-             ``bench_assets/pointpillar_params.npz`` and the 8 real scans
-             of ``bench_assets/scans.npz`` at batch 8; both kernels'
-             launch counters must rise.
-4. parity  — the port in fp32 (TF32 off) on 2 scans against the stored
-             JAX reference ``de6d_tpu_torch/testdata/pointpillar_jax_ref.npz``.
+1. build          — compile ``de6d_tpu_torch/csrc/*.cu`` for sm_90a.
+2. kernels        — canvas and NMS against their plain PyTorch versions
+                    on the card at PointPillars' shapes (canvas bit-exact
+                    in bf16 and fp32; NMS keep flags identical on the
+                    realistic candidates of the first served batch and on
+                    a SCORE_THRESH 0 worst case), with timings and bounds.
+3. serve          — ``StreamingDetector`` with ``configs/kitti_models/
+                    pointpillar.yaml`` in bf16, the trained
+                    ``bench_assets/pointpillar_params.npz`` and the 8 real
+                    scans of ``bench_assets/scans.npz`` at batch 8; both
+                    kernels' launch counters must rise.
+4. parity         — PointPillars in fp32 (TF32 off) on 2 scans against the
+                    stored JAX reference
+                    ``de6d_tpu_torch/testdata/pointpillar_jax_ref.npz``.
+5. kernels / fps  — the FPS kernel against its plain version at Det6D's
+                    shapes (d-fps 8 x 16384 -> 4096 on the real scans,
+                    s-fps 8 x 4096 -> 1024 and 8 x 1024 -> 512 weighted by
+                    the served model's SA1/SA2 confidence scores, and an
+                    all-valid random case): identical picks, timings, the
+                    operations bound and the measured latency floor; plus
+                    NMS at Det6D's shape (8 x 256, post_k 256).
+6. serve / det6d  — ``StreamingDetector`` with ``configs/kitti_models/
+                    det6d_car.yaml`` in bf16, ``bench_assets/
+                    det6d_car_params.npz`` and the 8 scans of
+                    ``bench_assets/det6d_car_scans.npz``: finite 9-column
+                    boxes, 3 FPS launches and 1 NMS launch per batch.
+7. parity / det6d — Det6D in fp32 (TF32 off) on 2 scans against
+                    ``de6d_tpu_torch/testdata/det6d_jax_ref.npz``: per-layer
+                    picks, counts, labels, boxes and scores
+                    (:func:`check_det6d_parity`).
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of the kernels, the last line
@@ -40,6 +57,10 @@ CFG = ROOT / "configs/kitti_models/pointpillar.yaml"
 PARAMS = ROOT / "bench_assets/pointpillar_params.npz"
 SCANS = ROOT / "bench_assets/scans.npz"
 REF = ROOT / "de6d_tpu_torch/testdata/pointpillar_jax_ref.npz"
+DET6D_CFG = ROOT / "configs/kitti_models/det6d_car.yaml"
+DET6D_PARAMS = ROOT / "bench_assets/det6d_car_params.npz"
+DET6D_SCANS = ROOT / "bench_assets/det6d_car_scans.npz"
+DET6D_REF = ROOT / "de6d_tpu_torch/testdata/det6d_jax_ref.npz"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # H100 SXM fp32 outside the tensor cores, an FMA counted as two; the
@@ -47,7 +68,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # most at half this rate (33.5e12 per second).
 FP32_FLOPS = 67e12
 PARITY_TOL = 1e-3  # metres / score units, see the parity phase
-SERVE_S = 5.0  # length of the pipelined serve window
+SERVE_S = 5.0  # length of each pipelined serve window
 SERIAL_BATCHES = 10
 PROFILE_BATCHES = 20
 
@@ -92,17 +113,23 @@ def spec_from_cfg(cfg):
     )
 
 
-def build_model(compute_dtype, dev):
+def build_model(compute_dtype, dev, cfg_path=CFG, params=PARAMS):
+    """The port's model for one yaml with its trained weights. In fp32 the
+    slots' own compute-dtype overrides are dropped: fp32 everywhere."""
     from de6d_tpu_torch import weights
     from de6d_tpu_torch.config import cfg_from_yaml_file
     from de6d_tpu_torch.models import build_network
 
-    cfg = cfg_from_yaml_file(CFG)
+    cfg = cfg_from_yaml_file(cfg_path)
     mc = copy.deepcopy(cfg.MODEL)
     mc["COMPUTE_DTYPE"] = compute_dtype
+    if compute_dtype == "float32":
+        for slot in mc.values():
+            if isinstance(slot, dict):
+                slot.pop("_COMPUTE_DTYPE", None)
     model = build_network(mc, len(cfg.CLASS_NAMES), spec_from_cfg(cfg),
                           device=dev)
-    weights.load_into(model, weights.load_flax_npz(PARAMS))
+    weights.load_into(model, weights.load_flax_npz(params))
     return model, mc, len(cfg.CLASS_NAMES)
 
 
@@ -112,6 +139,23 @@ def load_scans():
 
     pts = np.load(SCANS)["points"].astype(np.float32)
     return pts, ~np.all(pts == 0, axis=-1)
+
+
+def load_det6d_scans():
+    """Det6D's 8 scans prepared as bench.py does: real rows (not all zero)
+    clipped into the point cloud range ± 0.01, padding zeroed and masked."""
+    import numpy as np
+
+    from de6d_tpu_torch.config import cfg_from_yaml_file
+
+    pc = [float(x) for x in
+          cfg_from_yaml_file(DET6D_CFG).DATA_CONFIG.POINT_CLOUD_RANGE]
+    pts = np.load(DET6D_SCANS)["points"].astype(np.float32)
+    mask = ~np.all(pts == 0, axis=-1)
+    for d in range(3):
+        pts[..., d] = np.clip(pts[..., d], pc[d] + 0.01, pc[d + 3] - 0.01)
+    pts[~mask] = 0.0
+    return pts, mask
 
 
 # ---------------------------------------------------------------------
@@ -196,9 +240,9 @@ def check_canvas(feat, lin, ny, nx, report):
     }
 
 
-def check_nms(cases, thresh, post_k, report):
-    """cases: {label: (boxes (B, P, 7), counts (B,))}; the first case is
-    the main path's and is timed for the JSON line."""
+def check_nms(cases, thresh, post_k):
+    """cases: {label: (boxes (B, P, 7+), counts (B,))} → a result line per
+    case (keep flags identical to the plain version, timings, bound)."""
     import torch
 
     from de6d_tpu_torch.ops import iou3d
@@ -234,24 +278,15 @@ def check_nms(cases, thresh, post_k, report):
                          > nbytes / HBM_BYTES_PER_S else "bytes"),
             "ious": ious,
             "kept": gc.tolist(),
-            "shape": f"boxes ({b}, {p}, 7), live {counts.tolist()}",
+            "shape": f"boxes ({b}, {p}, {boxes.shape[2]}), live "
+                     f"{counts.tolist()}, post_k {post_k}",
         }
         print(f"kernels: nms {label}: identical selections, "
               f"{lines[label]['ms']:.4f} ms (kernel alone "
               f"{lines[label]['kernel_ms']:.4f} ms), plain "
               f"{lines[label]['plain_ms']:.2f} ms, bound "
               f"{bound_ms:.5f} ms, {ious} IoUs", flush=True)
-    main = lines[next(iter(cases))]
-    report["nms"] = {
-        "name": "nms_keep_batched",
-        "route": "cuda",
-        "source": "de6d_tpu_torch/csrc/nms_fused.cu",
-        "replaces": "de6d_tpu/ops/pallas/nms_fused.py:205",
-        **{k: main[k] for k in ("max_abs_err", "ms", "kernel_ms", "plain_ms",
-                                "bound_ms", "bound_by")},
-        "library_ms": None,
-        "cases": lines,
-    }
+    return lines
 
 
 def phase_kernels(dev, report):
@@ -296,8 +331,19 @@ def phase_kernels(dev, report):
                 counts.clamp(max=CASCADE_K0),
             )
             cases[f"{label}_full"] = (boxes, counts)
-        check_nms(cases, float(nms_cfg["NMS_THRESH"]),
-                  int(nms_cfg["NMS_POST_MAXSIZE"]), report)
+        lines = check_nms(cases, float(nms_cfg["NMS_THRESH"]),
+                          int(nms_cfg["NMS_POST_MAXSIZE"]))
+    main = lines[next(iter(cases))]  # the main path's case
+    report["nms"] = {
+        "name": "nms_keep_batched",
+        "route": "cuda",
+        "source": "de6d_tpu_torch/csrc/nms_fused.cu",
+        "replaces": "de6d_tpu/ops/pallas/nms_fused.py:205",
+        **{k: main[k] for k in ("max_abs_err", "ms", "kernel_ms", "plain_ms",
+                                "bound_ms", "bound_by")},
+        "library_ms": None,
+        "cases": lines,
+    }
     return model, mc
 
 
@@ -305,19 +351,24 @@ def phase_kernels(dev, report):
 # serve and parity
 # ---------------------------------------------------------------------
 
-def phase_serve(model, mc, dev, report, profile):
+def phase_serve(tag, model, mc, nc, pts, mask, kernels, box_width, profile,
+                per_batch=None):
+    """Serve the 8 scans at batch 8 through ``StreamingDetector``: a warm
+    batch, SERIAL_BATCHES synchronous batches, then a SERVE_S pipelined
+    window. ``kernels`` maps a name to a wrapper whose launch count is
+    zeroed before the run and read after it; each must rise (or rise by
+    exactly ``per_batch[name]`` per batch)."""
     import numpy as np
     import torch
 
-    from de6d_tpu_torch.ops.kernels import canvas, nms_fused
     from de6d_tpu_torch.serving.streaming import StreamingDetector
 
-    pts, mask = load_scans()
     frames = [p[m] for p, m in zip(pts, mask)]  # padding rows dropped
-    det = StreamingDetector(model, mc, 3, max_points=pts.shape[1],
-                            device=dev)
-    canvas.scatter_canvas.launches = 0
-    nms_fused.nms_keep_batched.launches = 0
+    det = StreamingDetector(model, mc, nc, max_points=pts.shape[1],
+                            device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
     warm = det.detect_batch(frames)
     lat = []
     for _ in range(SERIAL_BATCHES):
@@ -333,21 +384,25 @@ def phase_serve(model, mc, dev, report, profile):
     while (r := det.result()) is not None:
         results.append(r)
     wall = time.perf_counter() - t0
-    launches = {"canvas": canvas.scatter_canvas.launches,
-                "nms": nms_fused.nms_keep_batched.launches}
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    batches = n_req + 1 + SERIAL_BATCHES
     if len(results) != n_req * len(frames):
-        fail(f"serve: {len(results)} results for {n_req * len(frames)} scans")
+        fail(f"{tag}: {len(results)} results for {n_req * len(frames)} scans")
     for r in warm + results:
-        if not (np.isfinite(r["boxes"]).all() and r["boxes"].shape[1] == 7
+        if not (np.isfinite(r["boxes"]).all()
+                and r["boxes"].shape[1] == box_width
                 and len(r["boxes"]) <= 500):
-            fail("serve: non-finite or malformed boxes")
+            fail(f"{tag}: non-finite or malformed boxes")
     if min(launches.values()) == 0:
-        fail(f"serve: a kernel was not launched on the main path {launches}")
+        fail(f"{tag}: a kernel was not launched on the main path {launches}")
+    for k, per in (per_batch or {}).items():
+        if launches[k] != per * batches:
+            fail(f"{tag}: {launches[k]} {k} launches in {batches} batches, "
+                 f"expected {per} per batch")
     counts = [len(r["boxes"]) for r in results]
     sps = n_req * len(frames) / wall
     serial_ms = float(np.median(lat)) * 1e3
-    batches = n_req + 1 + SERIAL_BATCHES
-    report["serve"] = {
+    out = {
         "scans_per_s": sps,
         "ms_per_scan": 1e3 / sps,
         "window_s": wall,
@@ -360,16 +415,18 @@ def phase_serve(model, mc, dev, report, profile):
         "batches": batches,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
-    print(f"serve: {sps:.2f} scans/s pipelined (depth {det.depth}, "
+    print(f"{tag}: {sps:.2f} scans/s pipelined (depth {det.depth}, "
           f"{n_req} batches in {wall:.2f} s), {1e3 / sps:.3f} ms/scan, "
           f"serial batch-of-8 median {serial_ms:.2f} ms over "
           f"{SERIAL_BATCHES}, mean pred_count {np.mean(counts):.2f}, "
-          f"launches {launches} over {batches} batches", flush=True)
+          f"launches {launches} over {batches} batches, peak "
+          f"{out['peak_mem_gib']:.2f} GiB", flush=True)
     if profile:
-        phase_profile(det, frames, serial_ms, report)
+        out["profile"] = phase_profile(tag, det, frames, serial_ms)
+    return out
 
 
-def phase_profile(det, frames, serial_ms, report):
+def phase_profile(tag, det, frames, serial_ms):
     from torch.profiler import ProfilerActivity, profile
 
     n = PROFILE_BATCHES
@@ -387,14 +444,14 @@ def phase_profile(det, frames, serial_ms, report):
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     idle = 1 - total / 1e3 / serial_ms
-    report["profile"] = {"batches": n, "device_us_per_batch": total,
-                         "idle_share_of_serial_batch": idle,
-                         "top": [list(r) for r in rows[:25]]}
-    print(f"profile: {total:.1f} us device time per batch of 8 over {n} "
-          f"batches ({len(rows)} kernels); idle {idle:.1%} of the median "
-          f"serial batch", flush=True)
-    for name, us, n in rows[:12]:
-        print(f"profile:   {us:10.1f} us  x{n:5.1f}  {name[:90]}")
+    print(f"{tag} profile: {total:.1f} us device time per batch of 8 over "
+          f"{n} batches ({len(rows)} kernels); idle {idle:.1%} of the "
+          f"median serial batch", flush=True)
+    for name, us, c in rows[:12]:
+        print(f"{tag} profile:   {us:10.1f} us  x{c:5.1f}  {name[:90]}")
+    return {"batches": n, "device_us_per_batch": total,
+            "idle_share_of_serial_batch": idle,
+            "top": [list(r) for r in rows[:25]]}
 
 
 def phase_parity(dev, report):
@@ -435,12 +492,271 @@ def phase_parity(dev, report):
           f"{diffs['pred_scores']:.3g} (tol {PARITY_TOL})", flush=True)
 
 
+# ---------------------------------------------------------------------
+# Det6D: FPS kernel, serve, parity
+# ---------------------------------------------------------------------
+
+def fps_weights(scores, gamma):
+    """s-fps weights from confidence logits, as ``run_sampling`` makes
+    them."""
+    import torch
+
+    return torch.sigmoid(scores) ** gamma
+
+
+def check_fps(cases, report):
+    """cases: {label: (xyz (B, N, 3), valid (B, N), npoint, weights or
+    None)}; kernel picks must equal the plain loop's. Times the kernel,
+    the plain loop and its latency floor: npoint block-wide argmax
+    rounds of ``argmax_rounds`` (the pick loop without its distance
+    work)."""
+    import torch
+
+    from de6d_tpu_torch.ops.kernels import fps as fk
+
+    rounds = 4096
+    round_ms = time_ms(lambda: fk.argmax_rounds(rounds, 8, "cuda"),
+                       10) / rounds
+    lines = {}
+    for label, (xyz, valid, npoint, w) in cases.items():
+        got = fk.fps(xyz, valid, npoint, weights=w)
+        ref = fk.fps_plain(xyz, valid, npoint, w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            bad = (got != ref).nonzero()[0].tolist()
+            fail(f"kernels / fps {label}: picks differ from the plain "
+                 f"version, first at (sample, pick) {bad}")
+        b, n = valid.shape
+        weighted = w is not None
+        flops = b * n * (npoint - 1) * fk.FLOPS_PER_POINT[weighted]
+        nbytes = b * n * (12 + 1 + 4 * weighted) + b * npoint * 4
+        t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        lines[label] = {
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: fk.fps(xyz, valid, npoint, weights=w), 5),
+            "plain_ms": time_ms(lambda: fk.fps_plain(xyz, valid, npoint, w),
+                                1, warmup=0),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "latency_floor_ms": (npoint - 1 + weighted) * round_ms,
+            "shape": f"{'s' if weighted else 'd'}-fps ({b}, {n}) -> {npoint}"
+                     f", {int(valid.sum())} valid",
+        }
+        ln = lines[label]
+        print(f"kernels / fps {label}: identical picks, {ln['shape']}: "
+              f"{ln['ms']:.4f} ms, plain {ln['plain_ms']:.1f} ms, bound "
+              f"{ln['bound_ms']:.5f} ms ({ln['bound_by']}), latency floor "
+              f"{ln['latency_floor_ms']:.4f} ms", flush=True)
+    report["fps_round_ms"] = round_ms
+    return lines
+
+
+def phase_det6d_kernels(report):
+    """FPS at the served Det6D model's shapes and inputs, and NMS at its
+    candidate shape."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        select_candidates,
+    )
+    from de6d_tpu_torch.ops.nms import NEG_INF
+
+    model, mc, _ = build_model("bfloat16", "cuda", DET6D_CFG, DET6D_PARAMS)
+    gamma = float(mc["BACKBONE_3D"]["SA_CONFIG"].get("WEIGHT_GAMMA", 1.0))
+    pts, mask = load_det6d_scans()
+    points = torch.from_numpy(pts).cuda()
+    valid = torch.from_numpy(mask).cuda()
+    with torch.no_grad():
+        out = model({"points": points, "points_mask": valid})
+    xyz_l, valid_l = out["point_coords_list"], out["point_valid_list"]
+    scores_l = out["point_scores_list"]
+    rng = np.random.RandomState(0)
+    syn_xyz = torch.from_numpy(rng.uniform(-40, 70, (8, 16384, 3)).astype(
+        np.float32)).cuda()
+    syn_w = torch.from_numpy(rng.random_sample((8, 16384)).astype(
+        np.float32)).cuda()
+    cases = {
+        "sa1_dfps": (points[..., :3].contiguous(), valid, 4096, None),
+        "sa2_sfps": (xyz_l[0], valid_l[0], 1024,
+                     fps_weights(scores_l[0], gamma)),
+        "sa3_sfps": (xyz_l[1], valid_l[1], 512,
+                     fps_weights(scores_l[1], gamma)),
+        "synthetic_sfps_all_valid": (
+            syn_xyz, torch.ones(8, 16384, dtype=torch.bool, device="cuda"),
+            4096, syn_w),
+        "synthetic_dfps_ragged": (
+            syn_xyz[:3, :1000], torch.arange(1000, device="cuda")[None]
+            < torch.tensor([[1000], [700], [0]], device="cuda"), 333, None),
+    }
+    lines = check_fps(cases, report)
+    path = [lines[k] for k in ("sa1_dfps", "sa2_sfps", "sa3_sfps")]
+    report["fps"] = {
+        "name": "fps",
+        "route": "cuda",
+        "source": "de6d_tpu_torch/csrc/fps.cu",
+        "replaces": "de6d_tpu/ops/pallas/fps.py:136",
+        "max_abs_err": 0.0,
+        # per served batch: the SA1 + SA2 + SA3 launches
+        **{k: sum(ln[k] for ln in path) for k in (
+            "ms", "plain_ms", "bound_ms", "latency_floor_ms")},
+        "bound_by": "operations",
+        "library_ms": None,
+        "cases": lines,
+    }
+
+    post_cfg = mc["POST_PROCESSING"]
+    nms_cfg = post_cfg["NMS_CONFIG"]
+    boxes, scores, _ = select_candidates(out, post_cfg)
+    counts = (scores > NEG_INF / 2).sum(-1).to(torch.int32)
+    lines = check_nms({"det6d": (boxes.contiguous(), counts)},
+                      float(nms_cfg["NMS_THRESH"]),
+                      min(int(nms_cfg["NMS_POST_MAXSIZE"]), boxes.shape[1]))
+    report["nms"]["cases"].update(lines)
+    return model, mc
+
+
+def absolute_picks(picks):
+    """Per-layer picks (indices into the previous layer's points) → the
+    same picks as indices into the input scan."""
+    import numpy as np
+
+    out, prev = [], None
+    for p in picks:
+        p = np.asarray(p, np.int64)
+        prev = p if prev is None else np.take_along_axis(prev, p, axis=1)
+        out.append(prev)
+    return out
+
+
+def check_det6d_parity(out, post, ref, gamma=1.0, tol=PARITY_TOL):
+    """Det6D against the JAX reference ``ref`` (the fixture's arrays).
+
+    1. Every port pick is the argmax of its own step key: each layer's
+       picks equal the plain loop replayed on the port's own inputs.
+    2. Picks, as indices into the scan: SA1 (d-fps, no learned input)
+       must be identical. An s-fps layer may part from the reference
+       only at a near-tie: at a sample's first differing pick, the port's
+       key of its own pick exceeds its key of the reference's pick by no
+       more than the relative differences between the two weights on
+       either side (fp32 sums in another order move the confidence
+       scores by ulps) plus 1e-6; the report names layer and pick.
+    3. Counts and labels equal, boxes (9 columns) and scores within
+       ``tol``, whether or not the picks parted.
+    Returns a report; raises RuntimeError where a check fails."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.ops.kernels.fps import INF, fps_plain
+
+    picks = [p.cpu().numpy() for p in out["point_sample_idx_list"]]
+    inputs = [(out["points"][..., :3].float(), out["points_mask"], None)]
+    for k in range(1, len(picks)):
+        inputs.append((out["point_coords_list"][k - 1],
+                       out["point_valid_list"][k - 1],
+                       fps_weights(out["point_scores_list"][k - 1], gamma)))
+    for k, (xyz, valid, w) in enumerate(inputs):
+        replay = fps_plain(xyz, valid, picks[k].shape[1], w).cpu().numpy()
+        if not np.array_equal(replay, picks[k]):
+            raise RuntimeError(f"parity / det6d: SA{k + 1} picks are not "
+                               "the argmax of their own step keys")
+    ref_picks = [ref[f"picks_{k}"] for k in range(len(picks))]
+    got_abs, ref_abs = absolute_picks(picks), absolute_picks(ref_picks)
+    n_diff = [int((g != r).sum()) for g, r in zip(got_abs, ref_abs)]
+    partings = []
+    for b in range(picks[0].shape[0]):
+        first = next(((k, int(np.argmax(g[b] != r[b])))
+                      for k, (g, r) in enumerate(zip(got_abs, ref_abs))
+                      if (g[b] != r[b]).any()), None)
+        if first is None:
+            continue
+        k, j = first
+        if inputs[k][2] is None:
+            raise RuntimeError(f"parity / det6d: SA{k + 1} (d-fps) picks "
+                               f"differ from the reference at sample {b}, "
+                               f"pick {j}")
+        # layers before k agree, so the port's and the reference's layer-k
+        # inputs are the same points in the same order
+        xyz, valid, w_port = (t[b] for t in inputs[k])
+        w_ref = fps_weights(torch.as_tensor(ref[f"scores_{k - 1}"][b],
+                                            device=xyz.device), gamma)
+        md = torch.full_like(w_port, INF)
+        for last in picks[k][b][:j].tolist():
+            dx, dy, dz = (xyz - xyz[last]).unbind(-1)
+            md = torch.minimum(md, (dx * dx + dy * dy) + dz * dz)
+        md = torch.where(valid, md, -1.0)
+        key = torch.where(md >= 0, md * torch.clamp(w_port, min=1e-12), md)
+        p, r = int(picks[k][b][j]), int(ref_picks[k][b][j])
+        gap = float((key[p] - key[r]) / key[p])
+        rel = (w_port / w_ref - 1).abs()
+        explained = float(rel[p] + rel[r]) + 1e-6
+        partings.append({"sample": b, "layer": f"SA{k + 1}", "pick": j,
+                         "port": p, "ref": r, "key_gap": gap,
+                         "weight_diff": explained - 1e-6})
+        print(f"parity / det6d: sample {b} parts from the reference at "
+              f"SA{k + 1} pick {j} (port row {p}, reference row {r}); "
+              f"relative key gap {gap:.3g} vs weight differences "
+              f"{explained - 1e-6:.3g}", flush=True)
+        if not 0.0 <= gap <= explained:
+            raise RuntimeError(
+                f"parity / det6d: SA{k + 1} pick {j} of sample {b} is not a "
+                f"near-tie (key gap {gap:.3g} > {explained:.3g})")
+
+    got = {k: v.cpu().numpy() for k, v in post.items()}
+    if not np.array_equal(got["pred_count"], ref["pred_count"]):
+        raise RuntimeError(f"parity / det6d: counts {got['pred_count']} vs "
+                           f"{ref['pred_count']}")
+    if got["pred_boxes"].shape[-1] != 9:
+        raise RuntimeError("parity / det6d: boxes are not 9-DoF")
+    diffs = {"pred_boxes": 0.0, "pred_scores": 0.0}
+    for b, c in enumerate(ref["pred_count"].tolist()):
+        if not np.array_equal(got["pred_labels"][b, :c],
+                              ref["pred_labels"][b, :c]):
+            raise RuntimeError(f"parity / det6d: labels of scan {b} differ")
+        for k in diffs:
+            d = float(np.abs(got[k][b, :c] - ref[k][b, :c]).max(initial=0))
+            diffs[k] = max(diffs[k], d)
+    if max(diffs.values()) > tol:
+        raise RuntimeError(f"parity / det6d: max abs differences {diffs} > "
+                           f"{tol}")
+    return {"counts": got["pred_count"].tolist(), "max_abs_diff": diffs,
+            "picks_differing": n_diff, "partings": partings}
+
+
+def phase_det6d_parity(report):
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        post_processing,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, mc, nc = build_model("float32", "cuda", DET6D_CFG, DET6D_PARAMS)
+    gamma = float(mc["BACKBONE_3D"]["SA_CONFIG"].get("WEIGHT_GAMMA", 1.0))
+    pts, mask = load_det6d_scans()
+    with torch.no_grad():
+        out = model({"points": torch.from_numpy(pts[:2]).cuda(),
+                     "points_mask": torch.from_numpy(mask[:2]).cuda()})
+        post = post_processing(out, mc["POST_PROCESSING"], nc)
+        res = check_det6d_parity(out, post, dict(np.load(DET6D_REF)), gamma)
+    report["parity_det6d"] = res
+    same = "identical" if not res["partings"] else (
+        f"parting at near-ties only ({res['picks_differing']} differing)")
+    print(f"parity / det6d: fp32 (TF32 off) on 2 scans matches the JAX "
+          f"reference: picks per layer {same}, counts {res['counts']}, max "
+          f"|d box| {res['max_abs_diff']['pred_boxes']:.3g}, max |d score| "
+          f"{res['max_abs_diff']['pred_scores']:.3g} (tol {PARITY_TOL})",
+          flush=True)
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
-    from de6d_tpu_torch.ops.kernels import build
+    from de6d_tpu_torch.ops.kernels import build, canvas, fps, nms_fused
 
     profile = "--profile" in sys.argv[1:]
     t_start = time.perf_counter()
@@ -453,13 +769,27 @@ def main():
     print(f"build: {so.name} in {build.build_info['seconds']:.1f} s "
           f"(cached: {build.build_info['cached']})", flush=True)
     for line in build.build_info.get("ptxas", "").splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "Compiling entry" in line
+                or "spill" in line):
             print(f"build:   {line.strip()}")
 
+    nms = nms_fused.nms_keep_batched
     model, mc = phase_kernels("cuda", report)
-    phase_serve(model, mc, "cuda", report, profile)
+    pts, mask = load_scans()
+    report["serve"] = phase_serve(
+        "serve", model, mc, 3, pts, mask,
+        {"canvas": canvas.scatter_canvas, "nms": nms}, 7, profile)
     del model
     phase_parity("cuda", report)
+
+    model, mc = phase_det6d_kernels(report)
+    pts, mask = load_det6d_scans()
+    report["serve_det6d"] = phase_serve(
+        "serve / det6d", model, mc, 1, pts, mask,
+        {"fps": fps.fps, "nms": nms}, 9, profile,
+        per_batch={"fps": 3, "nms": 1})
+    del model
+    phase_det6d_parity(report)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -468,13 +798,16 @@ def main():
     ).stdout.strip().splitlines()[0]
     report["nvidia_smi"] = smi
     report["seconds"] = time.perf_counter() - t_start
-    launches = report["serve"]["launches"]
+    by_path = {"pointpillar": report["serve"]["launches"],
+               "det6d": report["serve_det6d"]["launches"]}
     kernels = []
-    for key in ("canvas", "nms"):
+    for key in ("canvas", "nms", "fps"):
         k = {f: report[key][f] for f in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        k["launches"] = launches[key]
+        per = {p: n[key] for p, n in by_path.items() if key in n}
+        k["launches"] = sum(per.values())
+        k["launches_by_path"] = per
         kernels.append(k)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,3 +1,4 @@
 from .anchor_head import AnchorHeadSingle
+from .point_head_vote import PointHeadBox6DVote
 
-__all__ = ["AnchorHeadSingle"]
+__all__ = ["AnchorHeadSingle", "PointHeadBox6DVote"]

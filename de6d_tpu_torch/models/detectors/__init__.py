@@ -1,3 +1,4 @@
+from . import det6d  # noqa: F401  (registers Det6D)
 from . import pointpillar  # noqa: F401  (registers PointPillar)
 from .detector3d_template import DatasetSpec, post_processing
 

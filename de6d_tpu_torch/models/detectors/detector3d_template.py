@@ -3,8 +3,8 @@
 the module slots, ``maybe_voxelize``, ``post_processing``).
 
 The batch is a dict of fixed-shape tensors; validity is carried by
-masks and counts. Voxelization runs on the device at the top of the
-forward pass. ``post_processing`` returns fixed-size (B, post) buffers
+masks and counts. Models with a VFE voxelize on the device at the top
+of the forward pass. ``post_processing`` returns fixed-size (B, post) buffers
 plus counts.
 """
 
@@ -17,7 +17,9 @@ from torch import nn
 
 from ...ops import nms as nms_ops
 from ...ops import voxelize as voxelize_ops
-from ...registry import BACKBONES_2D, DENSE_HEADS, MAP_TO_BEV, VFE
+from ...registry import (
+    BACKBONES_2D, BACKBONES_3D, DENSE_HEADS, MAP_TO_BEV, POINT_HEADS, VFE,
+)
 from ..dense_heads.anchor_head import decode_boxes_with_dir
 
 
@@ -44,8 +46,9 @@ class DatasetSpec:
 
 
 class Detector3DTemplate(nn.Module):
-    """VFE → MAP_TO_BEV → BACKBONE_2D → DENSE_HEAD, each reading and
-    writing the shared batch dict (the slots this slice ports)."""
+    """VFE → BACKBONE_3D → MAP_TO_BEV → BACKBONE_2D → DENSE_HEAD →
+    POINT_HEAD, each present slot reading and writing the shared batch
+    dict (PFE and ROI_HEAD are not ported yet and raise)."""
 
     def __init__(self, model_cfg, num_class, dataset):
         super().__init__()
@@ -54,36 +57,66 @@ class Detector3DTemplate(nn.Module):
         self.spec = dataset
         spec = dataset
         cfg = model_cfg
-        unported = [s for s in ("BACKBONE_3D", "PFE", "POINT_HEAD", "ROI_HEAD")
-                    if s in cfg]
+        unported = [s for s in ("PFE", "ROI_HEAD") if s in cfg]
         if unported:
             raise NotImplementedError(f"module slots not ported yet: {unported}")
-        self.vfe = VFE.get(cfg["VFE"]["NAME"])(
-            model_cfg=cfg["VFE"], num_point_features=spec.point_feature_dim,
-            voxel_size=spec.voxel_size,
-            point_cloud_range=spec.point_cloud_range,
-        )
-        self.map_to_bev = MAP_TO_BEV.get(cfg["MAP_TO_BEV"]["NAME"])(
-            model_cfg=cfg["MAP_TO_BEV"], grid_size=spec.grid_size
-        )
-        self.backbone_2d = BACKBONES_2D.get(cfg["BACKBONE_2D"]["NAME"])(
-            model_cfg=cfg["BACKBONE_2D"],
-            input_channels=self.map_to_bev.num_bev_features,
-        )
-        head_cfg = cfg["DENSE_HEAD"]
-        self.dense_head = DENSE_HEADS.get(head_cfg["NAME"])(
-            model_cfg=head_cfg,
-            input_channels=self.backbone_2d.num_bev_features,
-            num_class=1 if head_cfg.get("CLASS_AGNOSTIC", False)
-            else num_class,
-            class_names=tuple(spec.class_names),
-            grid_size=spec.grid_size,
-            point_cloud_range=tuple(spec.point_cloud_range),
-        )
-        self.module_names = ["vfe", "map_to_bev", "backbone_2d", "dense_head"]
+        self.module_names = []
+        if "VFE" in cfg:
+            self.vfe = VFE.get(cfg["VFE"]["NAME"])(
+                model_cfg=cfg["VFE"],
+                num_point_features=spec.point_feature_dim,
+                voxel_size=spec.voxel_size,
+                point_cloud_range=spec.point_cloud_range,
+            )
+            self.module_names.append("vfe")
+        if "BACKBONE_3D" in cfg:
+            # point backbones take the pc range for the fused SA path
+            self.backbone_3d = BACKBONES_3D.get(cfg["BACKBONE_3D"]["NAME"])(
+                model_cfg=cfg["BACKBONE_3D"],
+                input_channels=(self.vfe.output_feature_dim if "VFE" in cfg
+                                else spec.point_feature_dim),
+                point_cloud_range=tuple(spec.point_cloud_range),
+            )
+            self.module_names.append("backbone_3d")
+        if "MAP_TO_BEV" in cfg:
+            self.map_to_bev = MAP_TO_BEV.get(cfg["MAP_TO_BEV"]["NAME"])(
+                model_cfg=cfg["MAP_TO_BEV"], grid_size=spec.grid_size
+            )
+            self.module_names.append("map_to_bev")
+        if "BACKBONE_2D" in cfg:
+            self.backbone_2d = BACKBONES_2D.get(cfg["BACKBONE_2D"]["NAME"])(
+                model_cfg=cfg["BACKBONE_2D"],
+                input_channels=(self.map_to_bev.num_bev_features
+                                if "MAP_TO_BEV" in cfg else 0),
+            )
+            self.module_names.append("backbone_2d")
+        if "DENSE_HEAD" in cfg:
+            head_cfg = cfg["DENSE_HEAD"]
+            self.dense_head = DENSE_HEADS.get(head_cfg["NAME"])(
+                model_cfg=head_cfg,
+                input_channels=self.backbone_2d.num_bev_features,
+                num_class=1 if head_cfg.get("CLASS_AGNOSTIC", False)
+                else num_class,
+                class_names=tuple(spec.class_names),
+                grid_size=spec.grid_size,
+                point_cloud_range=tuple(spec.point_cloud_range),
+            )
+            self.module_names.append("dense_head")
+        if "POINT_HEAD" in cfg:
+            head_cfg = cfg["POINT_HEAD"]
+            self.point_head = POINT_HEADS.get(head_cfg["NAME"])(
+                model_cfg=head_cfg,
+                input_channels=self.backbone_3d.num_point_features,
+                num_class=1 if head_cfg.get("CLASS_AGNOSTIC", False)
+                else num_class,
+            )
+            self.module_names.append("point_head")
 
     def maybe_voxelize(self, batch_dict):
-        """Device voxelization of padded (B, N, C) points."""
+        """Device voxelization of padded (B, N, C) points, for models with
+        a VFE."""
+        if "VFE" not in self.model_cfg:
+            return batch_dict
         spec = self.spec
         points = batch_dict["points"]
         mask = batch_dict.get("points_mask")
@@ -106,9 +139,11 @@ class Detector3DTemplate(nn.Module):
 
 
 def select_candidates(batch_dict, post_cfg):
-    """Score gate + exact top-``NMS_PRE_MAXSIZE`` + decode of only those
-    candidates. Returns (cand_boxes (B, P, 7), top_scores (B, P),
-    cand_labels (B, P)); gated slots score ``NEG_INF``."""
+    """Score gate + exact top-``NMS_PRE_MAXSIZE`` + the candidates' boxes.
+    Returns (cand_boxes (B, P, 7+), top_scores (B, P), cand_labels
+    (B, P)); gated slots score ``NEG_INF``. Anchor heads decode only the
+    gathered candidates (``lazy_box_decode``); point heads hand over
+    decoded ``batch_box_preds`` (9 columns for Det6D)."""
     cls_preds = batch_dict["batch_cls_preds"]  # (B, A, nc)
     if not batch_dict.get("cls_preds_normalized", False):
         cls_preds = torch.sigmoid(cls_preds)
@@ -118,12 +153,19 @@ def select_candidates(batch_dict, post_cfg):
     labels = cls_preds.argmax(dim=-1) + 1  # first max on ties
     masked = torch.where(scores >= score_thresh, scores, nms_ops.NEG_INF)
     pre = min(int(nms_cfg["NMS_PRE_MAXSIZE"]), scores.shape[1])
-    lazy = batch_dict["lazy_box_decode"]
-    a_loc = int(lazy["a_loc"])
-    if masked.shape[1] >= 4 * pre * a_loc:
+    lazy = batch_dict.get("lazy_box_decode")
+    a_loc = int(lazy["a_loc"]) if lazy is not None else 0
+    if a_loc and masked.shape[1] >= 4 * pre * a_loc:
         top_scores, order = nms_ops.top_k_two_stage(masked, pre, a_loc)
     else:
         top_scores, order = nms_ops.stable_top_k(masked, pre)
+    cand_labels = torch.gather(labels, 1, order)
+    if lazy is None:
+        box_preds = batch_dict["batch_box_preds"]  # (B, A, 7+)
+        cand_boxes = torch.gather(
+            box_preds, 1, order[..., None].expand(-1, -1, box_preds.shape[-1])
+        )
+        return cand_boxes, top_scores, cand_labels
     # decode only the gathered candidates: the cell row, then the
     # candidate's anchor slot within it
     cell = torch.div(order, a_loc, rounding_mode="floor")
@@ -151,13 +193,12 @@ def select_candidates(batch_dict, post_cfg):
     cand_boxes = decode_boxes_with_dir(
         lazy["coder"], lazy["dir_cfg"], raw_rows, dir_rows, anch_rows
     )
-    cand_labels = torch.gather(labels, 1, order)
     return cand_boxes, top_scores, cand_labels
 
 
 def post_processing(batch_dict, post_cfg, num_class: int):
     """Class-agnostic rotated NMS per sample with fixed-size outputs:
-    (B, post) ``pred_boxes`` (…, 7), ``pred_scores``, ``pred_labels``
+    (B, post) ``pred_boxes`` (…, 7+), ``pred_scores``, ``pred_labels``
     (1-based) and ``pred_count`` (B,)."""
     nms_cfg = post_cfg["NMS_CONFIG"]
     iou_kind = (

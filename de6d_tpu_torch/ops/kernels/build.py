@@ -8,7 +8,8 @@ and is loaded with ``ctypes``; nothing here includes PyTorch's headers.
 The build happens on first use, never at import.
 
 ``-fmad=false`` keeps ``nvcc`` from contracting ``a*b+c`` into FMAs so
-the NMS kernel's IoU rounds exactly like the plain PyTorch version.
+the NMS kernel's IoU and the FPS kernel's distances round exactly like
+their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("canvas.cu", "nms_fused.cu")
+SOURCES = ("canvas.cu", "nms_fused.cu", "fps.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
@@ -117,6 +118,10 @@ def lib() -> ctypes.CDLL:
                 p, p, p, i, i, f, i, i, p,
             ]
             handle.de6d_nms_keep_batched.restype = i
+            handle.de6d_fps.argtypes = [p, p, p, p, i, i, i, p]
+            handle.de6d_fps.restype = i
+            handle.de6d_fps_argmax_rounds.argtypes = [i, i, p, p]
+            handle.de6d_fps_argmax_rounds.restype = i
             _lib = handle
     return _lib
 

@@ -7,9 +7,12 @@ once the work is queued on the card. ``result()`` returns the oldest
 finished frame, waiting on the card only for it. At most ``depth``
 batches are in flight.
 
-One host sync happens inside ``submit``: the NMS prefix cascade decides
-on the host whether the full-width NMS pass is needed
-(``ops/nms.py:nms_candidates_batched``).
+Boxes come back as the model makes them: (n, 7) for anchor heads,
+(n, 9) for Det6D's full pose. For models with more than 1024 NMS
+candidates (PointPillars) one host sync happens inside ``submit``: the
+NMS prefix cascade decides on the host whether the full-width NMS pass
+is needed (``ops/nms.py:nms_candidates_batched``); Det6D's 256
+candidates skip the cascade.
 """
 
 from __future__ import annotations

@@ -1,7 +1,10 @@
-"""Box coders (counterpart of ``de6d_tpu/utils/box_coder_utils.py``;
-the slice needs ``ResidualCoder`` only)."""
+"""Box coders (counterpart of ``de6d_tpu/utils/box_coder_utils.py``):
+``ResidualCoder`` (anchor heads) and the decode of
+``PointBinResidual6DCoder`` (the Det6D vote head)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -81,6 +84,66 @@ class ResidualCoder:
         return torch.stack(
             [xg, yg, zg, dxg, dyg, dzg, rg] + extras, dim=-1
         )
+
+
+def _point_offsets_decode(offsets, points):
+    """Point-anchored centers and sizes without mean sizes: offsets
+    (..., 6+) + points (..., 3) → [x, y, z, dx, dy, dz]."""
+    return [offsets[..., 0] + points[..., 0], offsets[..., 1] + points[..., 1],
+            offsets[..., 2] + points[..., 2], torch.exp(offsets[..., 3]),
+            torch.exp(offsets[..., 4]), torch.exp(offsets[..., 5])]
+
+
+def decode_angle_from_bins(cls_logits, res):
+    """(..., bins) bin scores + per-bin residuals → angle: (first argmax
+    bin + its residual) * 2π / bins."""
+    num_bins = cls_logits.shape[-1]
+    idx = torch.argmax(cls_logits, dim=-1)
+    res_sel = torch.gather(res, -1, idx[..., None])[..., 0]
+    return (idx.to(res.dtype) + res_sel) * (2.0 * math.pi / num_bins)
+
+
+@BOX_CODERS.register
+class PointBinResidual6DCoder:
+    """Det6D ground-aware full-pose point coder, decode only. Code:
+    [6 offsets | yaw bin cls x B | yaw bin res x B | pitch cls, pitch res
+    (ground aware) or pitch]. Decode zeroes the pitch where
+    sigmoid(pitch cls) < 0.5; roll is always 0. Output (..., 9). The
+    configs that use it set ``use_mean_size: False`` and no ``minus``;
+    those variants are not ported."""
+
+    def __init__(self, use_mean_size=True, ground_aware=True,
+                 angle_bin_num=12, minus=False, threshold=10, factor=45,
+                 **kwargs):
+        if use_mean_size or minus:
+            raise NotImplementedError(
+                "PointBinResidual6DCoder: mean sizes and minus pitch coding "
+                "are not ported yet")
+        self.ground_aware = ground_aware
+        self.angle_bin_num = angle_bin_num
+        # radians as Python floats, rounded to float32 where they meet a
+        # tensor (as the JAX package's np.deg2rad constants are)
+        self.ground_threshold = math.radians(threshold)
+        self.ground_factor = math.radians(factor)
+        self.code_size = 6 + 2 * angle_bin_num + (2 if ground_aware else 1)
+
+    def decode_pitch_roll(self, code):
+        """code (..., 2 | 1) → (pitch, roll) with inference-time gating."""
+        if self.ground_aware:
+            cls_logit, res = code[..., 0], code[..., 1]
+            pitch = -self.ground_threshold - res * self.ground_factor
+            pitch = torch.where(torch.sigmoid(cls_logit) < 0.5, 0.0, pitch)
+        else:
+            pitch = code[..., 0]
+        return pitch, torch.zeros_like(pitch)
+
+    def decode(self, encodings, points, pred_classes=None):
+        nb = self.angle_bin_num
+        out = _point_offsets_decode(encodings, points)
+        rz = decode_angle_from_bins(encodings[..., 6:6 + nb],
+                                    encodings[..., 6 + nb:6 + 2 * nb])
+        pitch, roll = self.decode_pitch_roll(encodings[..., 6 + 2 * nb:])
+        return torch.stack(out + [rz, pitch, roll], dim=-1)
 
 
 def build_box_coder(name, **kwargs):

@@ -4,7 +4,9 @@
 ``params/backbone_2d/ConvBlock_0/Conv_0/kernel`` and
 ``batch_stats/vfe/PFNLayer_0/bn/mean``, as ``bench_assets/*_params.npz``
 stores them). ``flax_to_torch`` turns that dict into a state dict for a
-port model whose submodule paths mirror the flax module names.
+port model whose submodule paths mirror the flax module names; a
+``ModuleList`` entry ``sa_modules.0`` is flax's list member
+``sa_modules_0``.
 
 Layout mapping, by the layer's ``FLAX_KIND``:
   * Dense: kernel (in, out) → weight (out, in);
@@ -18,6 +20,7 @@ Layout mapping, by the layer's ``FLAX_KIND``:
 
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
 
 import numpy as np
@@ -49,6 +52,12 @@ def _flax_entries(kind: str, path: str):
     return [("weight", f"{p}/kernel", kernel), ("bias", f"{p}/bias", None)]
 
 
+def flax_path(torch_name: str) -> str:
+    """Torch submodule path → flax path: ``a.b_1.0.c`` → ``a/b_1_0/c``
+    (flax names list members ``<attr>_<i>``)."""
+    return re.sub(r"\.(\d+)(?=\.|$)", r"_\1", torch_name).replace(".", "/")
+
+
 def flax_to_torch(flat: dict, model: torch.nn.Module) -> OrderedDict:
     """Map flat flax variables onto ``model``'s state dict. Every flax key
     must be consumed and every shape must match, else ``ValueError``."""
@@ -59,7 +68,7 @@ def flax_to_torch(flat: dict, model: torch.nn.Module) -> OrderedDict:
         kind = getattr(module, "FLAX_KIND", None)
         if kind is None:
             continue
-        for attr, key, conv in _flax_entries(kind, name.replace(".", "/")):
+        for attr, key, conv in _flax_entries(kind, flax_path(name)):
             tname = f"{name}.{attr}" if name else attr
             if tname not in target:
                 if key in flat:

@@ -1,19 +1,19 @@
 """The hand-written CUDA kernels against their plain PyTorch versions,
-on the card at the main path's shapes. This file imports no JAX, so it
+on the card at the main paths' shapes. This file imports no JAX, so it
 runs where the card is:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
 
-Elsewhere every test skips (no card). Both kernels are exact copies of
-their plain versions' arithmetic: canvas rows are copied bytes, and the
-NMS kernel's IoU is built with -fmad=false, so the comparisons have no
-tolerance."""
+Elsewhere every test skips (no card). Every kernel is an exact copy of
+its plain version's arithmetic: canvas rows are copied bytes, the NMS
+IoU and the FPS distances are built with -fmad=false, and FPS picks are
+indices, so the comparisons have no tolerance."""
 
 import numpy as np
 import pytest
 import torch
 
-from de6d_tpu_torch.ops.kernels import canvas, nms_fused
+from de6d_tpu_torch.ops.kernels import canvas, fps, nms_fused
 from torch_fixtures import canvas_inputs, cuda_device, nms_boxes  # noqa: F401
 
 
@@ -35,7 +35,8 @@ def test_canvas_kernel_equals_plain(cuda_device, dtype):  # noqa: F811
 @pytest.mark.cuda
 @pytest.mark.parametrize("p,post_k,spread", [(1024, 500, 40.0),
                                              (4096, 500, 80.0),
-                                             (512, 512, 12.0)])
+                                             (512, 512, 12.0),
+                                             (256, 256, 20.0)])  # Det6D
 def test_nms_kernel_equals_plain(cuda_device, p, post_k, spread):  # noqa: F811
     rng = np.random.RandomState(4)
     boxes = torch.from_numpy(nms_boxes(rng, 8, p, spread=spread)).to(
@@ -52,6 +53,31 @@ def test_nms_kernel_equals_plain(cuda_device, p, post_k, spread):  # noqa: F811
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 4096, 16384])
+@pytest.mark.parametrize("weighted", [False, True], ids=["d-fps", "s-fps"])
+def test_fps_kernel_equals_plain(cuda_device, weighted, n):  # noqa: F811
+    """Clustered points (near-equal keys), a ragged valid mask with one
+    empty sample, npoint above the valid count of another."""
+    rng = np.random.RandomState(n)
+    b, npoint = 4, n // 4
+    xyz = rng.uniform(-40, 70, (b, n, 3)).astype(np.float32)
+    xyz[:, : n // 2] = xyz[:, :1] + rng.normal(0, 0.5, (b, n // 2, 3))
+    valid = np.ones((b, n), bool)
+    valid[1, n // 8:] = False  # fewer valid points than picks
+    valid[2] = False
+    xyz_t = torch.from_numpy(xyz).to(cuda_device)
+    valid_t = torch.from_numpy(valid).to(cuda_device)
+    w = (torch.from_numpy(rng.random_sample((b, n)).astype(np.float32))
+         .to(cuda_device) if weighted else None)
+    before = fps.fps.launches
+    got = fps.fps(xyz_t, valid_t, npoint, weights=w)
+    torch.cuda.synchronize()
+    assert fps.fps.launches == before + 1
+    assert torch.equal(got, fps.fps_plain(xyz_t, valid_t, npoint, w))
+    assert (got[2] == 0).all()
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_bad_input(cuda_device):  # noqa: F811
     f = torch.zeros(1, 4, 6, device=cuda_device)  # 24-byte rows
     lin = torch.zeros(1, 4, dtype=torch.int32, device=cuda_device)
@@ -61,3 +87,9 @@ def test_wrappers_reject_bad_input(cuda_device):  # noqa: F811
         nms_fused.nms_keep_batched(
             torch.zeros(1, 100, 7, device=cuda_device),
             torch.zeros(1, dtype=torch.int32, device=cuda_device), 0.1)
+    with pytest.raises(ValueError):
+        fps.fps(torch.zeros(1, 16385, 3, device=cuda_device),
+                torch.ones(1, 16385, dtype=torch.bool, device=cuda_device), 4)
+    with pytest.raises(TypeError):
+        fps.fps(torch.zeros(1, 8, 3, device=cuda_device, dtype=torch.float64),
+                torch.ones(1, 8, dtype=torch.bool, device=cuda_device), 4)

@@ -96,6 +96,40 @@ def test_bench_assets_load_into_full_model():
     model.load_state_dict(sd, strict=True)
 
 
+def test_det6d_bench_assets_load_into_full_model():
+    """Every one of the 225 flax arrays (``sa_modules_<i>`` list members
+    included) lands in the port's Det6D, every shape checked."""
+    from de6d_tpu_torch.config import cfg_from_yaml_file
+    from de6d_tpu_torch.models import build_network
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        DatasetSpec,
+    )
+
+    cfg = cfg_from_yaml_file(ROOT / "configs/kitti_models/det6d_car.yaml")
+    model = build_network(cfg.MODEL, 1, DatasetSpec(
+        class_names=tuple(cfg.CLASS_NAMES), point_feature_dim=4,
+        point_cloud_range=tuple(cfg.DATA_CONFIG.POINT_CLOUD_RANGE)),
+        device="cpu")
+    flat = weights.load_flax_npz(ROOT / "bench_assets/det6d_car_params.npz")
+    assert len(flat) == 225
+    sd = weights.flax_to_torch(flat, model)
+    assert len(sd) == 225 == len(model.state_dict())
+    np.testing.assert_array_equal(
+        sd["backbone_3d.sa_modules.1.Dense_0.weight"].numpy(),
+        flat["params/backbone_3d/sa_modules_1/Dense_0/kernel"].T)
+    model.load_state_dict(sd, strict=True)
+
+
+@pytest.mark.parametrize("name,path", [
+    ("backbone_3d.sa_modules.0.SharedMLP_4.Dense_0",
+     "backbone_3d/sa_modules_0/SharedMLP_4/Dense_0"),
+    ("sa_modules.12", "sa_modules_12"),
+    ("backbone_2d.ConvBlock_0.Conv_0", "backbone_2d/ConvBlock_0/Conv_0"),
+])
+def test_flax_path_names_list_members(name, path):
+    assert weights.flax_path(name) == path
+
+
 def test_build_network_defaults_to_cuda():
     from de6d_tpu_torch import resolve_device
 
