@@ -37,6 +37,23 @@ Phases, one status line each; any failure exits non-zero:
                     picks, counts, labels, boxes and scores
                     (:func:`check_det6d_parity`).
 
+8. kernels / nms_mask — ``nms_suppression_mask`` and ``nms_resolve``
+                    against their plain versions, whole outputs equal: the
+                    8 x 9000 proposal candidates of the served PointRCNN
+                    model (all live), its 8 x 100 final candidates, ragged
+                    counts including 0, and P = 1, 63, 64, 65, 130; plus
+                    the FPS kernel at PointRCNN's shapes (4 backbone
+                    layers, 800 RoI point sets with empty ones).
+9. serve / pointrcnn — ``StreamingDetector`` with ``configs/kitti_models/
+                    pointrcnn.yaml`` in bf16 on the 8 scans of
+                    ``bench_assets/scans.npz``, weights drawn from a numpy
+                    seed (the repository holds no trained PointRCNN
+                    weights): per batch 2 mask launches, 2 resolves, 6 FPS
+                    launches and no fused-NMS launch.
+10. parity / pointrcnn — PointRCNN in fp32 (TF32 off) on 2 scans with the
+                    same seeded weights against ``de6d_tpu_torch/testdata/
+                    pointrcnn_jax_ref.npz`` (:func:`check_pointrcnn_parity`).
+
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -61,6 +78,9 @@ DET6D_CFG = ROOT / "configs/kitti_models/det6d_car.yaml"
 DET6D_PARAMS = ROOT / "bench_assets/det6d_car_params.npz"
 DET6D_SCANS = ROOT / "bench_assets/det6d_car_scans.npz"
 DET6D_REF = ROOT / "de6d_tpu_torch/testdata/det6d_jax_ref.npz"
+RCNN_CFG = ROOT / "configs/kitti_models/pointrcnn.yaml"
+RCNN_REF = ROOT / "de6d_tpu_torch/testdata/pointrcnn_jax_ref.npz"
+RCNN_SEED = 2026  # numpy seed of PointRCNN's weights (weights.seeded_flax)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # H100 SXM fp32 outside the tensor cores, an FMA counted as two; the
@@ -100,22 +120,26 @@ def spec_from_cfg(cfg):
         DatasetSpec,
     )
 
-    vox = [p for p in cfg.DATA_CONFIG.DATA_PROCESSOR
-           if p["NAME"] == "transform_points_to_voxels"][0]
-    return DatasetSpec(
+    kw = dict(
         class_names=tuple(cfg.CLASS_NAMES),
         point_feature_dim=4,
         point_cloud_range=tuple(float(x) for x in
                                 cfg.DATA_CONFIG.POINT_CLOUD_RANGE),
-        voxel_size=tuple(float(x) for x in vox["VOXEL_SIZE"]),
-        max_voxels=int(vox["MAX_NUMBER_OF_VOXELS"]["test"]),
-        max_points_per_voxel=int(vox["MAX_POINTS_PER_VOXEL"]),
     )
+    for vox in cfg.DATA_CONFIG.DATA_PROCESSOR:  # point models have none
+        if vox["NAME"] == "transform_points_to_voxels":
+            kw.update(
+                voxel_size=tuple(float(x) for x in vox["VOXEL_SIZE"]),
+                max_voxels=int(vox["MAX_NUMBER_OF_VOXELS"]["test"]),
+                max_points_per_voxel=int(vox["MAX_POINTS_PER_VOXEL"]),
+            )
+    return DatasetSpec(**kw)
 
 
 def build_model(compute_dtype, dev, cfg_path=CFG, params=PARAMS):
-    """The port's model for one yaml with its trained weights. In fp32 the
-    slots' own compute-dtype overrides are dropped: fp32 everywhere."""
+    """The port's model for one yaml with its trained weights, or, with
+    ``params`` an int, with weights drawn from that numpy seed. In fp32
+    the slots' own compute-dtype overrides are dropped: fp32 everywhere."""
     from de6d_tpu_torch import weights
     from de6d_tpu_torch.config import cfg_from_yaml_file
     from de6d_tpu_torch.models import build_network
@@ -129,7 +153,9 @@ def build_model(compute_dtype, dev, cfg_path=CFG, params=PARAMS):
                 slot.pop("_COMPUTE_DTYPE", None)
     model = build_network(mc, len(cfg.CLASS_NAMES), spec_from_cfg(cfg),
                           device=dev)
-    weights.load_into(model, weights.load_flax_npz(params))
+    flat = (weights.seeded_flax(model, params) if isinstance(params, int)
+            else weights.load_flax_npz(params))
+    weights.load_into(model, flat)
     return model, mc, len(cfg.CLASS_NAMES)
 
 
@@ -141,21 +167,30 @@ def load_scans():
     return pts, ~np.all(pts == 0, axis=-1)
 
 
-def load_det6d_scans():
-    """Det6D's 8 scans prepared as bench.py does: real rows (not all zero)
-    clipped into the point cloud range ± 0.01, padding zeroed and masked."""
+def load_clipped_scans(cfg_path, scans):
+    """8 scans prepared for a point model as bench.py does: real rows (not
+    all zero) clipped into the config's point cloud range ± 0.01, padding
+    zeroed and masked."""
     import numpy as np
 
     from de6d_tpu_torch.config import cfg_from_yaml_file
 
     pc = [float(x) for x in
-          cfg_from_yaml_file(DET6D_CFG).DATA_CONFIG.POINT_CLOUD_RANGE]
-    pts = np.load(DET6D_SCANS)["points"].astype(np.float32)
+          cfg_from_yaml_file(cfg_path).DATA_CONFIG.POINT_CLOUD_RANGE]
+    pts = np.load(scans)["points"].astype(np.float32)
     mask = ~np.all(pts == 0, axis=-1)
     for d in range(3):
         pts[..., d] = np.clip(pts[..., d], pc[d] + 0.01, pc[d + 3] - 0.01)
     pts[~mask] = 0.0
     return pts, mask
+
+
+def load_det6d_scans():
+    return load_clipped_scans(DET6D_CFG, DET6D_SCANS)
+
+
+def load_rcnn_scans():
+    return load_clipped_scans(RCNN_CFG, SCANS)
 
 
 # ---------------------------------------------------------------------
@@ -357,7 +392,8 @@ def phase_serve(tag, model, mc, nc, pts, mask, kernels, box_width, profile,
     batch, SERIAL_BATCHES synchronous batches, then a SERVE_S pipelined
     window. ``kernels`` maps a name to a wrapper whose launch count is
     zeroed before the run and read after it; each must rise (or rise by
-    exactly ``per_batch[name]`` per batch)."""
+    exactly ``per_batch[name]`` per batch, which may be 0 for a kernel the
+    path must not reach)."""
     import numpy as np
     import torch
 
@@ -393,9 +429,10 @@ def phase_serve(tag, model, mc, nc, pts, mask, kernels, box_width, profile,
                 and r["boxes"].shape[1] == box_width
                 and len(r["boxes"]) <= 500):
             fail(f"{tag}: non-finite or malformed boxes")
-    if min(launches.values()) == 0:
+    per_batch = per_batch or {}
+    if any(n == 0 for k, n in launches.items() if per_batch.get(k, 1)):
         fail(f"{tag}: a kernel was not launched on the main path {launches}")
-    for k, per in (per_batch or {}).items():
+    for k, per in per_batch.items():
         if launches[k] != per * batches:
             fail(f"{tag}: {launches[k]} {k} launches in {batches} batches, "
                  f"expected {per} per batch")
@@ -751,12 +788,422 @@ def phase_det6d_parity(report):
           flush=True)
 
 
+# ---------------------------------------------------------------------
+# PointRCNN: suppression-mask kernel, serve, parity
+# ---------------------------------------------------------------------
+
+def timed(fn):
+    """(result, device ms) of one call of ``fn``."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def random_boxes(rng, b, p, spread=12.0, cluster=80):
+    """(b, p, 7) rotated boxes with a dense cluster at the front, so that
+    suppression chains cross the 64-column words."""
+    import numpy as np
+
+    boxes = np.zeros((b, p, 7), np.float32)
+    boxes[..., 0:2] = rng.uniform(-spread, spread, (b, p, 2))
+    boxes[..., 2] = rng.uniform(-1, 1, (b, p))
+    boxes[..., 3:5] = rng.uniform(1.5, 4, (b, p, 2))
+    boxes[..., 5] = 1.5
+    boxes[..., 6] = rng.uniform(-np.pi, np.pi, (b, p))
+    cluster = min(cluster, p)
+    boxes[:, :cluster, 0:2] = rng.uniform(-3, 3, (b, cluster, 2))
+    return boxes
+
+
+def check_nms_mask(cases):
+    """cases: {label: (boxes (B, P, 7+), counts (B,), thresh, post)} → a
+    result line per case. The kernel's whole bit mask must equal the
+    plain version's, and the resolve kernel's selections and counts its
+    plain version's (each on its own side's mask)."""
+    import torch
+
+    from de6d_tpu_torch.ops import iou3d
+    from de6d_tpu_torch.ops.kernels import nms_mask as nm
+
+    lines = {}
+    for label, (boxes, counts, thresh, post) in cases.items():
+        packed = iou3d.pack_bev(boxes[..., :7]).contiguous()
+        got = nm.nms_suppression_mask(packed, counts, thresh)
+        ref, plain_ms = timed(
+            lambda: nm.nms_suppression_mask_plain(packed, counts, thresh))
+        if not torch.equal(got, ref):
+            bad = (got != ref).nonzero()[0].tolist()
+            fail(f"kernels / nms_mask {label}: mask differs from the plain "
+                 f"version, first at (sample, row, word) {bad}")
+        sel, nsel = nm.nms_resolve(got, counts, post)
+        (rsel, rnsel), resolve_plain_ms = timed(
+            lambda: nm.nms_resolve_plain(ref, counts, post))
+        torch.cuda.synchronize()
+        if not (torch.equal(sel, rsel) and torch.equal(nsel, rnsel)):
+            fail(f"kernels / nms_mask {label}: resolve differs from its "
+                 "plain version")
+        b, p = boxes.shape[:2]
+        live = counts.clamp(0, p).long()
+        ious = int((live * (live - 1) // 2).sum())
+        nbytes = packed.numel() * 4 + b * 4 + got.numel() * 8
+        t_ops = ious * nm.FLOPS_PER_IOU / FP32_FLOPS
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        lines[label] = {
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: nm.nms_suppression_mask(
+                packed, counts, thresh), 5),
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "resolve_ms": time_ms(lambda: nm.nms_resolve(got, counts, post),
+                                  20),
+            "resolve_plain_ms": resolve_plain_ms,
+            "ious": ious,
+            "bits_set": int(nm.unpack_bits(got, p).sum()) if p <= 1024
+            else None,
+            "kept": nsel.tolist(),
+            "shape": f"corners ({b}, 9, {p}), live {counts.tolist()}, "
+                     f"thresh {thresh}, post {post}",
+        }
+        ln = lines[label]
+        print(f"kernels / nms_mask {label}: mask and selections identical, "
+              f"{ln['ms']:.4f} ms, plain {ln['plain_ms']:.2f} ms, bound "
+              f"{ln['bound_ms']:.5f} ms ({ln['bound_by']}), {ious} IoUs; "
+              f"resolve {ln['resolve_ms']:.4f} ms, plain "
+              f"{ln['resolve_plain_ms']:.2f} ms, kept {ln['kept']}",
+              flush=True)
+    return lines
+
+
+def phase_rcnn_kernels(report):
+    """The mask and resolve kernels at the served PointRCNN model's
+    shapes and inputs and at the ragged shapes, and FPS at its shapes."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        select_candidates,
+    )
+    from de6d_tpu_torch.ops.nms import NEG_INF, stable_top_k
+
+    model, mc, _ = build_model("bfloat16", "cuda", RCNN_CFG, RCNN_SEED)
+    pts, mask = load_rcnn_scans()
+    points = torch.from_numpy(pts).cuda()
+    valid = torch.from_numpy(mask).cuda()
+    with torch.no_grad():
+        out = model({"points": points, "points_mask": valid})
+    roi_cfg = mc["ROI_HEAD"]["NMS_CONFIG"]["TEST"]
+    num_rois = int(roi_cfg["NMS_POST_MAXSIZE"])
+    if tuple(out["rois"].shape) != (8, num_rois, 7):
+        fail(f"kernels / nms_mask: RoI buffer {tuple(out['rois'].shape)}")
+    roi_counts = out["roi_valid"].sum(-1).tolist()
+    report["pointrcnn_rois"] = {"shape": list(out["rois"].shape),
+                                "valid": roi_counts,
+                                "empty": out["roi_empty"].sum(-1).tolist()}
+    print(f"kernels / nms_mask: RoI buffer {tuple(out['rois'].shape)}, "
+          f"valid per scan {roi_counts}, without points "
+          f"{report['pointrcnn_rois']['empty']}", flush=True)
+
+    # the proposal layer's candidates: top NMS_PRE_MAXSIZE stage-1 scores
+    scores = torch.sigmoid(out["point_cls_preds"]).amax(dim=-1)
+    pre = min(int(roi_cfg["NMS_PRE_MAXSIZE"]), scores.shape[1])
+    top, order = stable_top_k(scores, pre)
+    cand = torch.gather(out["point_box_preds"], 1,
+                        order[..., None].expand(-1, -1, 7)).contiguous()
+    all_live = torch.full((8,), pre, dtype=torch.int32, device="cuda")
+    post_cfg = mc["POST_PROCESSING"]
+    nms_cfg = post_cfg["NMS_CONFIG"]
+    fin_boxes, fin_scores, _ = select_candidates(out, post_cfg)
+    fin_boxes = fin_boxes.contiguous()
+    fin_counts = (fin_scores > NEG_INF / 2).sum(-1).to(torch.int32)
+    fin_post = min(int(nms_cfg["NMS_POST_MAXSIZE"]), fin_boxes.shape[1])
+    ragged = torch.minimum(fin_counts, torch.tensor(
+        [100, 77, 0, 1, 64, 65, 99, 100], dtype=torch.int32, device="cuda"))
+    rng = np.random.RandomState(7)
+    cases = {
+        "proposals": (cand, all_live, float(roi_cfg["NMS_THRESH"]), num_rois),
+        "final": (fin_boxes, fin_counts, float(nms_cfg["NMS_THRESH"]),
+                  fin_post),
+        "final_ragged": (fin_boxes, ragged, float(nms_cfg["NMS_THRESH"]),
+                         fin_post),
+    }
+    for p in (1, 63, 64, 65, 130):
+        boxes = torch.from_numpy(random_boxes(rng, 4, p)).cuda()
+        counts = torch.tensor([p, p - 1, p // 2, 0], dtype=torch.int32,
+                              device="cuda")
+        cases[f"p{p}"] = (boxes, counts, 0.1, p)
+    lines = check_nms_mask(cases)
+    path = [lines["proposals"], lines["final"]]  # the two launches per batch
+    report["nms_mask"] = {
+        "name": "nms_suppression_mask",
+        "route": "cuda",
+        "source": "de6d_tpu_torch/csrc/nms_mask.cu",
+        "replaces": "de6d_tpu/ops/pallas/nms_mask.py:132",
+        "max_abs_err": 0.0,
+        **{k: sum(ln[k] for ln in path) for k in (
+            "ms", "plain_ms", "bound_ms", "resolve_ms", "resolve_plain_ms")},
+        "bound_by": "operations",
+        "library_ms": None,
+        "cases": lines,
+    }
+
+    xyz_l, valid_l = out["point_coords_list"], out["point_valid_list"]
+    roi_xyz = torch.from_numpy(rng.uniform(-2, 2, (800, 512, 3)).astype(
+        np.float32)).cuda()
+    roi_valid = (torch.arange(800, device="cuda") % 5 != 0)[:, None].expand(
+        800, 512).contiguous()  # every fifth point set is empty
+    fps_cases = {
+        "rcnn_sa1": (points[..., :3].contiguous(), valid, 4096, None),
+        "rcnn_sa2": (xyz_l[0], valid_l[0], 1024, None),
+        "rcnn_sa3": (xyz_l[1], valid_l[1], 256, None),
+        "rcnn_sa4": (xyz_l[2], valid_l[2], 64, None),
+        "rcnn_roi_sa1": (roi_xyz, roi_valid, 128, None),
+        "rcnn_roi_sa2": (roi_xyz[:, :128].contiguous(),
+                         roi_valid[:, :128].contiguous(), 32, None),
+    }
+    fps_lines = check_fps(fps_cases, report)
+    report["fps"]["cases"].update(fps_lines)
+    report["fps"]["pointrcnn_ms_per_batch"] = sum(
+        ln["ms"] for ln in fps_lines.values())
+    return model, mc
+
+
+def face_distance(points, valid, rois):
+    """points (N, 3), valid (N,), rois (R, 7) → (R,) the least distance
+    of a valid point from the RoI's surface, measured as ``points_in_
+    boxes_mask`` decides membership: ``| max_k (|local_k| - half_k) |``."""
+    import torch
+
+    d = points[None, :, :3] - rois[:, None, 0:3]
+    c = torch.cos(rois[:, 6])[:, None]
+    s = torch.sin(rois[:, 6])[:, None]
+    local = torch.stack([c * d[..., 0] + s * d[..., 1],
+                         (-s) * d[..., 0] + c * d[..., 1], d[..., 2]], dim=-1)
+    outer = (local.abs() - rois[:, None, 3:6] / 2).amax(dim=-1)  # (R, N)
+    return torch.where(valid[None], outer.abs(), torch.inf).amin(dim=-1)
+
+
+def check_pointrcnn_parity(out, post, ref, tol=PARITY_TOL):
+    """PointRCNN against the JAX reference ``ref`` (the fixture's arrays).
+
+    1. Backbone picks (d-fps on coordinates, no learned input): each SA
+       layer's picks identical.
+    2. Stage-1 scores (sigmoid of the class logits, max over classes)
+       within ``tol``; their largest difference is ``delta``. The boxes of
+       the reference's first candidates within ``tol``.
+    3. The candidate order (top ``NMS_PRE_MAXSIZE`` by score, the NMS
+       input): a position may hold another point than the reference's
+       only at a near-tie, the two points' reference scores within
+       ``2 * delta`` (fp32 sums in another order move scores by ulps).
+    4. RoIs, by the point each came from: a sample's RoI list may part
+       from the reference's only at such a near-tie (at the first
+       differing slot, the two points' reference scores within
+       ``2 * delta``); the slot is reported. A list that holds the same
+       set of points in another order, or that parts only onto twin
+       points (every slot still holds the reference's box within
+       ``tol``), counts as the reference's list.
+    5. RoIs that came from the same point: boxes within ``tol``; then
+       ``rcnn_cls`` and ``rcnn_reg`` within ``tol`` and the same RoIs
+       without points — except a RoI with a point on one of its faces
+       (:func:`face_distance` within the band that the measured
+       difference between the two RoIs can move a point by), whose pooled
+       set may differ; those are counted and reported.
+    6. Detections of a sample whose RoI list counts as the reference's and
+       none of whose on-a-face RoIs moved: counts and labels equal, boxes
+       and scores within ``tol``. Other samples' detections are reported
+       as not compared.
+    "Within ``tol``" is absolute for values below 1 and relative above.
+    Returns a report; raises RuntimeError where a check fails."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.ops.nms import stable_top_k
+
+    def close(name, got, want, where=""):
+        # seeded weights decode to boxes tens of metres long: the
+        # difference is taken relative to the value where that exceeds 1
+        want = np.asarray(want, np.float64)
+        d = float((np.abs(np.asarray(got, np.float64) - want)
+                   / np.maximum(1.0, np.abs(want))).max(initial=0))
+        if not d <= tol:
+            raise RuntimeError(f"parity / pointrcnn: {name}{where} differs "
+                               f"by {d:.3g} > {tol}")
+        return d
+
+    diffs = {}
+    picks = [p.cpu().numpy() for p in out["point_sample_idx_list"]]
+    for k, p in enumerate(picks):
+        if not np.array_equal(p, ref[f"picks_{k}"]):
+            raise RuntimeError(f"parity / pointrcnn: SA{k + 1} (d-fps) "
+                               "picks differ from the reference")
+    scores_t = torch.sigmoid(out["point_cls_preds"]).amax(dim=-1)
+    scores = scores_t.cpu().numpy()
+    ref_scores = ref["stage1_scores"]
+    delta = diffs["stage1_scores"] = close("stage-1 scores", scores,
+                                           ref_scores)
+    ref_order = ref["stage1_order"].astype(np.int64)
+    n_top = ref["stage1_boxes_top"].shape[1]
+    boxes = out["point_box_preds"].cpu().numpy()
+    diffs["stage1_boxes"] = close(
+        "stage-1 boxes", np.take_along_axis(
+            boxes, ref_order[:, :n_top, None], axis=1),
+        ref["stage1_boxes_top"])
+    order = stable_top_k(scores_t, ref_order.shape[1])[1].cpu().numpy()
+    near = 2 * delta + 1e-7
+
+    def tie_gap(b, p, r):
+        return abs(float(ref_scores[b, p]) - float(ref_scores[b, r]))
+
+    swapped = 0
+    for b, k in zip(*np.nonzero(order != ref_order)):
+        swapped += 1
+        if tie_gap(b, order[b, k], ref_order[b, k]) > near:
+            raise RuntimeError(
+                f"parity / pointrcnn: candidate {k} of sample {b} differs "
+                "from the reference and is no near-tie")
+
+    roi_idx = out["roi_point_idx"].cpu().numpy()
+    roi_cnt = out["roi_valid"].sum(-1).cpu().numpy()
+    got = {k: v.cpu().numpy() for k, v in post.items()}
+    for k in ("rois", "rcnn_cls", "rcnn_reg", "roi_empty"):
+        got[k] = out[k].cpu().numpy()
+    partings, on_faces, skipped = [], [], []
+    for k in ("rois", "rcnn_cls", "rcnn_reg", "pred_boxes", "pred_scores"):
+        diffs[k] = 0.0
+    for b in range(roi_idx.shape[0]):
+        c = int(ref["roi_count"][b])
+        same = roi_idx[b, :c] == ref["roi_idx"][b, :c]
+        if int(roi_cnt[b]) != c:
+            raise RuntimeError(f"parity / pointrcnn: {roi_cnt[b]} RoIs in "
+                               f"sample {b}, reference {c}")
+        # a swap of two tied candidates leaves the set of RoIs as it was;
+        # twin points (same coordinates and features) give the same box
+        # in every slot: either way the list counts as the reference's
+        same_set = np.array_equal(np.sort(roi_idx[b, :c]),
+                                  np.sort(ref["roi_idx"][b, :c]))
+        twins = bool((np.abs(got["rois"][b, :c] - ref["rois"][b, :c])
+                      <= tol).all())
+        whole = same_set or twins
+        if not same.all():
+            j = int(np.argmin(same))
+            p, r = int(roi_idx[b, j]), int(ref["roi_idx"][b, j])
+            gap = tie_gap(b, p, r)
+            partings.append({"sample": b, "slot": j, "port": p, "ref": r,
+                             "score_gap": gap, "allowed": near,
+                             "same_set": same_set, "same_boxes": twins})
+            print(f"parity / pointrcnn: sample {b} parts from the "
+                  f"reference at RoI {j} (port point {p}, reference point "
+                  f"{r}); score gap {gap:.3g} vs {near:.3g}; same set of "
+                  f"RoIs: {same_set}, same box in every slot: {twins}",
+                  flush=True)
+            if gap > near:
+                raise RuntimeError(
+                    f"parity / pointrcnn: RoI {j} of sample {b} is no "
+                    "near-tie")
+        if twins and not same_set:  # slot by slot
+            gi = ri = np.arange(c)
+        else:  # RoIs from the same point, reference slot → port slot
+            slot = {int(p): j for j, p in enumerate(roi_idx[b, :c])}
+            pairs = [(slot[int(p)], j)
+                     for j, p in enumerate(ref["roi_idx"][b, :c])
+                     if int(p) in slot]
+            gi = np.array([g for g, _ in pairs], np.int64)
+            ri = np.array([r for _, r in pairs], np.int64)
+        where = f" of sample {b}"
+        diffs["rois"] = max(diffs["rois"], close(
+            "rois", got["rois"][b, gi], ref["rois"][b, ri], where))
+        # a RoI with a point on one of its faces: the ulps between the
+        # two RoIs can move that point in or out and change the pooled set
+        d_roi = np.abs(got["rois"][b, gi].astype(np.float64)
+                       - ref["rois"][b, ri])
+        half_diag = np.linalg.norm(ref["rois"][b, ri, 3:6], axis=-1) / 2
+        band = 2 * (d_roi[:, :3].max(-1) + d_roi[:, 3:6].max(-1)
+                    + d_roi[:, 6] * half_diag) + 1e-6
+        on_face = face_distance(out["point_coords"][b], out["point_valid"][b],
+                                out["rois"][b, gi]).cpu().numpy() <= band
+        held = ~on_face
+        d_cls = np.abs(got["rcnn_cls"][b, gi].astype(np.float64)
+                       - ref["rcnn_cls"][b, ri])
+        moved = on_face & ((d_cls > tol) | (got["roi_empty"][b, gi]
+                                            != ref["roi_empty"][b, ri]))
+        on_faces.append({"sample": b, "rois": int(on_face.sum()),
+                         "moved": int(moved.sum())})
+        if not np.array_equal(got["roi_empty"][b, gi[held]],
+                              ref["roi_empty"][b, ri[held]]):
+            raise RuntimeError("parity / pointrcnn: RoIs without points "
+                               f"differ{where}")
+        full = held & ~ref["roi_empty"][b, ri]
+        for k in ("rcnn_cls", "rcnn_reg"):
+            diffs[k] = max(diffs[k], close(
+                k, got[k][b, gi[full]], ref[k][b, ri[full]], where))
+        if not whole or moved.any():
+            skipped.append(b)
+            continue
+        n = int(ref["pred_count"][b])
+        if int(got["pred_count"][b]) != n:
+            raise RuntimeError(f"parity / pointrcnn: counts "
+                               f"{got['pred_count']} vs {ref['pred_count']}")
+        if not np.array_equal(got["pred_labels"][b, :n],
+                              ref["pred_labels"][b, :n]):
+            raise RuntimeError(f"parity / pointrcnn: labels{where} differ")
+        for k in ("pred_boxes", "pred_scores"):
+            diffs[k] = max(diffs[k], close(k, got[k][b, :n], ref[k][b, :n],
+                                           where))
+    return {"counts": got["pred_count"].tolist(),
+            "roi_counts": roi_cnt.tolist(), "max_abs_diff": diffs,
+            "candidates_swapped": swapped, "partings": partings,
+            "rois_on_a_face": on_faces, "detections_not_compared": skipped}
+
+
+def phase_rcnn_parity(report):
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        post_processing,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, mc, nc = build_model("float32", "cuda", RCNN_CFG, RCNN_SEED)
+    pts, mask = load_rcnn_scans()
+    with torch.no_grad():
+        out = model({"points": torch.from_numpy(pts[:2]).cuda(),
+                     "points_mask": torch.from_numpy(mask[:2]).cuda()})
+        post = post_processing(out, mc["POST_PROCESSING"], nc)
+    try:
+        res = check_pointrcnn_parity(out, post, dict(np.load(RCNN_REF)))
+    except RuntimeError as e:
+        fail(str(e))
+    report["parity_pointrcnn"] = res
+    d = res["max_abs_diff"]
+    print(f"parity / pointrcnn: fp32 (TF32 off) on 2 scans matches the JAX "
+          f"reference: backbone picks identical, "
+          f"{res['candidates_swapped']} candidates swapped at near-ties, "
+          f"{len(res['partings'])} RoI lists parted, RoIs with a point on "
+          f"a face {res['rois_on_a_face']}, detections not compared for "
+          f"samples {res['detections_not_compared']}, RoIs "
+          f"{res['roi_counts']}, detections {res['counts']}, max |d| stage-1 "
+          f"score {d['stage1_scores']:.3g}, RoI {d['rois']:.3g}, rcnn_cls "
+          f"{d['rcnn_cls']:.3g}, box {d['pred_boxes']:.3g}, score "
+          f"{d['pred_scores']:.3g} (tol {PARITY_TOL})", flush=True)
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
-    from de6d_tpu_torch.ops.kernels import build, canvas, fps, nms_fused
+    from de6d_tpu_torch.ops.kernels import (
+        build, canvas, fps, nms_fused, nms_mask,
+    )
 
     profile = "--profile" in sys.argv[1:]
     t_start = time.perf_counter()
@@ -791,6 +1238,17 @@ def main():
     del model
     phase_det6d_parity(report)
 
+    model, mc = phase_rcnn_kernels(report)
+    pts, mask = load_rcnn_scans()
+    report["serve_pointrcnn"] = phase_serve(
+        "serve / pointrcnn", model, mc, 3, pts, mask,
+        {"nms_mask": nms_mask.nms_suppression_mask,
+         "nms_resolve": nms_mask.nms_resolve, "fps": fps.fps, "nms": nms},
+        7, profile,
+        per_batch={"nms_mask": 2, "nms_resolve": 2, "fps": 6, "nms": 0})
+    del model
+    phase_rcnn_parity(report)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -799,9 +1257,10 @@ def main():
     report["nvidia_smi"] = smi
     report["seconds"] = time.perf_counter() - t_start
     by_path = {"pointpillar": report["serve"]["launches"],
-               "det6d": report["serve_det6d"]["launches"]}
+               "det6d": report["serve_det6d"]["launches"],
+               "pointrcnn": report["serve_pointrcnn"]["launches"]}
     kernels = []
-    for key in ("canvas", "nms", "fps"):
+    for key in ("canvas", "nms", "nms_mask", "fps"):
         k = {f: report[key][f] for f in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}

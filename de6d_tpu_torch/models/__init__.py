@@ -13,6 +13,7 @@ from . import backbones_2d  # noqa: F401  (registers modules)
 from . import backbones_3d  # noqa: F401
 from . import dense_heads  # noqa: F401
 from . import detectors  # noqa: F401
+from . import roi_heads  # noqa: F401
 
 _MODULE_SLOTS = (
     "VFE", "BACKBONE_3D", "MAP_TO_BEV", "PFE", "BACKBONE_2D",

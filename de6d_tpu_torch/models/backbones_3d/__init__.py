@@ -1,2 +1,2 @@
-from . import pointnet2_backbone  # noqa: F401  (registers PointNet2FSMSG)
+from . import pointnet2_backbone  # noqa: F401  (registers the backbones)
 from . import vfe  # noqa: F401  (registers VFEs)

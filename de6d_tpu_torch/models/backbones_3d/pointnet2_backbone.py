@@ -1,6 +1,7 @@
-"""Point backbone (counterpart of
+"""Point backbones (counterpart of
 ``de6d_tpu/models/backbones_3d/pointnet2_backbone.py``: ``_build_sa_stack``,
-``PointNet2FSMSG`` without an FP stack), inference only.
+``_PointNet2Base.run_backbone``, ``PointNet2MSG`` (SA + FP, PointRCNN),
+``PointNet2FSMSG`` (fusion sampling, Det6D)), inference only.
 
 Batch keys written:
   point_coords (B, M, 3), point_features (B, M, C) fp32, point_valid
@@ -17,12 +18,13 @@ from torch import nn
 
 from ...registry import BACKBONES_3D
 from ..model_utils.dtype_utils import compute_dtype
-from .pointnet2_modules import PointnetSAModuleFSMSG
+from .pointnet2_modules import PointnetFPModule, PointnetSAModuleFSMSG
 
 
 def _build_sa_stack(model_cfg, input_channels):
     """Per-layer kwargs of the SA stack from SA_CONFIG (with each layer's
-    ``in_channels``) and the stack's output channels."""
+    ``in_channels``) and the feature channels of every level: the input
+    points', then each SA layer's output."""
     sa_cfg = model_cfg["SA_CONFIG"]
     agg_mlps = sa_cfg.get("AGGREGATION_MLPS", None)
     conf_mlps = sa_cfg.get("CONFIDENCE_MLPS", None)
@@ -42,6 +44,7 @@ def _build_sa_stack(model_cfg, input_channels):
 
     layers = []
     channel_in = input_channels - 3
+    level_channels = [channel_in]
     for k in range(len(npoint_lists)):
         mlps = [list(m) for m in sa_cfg["MLPS"][k]]
         channel_out = sum(m[-1] for m in mlps)
@@ -66,28 +69,38 @@ def _build_sa_stack(model_cfg, input_channels):
             bin_cell_cap=cell_cap,
             bin_spill_cap=spill_cap,
         ))
+        level_channels.append(channel_out)
         channel_in = channel_out
-    return layers, channel_in
+    return layers, level_channels
 
 
-@BACKBONES_3D.register
-class PointNet2FSMSG(nn.Module):
-    """Fusion-sampling SA backbone (SASA / Det6D), no FP stack."""
+class _PointNet2Base(nn.Module):
+    """SA stack, then (with ``FP_MLPS``) the FP stack that carries the
+    features back down to an earlier level."""
 
     def __init__(self, model_cfg, input_channels, point_cloud_range=(),
                  **kwargs):
         super().__init__()
-        if model_cfg.get("FP_MLPS"):
-            raise NotImplementedError("PointNet2FSMSG: the FP stack is not "
-                                      "ported yet")
         dt = compute_dtype(model_cfg)
-        layers, self.num_point_features = _build_sa_stack(model_cfg,
-                                                          input_channels)
+        layers, levels = _build_sa_stack(model_cfg, input_channels)
         self.sa_modules = nn.ModuleList(
             PointnetSAModuleFSMSG(dtype=dt, pc_range=tuple(point_cloud_range),
                                   **kw)
             for kw in layers
         )
+        self.num_point_features = levels[-1]
+        fp_mlps = model_cfg.get("FP_MLPS") or []
+        # fp_modules[i] (i = -1, -2, ...) propagates level i onto level
+        # i - 1; its known features are the deepest SA output for i = -1
+        # and the previous FP layer's output otherwise
+        fp = []
+        for k, mlp in enumerate(fp_mlps):
+            i = k - len(fp_mlps)
+            known = levels[-1] if i == -1 else fp_mlps[k + 1][-1]
+            fp.append(PointnetFPModule(known + levels[i - 1], mlp, dtype=dt))
+        self.fp_modules = nn.ModuleList(fp)
+        if fp:
+            self.num_point_features = fp_mlps[0][-1]
 
     def forward(self, batch_dict):
         points = batch_dict["points"]  # (B, N, 3 + C)
@@ -110,8 +123,24 @@ class PointNet2FSMSG(nn.Module):
         batch_dict["point_scores_list"] = l_scores[1:]
         batch_dict["point_valid_list"] = l_valid[1:]
         batch_dict["point_sample_idx_list"] = l_idx
-        batch_dict["point_coords"] = l_xyz[-1]
-        batch_dict["point_features"] = l_feat[-1].float()
-        batch_dict["point_valid"] = l_valid[-1]
+        out = -1
+        for i in range(-1, -(len(self.fp_modules) + 1), -1):
+            l_feat[i - 1] = self.fp_modules[i](
+                l_xyz[i - 1], l_xyz[i], l_feat[i - 1], l_feat[i], l_valid[i])
+            out = i - 1
+        batch_dict["point_coords"] = l_xyz[out]
+        # heads read fp32 features; the SA/FP MLPs may have run in bf16
+        batch_dict["point_features"] = l_feat[out].float()
+        batch_dict["point_valid"] = l_valid[out]
         batch_dict["point_scores"] = l_scores[-1]
         return batch_dict
+
+
+@BACKBONES_3D.register
+class PointNet2MSG(_PointNet2Base):
+    """SA + FP backbone (PointRCNN)."""
+
+
+@BACKBONES_3D.register
+class PointNet2FSMSG(_PointNet2Base):
+    """Fusion-sampling SA backbone (SASA / Det6D)."""

@@ -1,6 +1,7 @@
-"""PointNet++ set abstraction with fusion sampling, eval path
-(counterpart of ``de6d_tpu/models/backbones_3d/pointnet2_modules.py``:
-``run_sampling``, ``PointnetSAModuleFSMSG``).
+"""PointNet++ set abstraction with fusion sampling and feature
+propagation, eval path (counterpart of
+``de6d_tpu/models/backbones_3d/pointnet2_modules.py``: ``run_sampling``,
+``PointnetSAModuleFSMSG``, ``PointnetFPModule``).
 
 Batched (B, N, ...) tensors with validity masks. Geometry (sampling,
 ball query, grouped offsets) stays fp32; the MLPs run in the compute
@@ -173,3 +174,30 @@ class PointnetSAModuleFSMSG(nn.Module):
             h = getattr(self, f"SharedMLP_{n_named}")(new_features)
             new_scores = self.Dense_0(h.float()).squeeze(-1)
         return new_xyz, new_features, new_scores, new_valid, sample_idx
+
+
+class PointnetFPModule(nn.Module):
+    """Feature propagation: 3-NN inverse-distance interpolation of the
+    known points' features onto the unknown points, concatenated with
+    the unknown points' own features, then a shared MLP (flax child
+    ``SharedMLP_0``)."""
+
+    def __init__(self, in_channels: int, mlp, use_bn=True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.SharedMLP_0 = SharedMLP(in_channels, mlp, use_bn=use_bn,
+                                     dtype=dtype)
+        self.out_channels = self.SharedMLP_0.out_channels
+
+    def forward(self, unknown, known, unknown_feats, known_feats,
+                known_valid=None):
+        """unknown (B, N, 3), known (B, M, 3), unknown_feats (B, N, C1) or
+        None, known_feats (B, M, C2) → (B, N, mlp[-1])."""
+        dist, idx = bq.three_nn(unknown, known, known_valid)
+        weight = bq.three_nn_interpolate_weights(dist)
+        new_features = bq.three_interpolate(known_feats, idx, weight)
+        if unknown_feats is not None:
+            new_features = torch.cat([new_features.to(self.dtype),
+                                      unknown_feats.to(self.dtype)], dim=-1)
+        return self.SharedMLP_0(new_features)

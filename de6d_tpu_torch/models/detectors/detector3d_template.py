@@ -18,7 +18,8 @@ from torch import nn
 from ...ops import nms as nms_ops
 from ...ops import voxelize as voxelize_ops
 from ...registry import (
-    BACKBONES_2D, BACKBONES_3D, DENSE_HEADS, MAP_TO_BEV, POINT_HEADS, VFE,
+    BACKBONES_2D, BACKBONES_3D, DENSE_HEADS, MAP_TO_BEV, POINT_HEADS,
+    ROI_HEADS, VFE,
 )
 from ..dense_heads.anchor_head import decode_boxes_with_dir
 
@@ -47,8 +48,8 @@ class DatasetSpec:
 
 class Detector3DTemplate(nn.Module):
     """VFE → BACKBONE_3D → MAP_TO_BEV → BACKBONE_2D → DENSE_HEAD →
-    POINT_HEAD, each present slot reading and writing the shared batch
-    dict (PFE and ROI_HEAD are not ported yet and raise)."""
+    POINT_HEAD → ROI_HEAD, each present slot reading and writing the
+    shared batch dict (PFE is not ported yet and raises)."""
 
     def __init__(self, model_cfg, num_class, dataset):
         super().__init__()
@@ -57,7 +58,7 @@ class Detector3DTemplate(nn.Module):
         self.spec = dataset
         spec = dataset
         cfg = model_cfg
-        unported = [s for s in ("PFE", "ROI_HEAD") if s in cfg]
+        unported = [s for s in ("PFE",) if s in cfg]
         if unported:
             raise NotImplementedError(f"module slots not ported yet: {unported}")
         self.module_names = []
@@ -111,6 +112,15 @@ class Detector3DTemplate(nn.Module):
                 else num_class,
             )
             self.module_names.append("point_head")
+        if "ROI_HEAD" in cfg:
+            head_cfg = cfg["ROI_HEAD"]
+            self.roi_head = ROI_HEADS.get(head_cfg["NAME"])(
+                model_cfg=head_cfg,
+                input_channels=self.backbone_3d.num_point_features,
+                num_class=1 if head_cfg.get("CLASS_AGNOSTIC", False)
+                else num_class,
+            )
+            self.module_names.append("roi_head")
 
     def maybe_voxelize(self, batch_dict):
         """Device voxelization of padded (B, N, C) points, for models with

@@ -1,6 +1,7 @@
-"""Ball query and grouping (counterpart of ``de6d_tpu/ops/ball_query.py``:
-``_pairwise_sqdist``, ``ball_query``, ``group_points``,
-``group_with_idx``).
+"""Ball query, grouping and 3-NN interpolation (counterpart of
+``de6d_tpu/ops/ball_query.py``: ``_pairwise_sqdist``, ``ball_query``,
+``group_points``, ``group_with_idx``, ``three_nn``,
+``three_nn_interpolate_weights``, ``three_interpolate``).
 
 Contract (the reference's ``ball_query_kernel_fast``): per center, the
 FIRST ``nsample`` points in point order with ``r_in² <= d² < r²``,
@@ -27,6 +28,7 @@ import torch
 # centers per chunk are chosen so a chunk's (B, chunk, N) tensors hold
 # at most this many elements
 CHUNK_ELEMS = 1 << 25
+INF = 1e10
 
 
 def _fma(a, b, c):
@@ -129,3 +131,44 @@ def group_with_idx(xyz, new_xyz, features, idx, use_xyz: bool = True):
     if features is not None:
         return group_points(features, idx)
     return group_points(xyz, idx) - new_xyz[:, :, None, :]
+
+
+def three_nn(unknown, known, valid_mask=None):
+    """Brute-force 3-NN: unknown (B, M, 3) queries, known (B, N, 3) →
+    dist (B, M, 3) fp32 distances (not squared) and idx (B, M, 3) int32,
+    nearest first. ``d²`` is :func:`pairwise_sqdist` (the ball query's),
+    invalid known points sit at ``INF``, and each of the three argmin
+    passes takes the first index on ties."""
+    b, n, _ = known.shape
+    m = unknown.shape[1]
+    np_ = sq_norm(known)
+    nu = sq_norm(unknown)
+    chunk = max(1, min(m, CHUNK_ELEMS // max(1, b * n)))
+    dists, idxs = [], []
+    for c0 in range(0, m, chunk):
+        d2 = pairwise_sqdist(unknown[:, c0:c0 + chunk], known,
+                             nu[:, c0:c0 + chunk], np_)
+        if valid_mask is not None:
+            d2 = torch.where(valid_mask[:, None, :], d2, INF)
+        d_l, i_l = [], []
+        for _ in range(3):
+            d, i = torch.min(d2, dim=-1, keepdim=True)
+            d_l.append(d)
+            i_l.append(i)
+            d2.scatter_(-1, i, INF)
+        dists.append(torch.cat(d_l, dim=-1))
+        idxs.append(torch.cat(i_l, dim=-1))
+    dist = torch.sqrt(torch.clamp(torch.cat(dists, dim=1), min=0.0))
+    return dist, torch.cat(idxs, dim=1).to(torch.int32)
+
+
+def three_nn_interpolate_weights(dist):
+    """Inverse-distance weights of the FP layers: ``(1/d) / Σ(1/d)``."""
+    recip = 1.0 / torch.clamp(dist, min=1e-8)
+    return recip / recip.sum(dim=-1, keepdim=True)
+
+
+def three_interpolate(features, idx, weight):
+    """features (B, N, C), idx / weight (B, M, 3) → (B, M, C)."""
+    gathered = group_points(features, idx)  # (B, M, 3, C)
+    return (gathered * weight[..., None]).sum(dim=2)

@@ -8,7 +8,7 @@ and is loaded with ``ctypes``; nothing here includes PyTorch's headers.
 The build happens on first use, never at import.
 
 ``-fmad=false`` keeps ``nvcc`` from contracting ``a*b+c`` into FMAs so
-the NMS kernel's IoU and the FPS kernel's distances round exactly like
+the NMS kernels' IoU and the FPS kernel's distances round exactly like
 their plain PyTorch versions.
 """
 
@@ -27,7 +27,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("canvas.cu", "nms_fused.cu", "fps.cu")
+SOURCES = ("canvas.cu", "nms_fused.cu", "nms_mask.cu", "fps.cu")
+HEADERS = ("iou_bev.cuh",)  # included by the sources; part of the hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
@@ -54,7 +55,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
@@ -118,6 +119,10 @@ def lib() -> ctypes.CDLL:
                 p, p, p, i, i, f, i, i, p,
             ]
             handle.de6d_nms_keep_batched.restype = i
+            handle.de6d_nms_mask.argtypes = [p, p, p, i, i, f, p]
+            handle.de6d_nms_mask.restype = i
+            handle.de6d_nms_resolve.argtypes = [p, p, p, p, i, i, i, p]
+            handle.de6d_nms_resolve.restype = i
             handle.de6d_fps.argtypes = [p, p, p, p, i, i, i, p]
             handle.de6d_fps.restype = i
             handle.de6d_fps_argmax_rounds.argtypes = [i, i, p, p]

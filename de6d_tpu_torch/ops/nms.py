@@ -1,5 +1,5 @@
 """Rotated NMS over fixed-size candidate buffers (counterpart of
-``de6d_tpu/ops/nms.py``: ``top_k_two_stage``, ``nms_candidates``,
+``de6d_tpu/ops/nms.py``: ``top_k_two_stage``, ``nms``, ``nms_candidates``,
 ``nms_candidates_batched``).
 
 Greedy semantics: candidates are score-descending, invalid ones (score
@@ -16,6 +16,7 @@ import torch
 
 from . import iou3d
 from .kernels.nms_fused import BLK, nms_keep_batched
+from .kernels.nms_mask import nms_resolve, nms_suppression_mask
 
 NEG_INF = -1e9
 CASCADE_K0 = 1024
@@ -53,46 +54,6 @@ def top_k_two_stage(scores, pre: int, group: int):
     return vals, torch.gather(ids, 1, pos)
 
 
-def _greedy_resolve(mask, valid):
-    """Jacobi fixpoint sweeps of the greedy recurrence (exact)."""
-    keep = valid
-    for _ in range(mask.shape[0]):
-        new_keep = valid & ~(mask & keep[:, None]).any(dim=0)
-        if torch.equal(new_keep, keep):
-            break
-        keep = new_keep
-    return keep
-
-
-def _greedy_resolve_blocked(mask, valid, count: int, block: int = 64):
-    """Exact greedy resolve in one pass over column blocks: suppression
-    from already-resolved earlier candidates, then the intra-block
-    recurrence by fixpoint sweeps on the (block, block) tile. Blocks past
-    the ``count`` valid candidates keep their (False) ``valid`` flags."""
-    k = mask.shape[0]
-    keep = valid.clone()
-    idx = torch.arange(k, device=mask.device)
-    n_blocks = min(-(-count // block), k // block)
-    for b in range(n_blocks):
-        col0 = b * block
-        mask_cols = mask[:, col0:col0 + block]
-        prev = keep & (idx < col0)
-        ext = (mask_cols & prev[:, None]).any(dim=0)
-        local_valid = valid[col0:col0 + block] & ~ext
-        sub = mask_cols[col0:col0 + block]
-        keep[col0:col0 + block] = _greedy_resolve(sub, local_valid)
-    return keep
-
-
-def _pairwise_iou_chunked(cand, row_chunk: int = 256):
-    """(K, 7+) → (K, K) rotated BEV IoU in row chunks to bound scratch."""
-    packed = iou3d.pack_bev(cand[:, :7])
-    return torch.cat([
-        iou3d.pairwise_iou_packed(packed[:, r:r + row_chunk], packed)
-        for r in range(0, cand.shape[0], row_chunk)
-    ], dim=0)
-
-
 def _compact(keep, post: int):
     """First ``post`` kept candidate indices per row, in score order
     (padded with 0), and their count."""
@@ -108,21 +69,38 @@ def _compact(keep, post: int):
 
 def nms_candidates(cand, top_scores, thresh: float, post_maxsize: int = 500,
                    iou_kind: str = "rotated"):
-    """Greedy NMS over one sample's (P, 7+) score-descending candidates
-    (mask + blocked resolve). Returns (post,) indices and the count."""
+    """Greedy NMS over already selected, score-descending candidates whose
+    invalid slots (score ``NEG_INF``) form a suffix: (B, P, 7+) boxes and
+    (B, P) scores, the batch in one mask launch and one resolve launch
+    (``kernels/nms_mask.py``; the JAX package maps its per-sample form
+    over the batch). Returns (B, post) int32 indices into the candidate
+    axis, padded with 0, and the (B,) counts."""
     if iou_kind != "rotated":
         raise NotImplementedError("only rotated (nms_gpu) NMS is ported")
-    pre = cand.shape[0]
-    cand_valid = top_scores > NEG_INF / 2
-    count_pre = int(cand_valid.sum())
-    upper = torch.ones(pre, pre, dtype=torch.bool,
-                       device=cand.device).triu(1)
-    mask = (_pairwise_iou_chunked(cand) > thresh) & upper
-    if pre % 64 == 0:
-        keep = _greedy_resolve_blocked(mask, cand_valid, count_pre)
-    else:
-        keep = _greedy_resolve(mask, cand_valid)
-    return _compact(keep, min(post_maxsize, pre))
+    pre = cand.shape[1]
+    counts = (top_scores > NEG_INF / 2).sum(-1, dtype=torch.int32)
+    packed = iou3d.pack_bev(cand[..., :7]).contiguous()
+    mask = nms_suppression_mask(packed, counts, thresh)
+    return nms_resolve(mask, counts, min(post_maxsize, pre))
+
+
+def nms(boxes, scores, thresh: float, pre_maxsize: int = 4096,
+        post_maxsize: int = 500, valid_mask=None, iou_kind: str = "rotated"):
+    """Greedy NMS over fixed-size buffers, (B, N, 7+) boxes and (B, N)
+    scores (the JAX package vmaps its per-sample form). Invalid boxes are
+    gated to ``NEG_INF``, the top ``pre_maxsize`` taken with
+    ``lax.top_k``'s tie order, then :func:`nms_candidates`. Returns
+    (B, post) int32 indices into the input, padded with the top
+    candidate's index, and the (B,) counts."""
+    pre = min(pre_maxsize, boxes.shape[1])
+    if valid_mask is not None:
+        scores = torch.where(valid_mask, scores, NEG_INF)
+    top_scores, order = stable_top_k(scores, pre)
+    cand = torch.gather(
+        boxes, 1, order[..., None].expand(-1, -1, boxes.shape[-1]))
+    sel, count = nms_candidates(cand, top_scores, thresh, post_maxsize,
+                                iou_kind)
+    return torch.gather(order, 1, sel.long()).to(torch.int32), count
 
 
 def nms_candidates_batched(cand, top_scores, thresh: float,
@@ -132,16 +110,17 @@ def nms_candidates_batched(cand, top_scores, thresh: float,
 
     For rotated IoU and P % 128 == 0 the whole batch resolves in the
     fused NMS kernel (``kernels/nms_fused.py``; its plain version on a
-    CPU tensor). With P > 1024 an exact prefix cascade runs first: keep
-    decisions for the score-descending prefix [0, 1024) depend on that
-    prefix only, so when every sample keeps ``post`` boxes there (or has
-    at most 1024 live candidates) the full-width pass is skipped. The
-    branch is decided on the host: one device sync per batch.
+    CPU tensor); any other P goes through the suppression mask and its
+    resolve (:func:`nms_candidates`). With P > 1024 an exact prefix
+    cascade runs first: keep decisions for the score-descending prefix
+    [0, 1024) depend on that prefix only, so when every sample keeps
+    ``post`` boxes there (or has at most 1024 live candidates) the
+    full-width pass is skipped. The branch is decided on the host: one
+    device sync per batch.
     """
-    b, pre = cand.shape[0], cand.shape[1]
+    pre = cand.shape[1]
     post = min(post_maxsize, pre)
-    cand_valid = top_scores > NEG_INF / 2
-    counts_pre = cand_valid.sum(-1, dtype=torch.int32)
+    counts_pre = (top_scores > NEG_INF / 2).sum(-1, dtype=torch.int32)
 
     if iou_kind == "rotated" and pre % BLK == 0:
         boxes = cand[..., :7].contiguous()
@@ -160,9 +139,4 @@ def nms_candidates_batched(cand, top_scores, thresh: float,
             keep = nms_keep_batched(boxes, counts_pre, thresh, post_k=post)
         return _compact(keep, post)
 
-    sels, counts = zip(*(
-        nms_candidates(cand[i], top_scores[i], thresh, post_maxsize,
-                       iou_kind)
-        for i in range(b)
-    ))
-    return torch.stack(sels), torch.stack(counts)
+    return nms_candidates(cand, top_scores, thresh, post_maxsize, iou_kind)

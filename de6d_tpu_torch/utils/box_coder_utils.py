@@ -1,5 +1,6 @@
 """Box coders (counterpart of ``de6d_tpu/utils/box_coder_utils.py``):
-``ResidualCoder`` (anchor heads) and the decode of
+``ResidualCoder`` (anchor heads, RoI heads) and the decodes of
+``PointResidualCoder`` (PointRCNN's first stage) and
 ``PointBinResidual6DCoder`` (the Det6D vote head)."""
 
 from __future__ import annotations
@@ -86,12 +87,46 @@ class ResidualCoder:
         )
 
 
-def _point_offsets_decode(offsets, points):
-    """Point-anchored centers and sizes without mean sizes: offsets
-    (..., 6+) + points (..., 3) → [x, y, z, dx, dy, dz]."""
-    return [offsets[..., 0] + points[..., 0], offsets[..., 1] + points[..., 1],
-            offsets[..., 2] + points[..., 2], torch.exp(offsets[..., 3]),
-            torch.exp(offsets[..., 4]), torch.exp(offsets[..., 5])]
+def _point_offsets_decode(offsets, points, mean_size=None,
+                          pred_classes=None):
+    """Point-anchored centers and sizes: offsets (..., 6+) + points
+    (..., 3) → [x, y, z, dx, dy, dz]. With ``mean_size`` (classes, 3)
+    the offsets are relative to the predicted class's mean box
+    (``pred_classes`` 1-based)."""
+    xa, ya, za = points[..., 0], points[..., 1], points[..., 2]
+    xt, yt, zt = offsets[..., 0], offsets[..., 1], offsets[..., 2]
+    dxt, dyt, dzt = offsets[..., 3], offsets[..., 4], offsets[..., 5]
+    if mean_size is None:
+        return [xt + xa, yt + ya, zt + za,
+                torch.exp(dxt), torch.exp(dyt), torch.exp(dzt)]
+    anchor = mean_size.to(offsets.device)[pred_classes - 1]
+    dxa, dya, dza = anchor[..., 0], anchor[..., 1], anchor[..., 2]
+    diag = torch.sqrt(dxa * dxa + dya * dya)
+    return [xt * diag + xa, yt * diag + ya, zt * dza + za,
+            torch.exp(dxt) * dxa, torch.exp(dyt) * dya, torch.exp(dzt) * dza]
+
+
+@BOX_CODERS.register
+class PointResidualCoder:
+    """8-column point-to-box code with cos/sin yaw, decode only: 6
+    offsets (relative to per-class mean sizes when ``use_mean_size``),
+    then cos and sin of the yaw; further columns pass through."""
+
+    def __init__(self, code_size=8, use_mean_size=True, mean_size=None,
+                 **kwargs):
+        self.code_size = code_size
+        self.mean_size = None
+        if use_mean_size:
+            self.mean_size = torch.tensor(mean_size, dtype=torch.float32)
+            if not float(self.mean_size.min()) > 0:
+                raise ValueError("PointResidualCoder: mean sizes must be > 0")
+
+    def decode(self, encodings, points, pred_classes=None):
+        out = _point_offsets_decode(encodings, points, self.mean_size,
+                                    pred_classes)
+        out.append(torch.atan2(encodings[..., 7], encodings[..., 6]))
+        out += [encodings[..., i] for i in range(8, encodings.shape[-1])]
+        return torch.stack(out, dim=-1)
 
 
 def decode_angle_from_bins(cls_logits, res):

@@ -1,4 +1,4 @@
-"""flax → torch weight carry-over.
+"""flax → torch weight carry-over, and seeded weights in the flax layout.
 
 ``load_flax_npz`` reads a flat ``.npz`` of flax variables (keys like
 ``params/backbone_2d/ConvBlock_0/Conv_0/kernel`` and
@@ -16,6 +16,11 @@ Layout mapping, by the layer's ``FLAX_KIND``:
     of a transposed convolution and flax does not;
   * BatchNorm: params scale/bias and batch_stats mean/var → weight, bias,
     running_mean, running_var.
+
+``seeded_flax`` draws such a flat dict from a numpy seed for a model the
+repository holds no trained weights for; the same seed gives the same
+arrays wherever it runs, and the dict unflattens into the JAX model's
+variables.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from .models.model_utils.mlp import FCStack
 
 
 def load_flax_npz(path) -> dict:
@@ -100,3 +107,54 @@ def load_into(model: torch.nn.Module, flat: dict) -> torch.nn.Module:
     """``flax_to_torch`` + a strict ``load_state_dict``."""
     model.load_state_dict(flax_to_torch(flat, model), strict=True)
     return model
+
+
+def seeded_flax(model: torch.nn.Module, seed: int) -> dict:
+    """Random, well-conditioned variables for ``model`` in the flat flax
+    layout that :func:`flax_to_torch` reads, drawn from
+    ``np.random.default_rng(seed)`` in ``named_modules()`` order: kernels
+    ``normal * sqrt(2 / fan_in)``, biases ``normal * 0.05``, BN scale in
+    [0.9, 1.1], BN mean ``normal * 0.1``, BN var in [0.5, 1.5], so that
+    activations keep their scale through a deep ReLU stack and the BN
+    arithmetic is exercised. The last Dense of an ``FCStack`` (raw
+    predictions: logits, box codes, offsets) gets a fifth of that kernel
+    scale, so that decoded boxes keep sizes a detector could predict
+    (exp of a code of order 1 would give boxes from millimetres to
+    kilometres, on which IoUs are ill-conditioned)."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    predictions = {
+        f"{name}.Dense_{len(m.fc_list)}" if name else
+        f"Dense_{len(m.fc_list)}"
+        for name, m in model.named_modules() if isinstance(m, FCStack)
+    }
+
+    def f32(a):
+        return np.asarray(a, np.float32)
+
+    for name, module in model.named_modules():
+        kind = getattr(module, "FLAX_KIND", None)
+        if kind is None:
+            continue
+        path = flax_path(name)
+        p = "/".join(x for x in ("params", path) if x)
+        if kind == "BatchNorm":
+            n = module.weight.shape[0]
+            s = "/".join(x for x in ("batch_stats", path) if x)
+            flat[f"{p}/scale"] = f32(rng.uniform(0.9, 1.1, n))
+            flat[f"{p}/bias"] = f32(rng.normal(0.0, 0.05, n))
+            flat[f"{s}/mean"] = f32(rng.normal(0.0, 0.1, n))
+            flat[f"{s}/var"] = f32(rng.uniform(0.5, 1.5, n))
+            continue
+        w = tuple(module.weight.shape)
+        shape = {
+            "Dense": lambda: (w[1], w[0]),
+            "Conv": lambda: (w[2], w[3], w[1], w[0]),
+            "ConvTranspose": lambda: (w[2], w[3], w[0], w[1]),
+        }[kind]()
+        fan_in = int(np.prod(shape[:-1]))
+        scale = np.sqrt(2.0 / fan_in) * (0.2 if name in predictions else 1.0)
+        flat[f"{p}/kernel"] = f32(rng.normal(0.0, 1.0, shape) * scale)
+        if module.bias is not None:
+            flat[f"{p}/bias"] = f32(rng.normal(0.0, 0.05, shape[-1]))
+    return flat

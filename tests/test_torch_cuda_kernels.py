@@ -7,13 +7,15 @@ runs where the card is:
 Elsewhere every test skips (no card). Every kernel is an exact copy of
 its plain version's arithmetic: canvas rows are copied bytes, the NMS
 IoU and the FPS distances are built with -fmad=false, and FPS picks are
-indices, so the comparisons have no tolerance."""
+indices, so the comparisons have no tolerance (the suppression mask is
+compared whole, bit for bit)."""
 
 import numpy as np
 import pytest
 import torch
 
-from de6d_tpu_torch.ops.kernels import canvas, fps, nms_fused
+from de6d_tpu_torch.ops import iou3d, nms
+from de6d_tpu_torch.ops.kernels import canvas, fps, nms_fused, nms_mask
 from torch_fixtures import canvas_inputs, cuda_device, nms_boxes  # noqa: F401
 
 
@@ -50,6 +52,67 @@ def test_nms_kernel_equals_plain(cuda_device, p, post_k, spread):  # noqa: F811
     ref = nms_fused.nms_keep_batched_plain(boxes, counts, 0.01, post_k)
     assert torch.equal(got, ref)
     assert got[:, :p // 2].any(), "test needs keeps"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,thresh,spread", [
+    (9000, 0.85, 40.0), (100, 0.1, 12.0), (1, 0.1, 12.0), (63, 0.1, 12.0),
+    (64, 0.1, 12.0), (65, 0.1, 12.0), (130, 0.01, 12.0),
+])
+def test_nms_mask_kernel_equals_plain(cuda_device, p, thresh, spread):  # noqa: F811
+    """Whole bit mask and the resolve's selections, ragged counts with
+    0, 1 and P; one launch each for the batch."""
+    rng = np.random.RandomState(p)
+    b = 4
+    boxes = torch.from_numpy(nms_boxes(rng, b, p, spread=spread)).to(
+        cuda_device)
+    counts = torch.tensor([p, p // 2, min(1, p - 1), 0], dtype=torch.int32,
+                          device=cuda_device)
+    packed = iou3d.pack_bev(boxes).contiguous()
+    before = (nms_mask.nms_suppression_mask.launches,
+              nms_mask.nms_resolve.launches)
+    got = nms_mask.nms_suppression_mask(packed, counts, thresh)
+    post = min(100, p)
+    sel, nsel = nms_mask.nms_resolve(got, counts, post)
+    torch.cuda.synchronize()
+    assert (nms_mask.nms_suppression_mask.launches,
+            nms_mask.nms_resolve.launches) == (before[0] + 1, before[1] + 1)
+    ref = nms_mask.nms_suppression_mask_plain(packed, counts, thresh)
+    assert torch.equal(got, ref)
+    rsel, rnsel = nms_mask.nms_resolve_plain(ref, counts, post)
+    assert torch.equal(sel, rsel) and torch.equal(nsel, rnsel)
+    assert int(nsel[0]) > 0 and int(nsel[3]) == 0
+    if p >= 63:
+        assert bool((got[0] != 0).any()), "test needs overlaps"
+
+
+@pytest.mark.cuda
+def test_nms_on_the_card_equals_cpu(cuda_device):  # noqa: F811
+    """``nms()`` batched on the card (kernels) against the CPU (plain
+    versions) on the same boxes and scores."""
+    rng = np.random.RandomState(11)
+    boxes = torch.from_numpy(nms_boxes(rng, 3, 700, spread=20.0))
+    scores = torch.from_numpy(rng.uniform(0, 1, (3, 700)).astype(np.float32))
+    want = nms.nms(boxes, scores, 0.3, pre_maxsize=650, post_maxsize=100)
+    got = nms.nms(boxes.to(cuda_device), scores.to(cuda_device), 0.3,
+                  pre_maxsize=650, post_maxsize=100)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(),
+                                                              want[1])
+
+
+@pytest.mark.cuda
+def test_fps_kernel_on_roi_point_sets(cuda_device):  # noqa: F811
+    """N = 512 < 1024 threads, 800 samples, every fifth one empty (an
+    empty RoI): the kernel and the plain loop pick index 0 throughout."""
+    rng = np.random.RandomState(12)
+    xyz = torch.from_numpy(rng.uniform(-2, 2, (800, 512, 3)).astype(
+        np.float32)).to(cuda_device)
+    valid = (torch.arange(800, device=cuda_device) % 5 != 0)[:, None].expand(
+        800, 512).contiguous()
+    got = fps.fps(xyz, valid, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps.fps_plain(xyz, valid, 128))
+    assert not got[::5].any() and got[1].unique().numel() == 128
 
 
 @pytest.mark.cuda
@@ -93,3 +156,15 @@ def test_wrappers_reject_bad_input(cuda_device):  # noqa: F811
     with pytest.raises(TypeError):
         fps.fps(torch.zeros(1, 8, 3, device=cuda_device, dtype=torch.float64),
                 torch.ones(1, 8, dtype=torch.bool, device=cuda_device), 4)
+    counts = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):  # fp64 corners
+        nms_mask.nms_suppression_mask(
+            torch.zeros(2, 9, 8, device=cuda_device, dtype=torch.float64),
+            counts, 0.1)
+    with pytest.raises(ValueError):  # counts on another device
+        nms_mask.nms_suppression_mask(
+            torch.zeros(2, 9, 8, device=cuda_device), counts.cpu(), 0.1)
+    with pytest.raises(ValueError):  # counts of another batch
+        nms_mask.nms_resolve(
+            torch.zeros(2, 8, 1, dtype=torch.int64, device=cuda_device),
+            counts[:1], 4)
