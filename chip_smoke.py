@@ -54,6 +54,29 @@ Phases, one status line each; any failure exits non-zero:
                     same seeded weights against ``de6d_tpu_torch/testdata/
                     pointrcnn_jax_ref.npz`` (:func:`check_pointrcnn_parity`).
 
+11. kernels / matrix_fps — the f-fps kernel against its plain version,
+                    identical picks: the served 3DSSD model's real
+                    xyz-plus-feature matrices (8 x 4096 -> 512, 8 x 512 ->
+                    256), a ragged mask with fewer valid points than picks
+                    and with none, N = 1, 1000, 2047 (exact ties), 5000,
+                    9000; kernel ms, bytes bound, latency floor, plain ms;
+                    the SA2 matrix against float64; FPS and NMS at 3DSSD's
+                    shapes; what the seeded weights give (votes, NMS).
+12. serve / 3dssd — ``StreamingDetector`` with ``configs/kitti_models/
+                    3dssd_car.yaml`` in bf16 on the 8 scans of
+                    ``bench_assets/scans.npz``, seeded weights: per batch 2
+                    f-fps launches, 2 FPS launches, 1 fused-NMS launch.
+13. parity / 3dssd — 3DSSD in fp32 (TF32 off) on 2 scans against
+                    ``de6d_tpu_torch/testdata/ssd3d_jax_ref.npz``
+                    (:func:`check_point_parity`: every sampling call's picks,
+                    candidates, detections).
+14. serve / iassd — the same with ``configs/kitti_models/IA-SSD.yaml``, a
+                    shorter window: 2 FPS launches, no f-fps launch (the
+                    shipped config samples with D-FPS and ctr_aware), 1
+                    fused-NMS launch.
+15. parity / iassd — IA-SSD against ``de6d_tpu_torch/testdata/
+                    iassd_jax_ref.npz``.
+
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -62,6 +85,7 @@ before it a JSON summary of the kernels, the last line
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -81,6 +105,11 @@ DET6D_REF = ROOT / "de6d_tpu_torch/testdata/det6d_jax_ref.npz"
 RCNN_CFG = ROOT / "configs/kitti_models/pointrcnn.yaml"
 RCNN_REF = ROOT / "de6d_tpu_torch/testdata/pointrcnn_jax_ref.npz"
 RCNN_SEED = 2026  # numpy seed of PointRCNN's weights (weights.seeded_flax)
+SSD3D_CFG = ROOT / "configs/kitti_models/3dssd_car.yaml"
+SSD3D_REF = ROOT / "de6d_tpu_torch/testdata/ssd3d_jax_ref.npz"
+IASSD_CFG = ROOT / "configs/kitti_models/IA-SSD.yaml"
+IASSD_REF = ROOT / "de6d_tpu_torch/testdata/iassd_jax_ref.npz"
+SSD3D_SEED = IASSD_SEED = 2026  # no trained weights in the repository
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # H100 SXM fp32 outside the tensor cores, an FMA counted as two; the
@@ -88,9 +117,20 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # most at half this rate (33.5e12 per second).
 FP32_FLOPS = 67e12
 PARITY_TOL = 1e-3  # metres / score units, see the parity phase
-SERVE_S = 5.0  # length of each pipelined serve window
+# An entry of the f-fps distance matrix, max(|a|² + |b|² − 2a·b, 0) per
+# term, is a difference of fp32 sums that cancels; its error is a few
+# ulps of the summands |a|² + |b|², whatever order the sums are taken in.
+MATRIX_RTOL = 1e-6
+SERVE_S = 3.0  # length of each pipelined serve window
 SERIAL_BATCHES = 10
 PROFILE_BATCHES = 20
+
+
+def matrix_tolerance(scale):
+    """The allowed distance of an f-fps matrix entry from its exact value,
+    given ``scale``: the entry's ``|a|² + |b|²``, summed over the xyz and
+    the (gamma-weighted) feature term."""
+    return MATRIX_RTOL * scale
 
 
 def fail(msg):
@@ -191,6 +231,11 @@ def load_det6d_scans():
 
 def load_rcnn_scans():
     return load_clipped_scans(RCNN_CFG, SCANS)
+
+
+def load_ssd3d_scans():
+    """For 3DSSD, 3DSSD-SASA and IA-SSD (one KITTI range)."""
+    return load_clipped_scans(SSD3D_CFG, SCANS)
 
 
 # ---------------------------------------------------------------------
@@ -387,10 +432,10 @@ def phase_kernels(dev, report):
 # ---------------------------------------------------------------------
 
 def phase_serve(tag, model, mc, nc, pts, mask, kernels, box_width, profile,
-                per_batch=None):
+                per_batch=None, serve_s=SERVE_S):
     """Serve the 8 scans at batch 8 through ``StreamingDetector``: a warm
-    batch, SERIAL_BATCHES synchronous batches, then a SERVE_S pipelined
-    window. ``kernels`` maps a name to a wrapper whose launch count is
+    batch, SERIAL_BATCHES synchronous batches, then a pipelined window of
+    ``serve_s`` seconds. ``kernels`` maps a name to a wrapper whose launch count is
     zeroed before the run and read after it; each must rise (or rise by
     exactly ``per_batch[name]`` per batch, which may be 0 for a kernel the
     path must not reach)."""
@@ -413,7 +458,7 @@ def phase_serve(tag, model, mc, nc, pts, mask, kernels, box_width, profile,
         lat.append(time.perf_counter() - s)
     n_req = 0
     t0 = time.perf_counter()
-    while time.perf_counter() - t0 < SERVE_S:
+    while time.perf_counter() - t0 < serve_s:
         det.submit_batch(frames)  # finished frames wait in the detector
         n_req += 1
     results = []
@@ -541,6 +586,15 @@ def fps_weights(scores, gamma):
     return torch.sigmoid(scores) ** gamma
 
 
+def argmax_round_ms():
+    """The time of one empty block-wide argmax round (8 blocks, as a
+    batch of 8 samples runs): the FPS kernels' latency floor per pick."""
+    from de6d_tpu_torch.ops.kernels import fps as fk
+
+    rounds = 4096
+    return time_ms(lambda: fk.argmax_rounds(rounds, 8, "cuda"), 10) / rounds
+
+
 def check_fps(cases, report):
     """cases: {label: (xyz (B, N, 3), valid (B, N), npoint, weights or
     None)}; kernel picks must equal the plain loop's. Times the kernel,
@@ -551,9 +605,7 @@ def check_fps(cases, report):
 
     from de6d_tpu_torch.ops.kernels import fps as fk
 
-    rounds = 4096
-    round_ms = time_ms(lambda: fk.argmax_rounds(rounds, 8, "cuda"),
-                       10) / rounds
+    round_ms = argmax_round_ms()
     lines = {}
     for label, (xyz, valid, npoint, w) in cases.items():
         got = fk.fps(xyz, valid, npoint, weights=w)
@@ -666,6 +718,27 @@ def absolute_picks(picks):
     return out
 
 
+def sfps_parting(xyz, valid, w_port, w_ref, prefix, p, r):
+    """One sample's s-fps step after the picks ``prefix``: the port's keys
+    ``min_dist * max(w, 1e-12)`` of its own pick ``p`` and of the
+    reference's pick ``r`` → (relative key gap, the gap that the relative
+    differences between the port's and the reference's weights of the two
+    points explain, plus 1e-6)."""
+    import torch
+
+    from de6d_tpu_torch.ops.kernels.fps import INF
+
+    md = torch.full_like(w_port, INF)
+    for last in prefix:
+        dx, dy, dz = (xyz - xyz[last]).unbind(-1)
+        md = torch.minimum(md, (dx * dx + dy * dy) + dz * dz)
+    md = torch.where(valid, md, -1.0)
+    key = torch.where(md >= 0, md * torch.clamp(w_port, min=1e-12), md)
+    gap = float((key[p] - key[r]) / key[p])
+    rel = (w_port / w_ref - 1).abs()
+    return gap, float(rel[p] + rel[r]) + 1e-6
+
+
 def check_det6d_parity(out, post, ref, gamma=1.0, tol=PARITY_TOL):
     """Det6D against the JAX reference ``ref`` (the fixture's arrays).
 
@@ -684,7 +757,7 @@ def check_det6d_parity(out, post, ref, gamma=1.0, tol=PARITY_TOL):
     import numpy as np
     import torch
 
-    from de6d_tpu_torch.ops.kernels.fps import INF, fps_plain
+    from de6d_tpu_torch.ops.kernels.fps import fps_plain
 
     picks = [p.cpu().numpy() for p in out["point_sample_idx_list"]]
     inputs = [(out["points"][..., :3].float(), out["points_mask"], None)]
@@ -717,16 +790,9 @@ def check_det6d_parity(out, post, ref, gamma=1.0, tol=PARITY_TOL):
         xyz, valid, w_port = (t[b] for t in inputs[k])
         w_ref = fps_weights(torch.as_tensor(ref[f"scores_{k - 1}"][b],
                                             device=xyz.device), gamma)
-        md = torch.full_like(w_port, INF)
-        for last in picks[k][b][:j].tolist():
-            dx, dy, dz = (xyz - xyz[last]).unbind(-1)
-            md = torch.minimum(md, (dx * dx + dy * dy) + dz * dz)
-        md = torch.where(valid, md, -1.0)
-        key = torch.where(md >= 0, md * torch.clamp(w_port, min=1e-12), md)
         p, r = int(picks[k][b][j]), int(ref_picks[k][b][j])
-        gap = float((key[p] - key[r]) / key[p])
-        rel = (w_port / w_ref - 1).abs()
-        explained = float(rel[p] + rel[r]) + 1e-6
+        gap, explained = sfps_parting(xyz, valid, w_port, w_ref,
+                                      picks[k][b][:j].tolist(), p, r)
         partings.append({"sample": b, "layer": f"SA{k + 1}", "pick": j,
                          "port": p, "ref": r, "key_gap": gap,
                          "weight_diff": explained - 1e-6})
@@ -990,6 +1056,20 @@ def face_distance(points, valid, rois):
     return torch.where(valid[None], outer.abs(), torch.inf).amin(dim=-1)
 
 
+def close_to(tag, name, got, want, tol, where=""):
+    """The largest difference between ``got`` and ``want``, absolute for
+    values below 1 and relative above (seeded weights decode to boxes
+    tens of metres long); raises RuntimeError above ``tol``."""
+    import numpy as np
+
+    want = np.asarray(want, np.float64)
+    d = float((np.abs(np.asarray(got, np.float64) - want)
+               / np.maximum(1.0, np.abs(want))).max(initial=0))
+    if not d <= tol:
+        raise RuntimeError(f"{tag}: {name}{where} differs by {d:.3g} > {tol}")
+    return d
+
+
 def check_pointrcnn_parity(out, post, ref, tol=PARITY_TOL):
     """PointRCNN against the JAX reference ``ref`` (the fixture's arrays).
 
@@ -1027,15 +1107,7 @@ def check_pointrcnn_parity(out, post, ref, tol=PARITY_TOL):
     from de6d_tpu_torch.ops.nms import stable_top_k
 
     def close(name, got, want, where=""):
-        # seeded weights decode to boxes tens of metres long: the
-        # difference is taken relative to the value where that exceeds 1
-        want = np.asarray(want, np.float64)
-        d = float((np.abs(np.asarray(got, np.float64) - want)
-                   / np.maximum(1.0, np.abs(want))).max(initial=0))
-        if not d <= tol:
-            raise RuntimeError(f"parity / pointrcnn: {name}{where} differs "
-                               f"by {d:.3g} > {tol}")
-        return d
+        return close_to("parity / pointrcnn", name, got, want, tol, where)
 
     diffs = {}
     picks = [p.cpu().numpy() for p in out["point_sample_idx_list"]]
@@ -1196,13 +1268,501 @@ def phase_rcnn_parity(report):
           f"{d['pred_scores']:.3g} (tol {PARITY_TOL})", flush=True)
 
 
+# ---------------------------------------------------------------------
+# 3DSSD / 3DSSD-SASA / IA-SSD: f-fps kernel, serve, parity
+# ---------------------------------------------------------------------
+
+@contextlib.contextmanager
+def forced_sampling(ref_picks):
+    """Within the block every sampling call of the port's point backbones
+    (``run_sampling``, ``run_sampling_iassd``) computes its own picks on
+    the inputs it is given, records them with those inputs, and returns
+    the reference's picks for that call (``ref_picks[k]`` for the k-th
+    call) instead. Each call's picks are thus held against the
+    reference's on the same upstream points, and a certified parting
+    (which changes the sampled set, not only its order) does not spread
+    into the layers after it."""
+    import torch
+
+    from de6d_tpu_torch.models.backbones_3d import (
+        iassd_backbone, pointnet2_modules,
+    )
+
+    calls = []
+
+    def wrap(fn):
+        def run(method, xyz, features, scores, valid, npoint, sample_range,
+                gamma=1.0):
+            extra = () if fn is orig[1] else (gamma,)
+            own = fn(method, xyz, features, scores, valid, npoint,
+                     sample_range, *extra)
+            k = len(calls)
+            if k >= len(ref_picks) or tuple(ref_picks[k].shape) != tuple(
+                    own.shape):
+                raise RuntimeError(f"sampling call {k} ({method}) has no "
+                                   "counterpart in the reference")
+            ref = torch.tensor(ref_picks[k], device=own.device,
+                               dtype=own.dtype)
+            calls.append(dict(method=method, own=own, ref=ref, xyz=xyz,
+                              features=features, scores=scores, valid=valid,
+                              npoint=int(npoint), range=sample_range,
+                              gamma=float(gamma)))
+            return ref
+        return run
+
+    orig = (pointnet2_modules.run_sampling, iassd_backbone.run_sampling_iassd)
+    pointnet2_modules.run_sampling = wrap(orig[0])
+    iassd_backbone.run_sampling_iassd = wrap(orig[1])
+    try:
+        yield calls
+    finally:
+        (pointnet2_modules.run_sampling,
+         iassd_backbone.run_sampling_iassd) = orig
+
+
+def sampling_segments(method, npoint):
+    """[(kind, start, stop)] of one sampling call's picks: 'topk' for
+    score ranking (c-fps, ctr_aware, cls), 'ffps', 'sfps', and 'exact' for
+    what has no learned input (d-fps, strides, part-wise d-fps)."""
+    if "cls" in method or "ctr" in method or method == "c-fps":
+        return [("topk", 0, npoint)]
+    if method in ("F-FPS", "FFS", "f-fps"):
+        return [("ffps", 0, npoint)]
+    if method == "FS":
+        return [("ffps", 0, npoint), ("exact", npoint, 2 * npoint)]
+    if method == "s-fps":
+        return [("sfps", 0, npoint)]
+    return [("exact", 0, npoint)]
+
+
+def ffps_parting(xyz, feats, gamma, valid, prefix, p, r):
+    """One sample's f-fps step after the picks ``prefix`` (a LongTensor):
+    the port's own keys (running minima over its own matrix) of its pick
+    ``p`` and of the reference's pick ``r`` → (key gap, the gap that
+    :func:`matrix_tolerance` allows for the two matrix entries that hold
+    those minima)."""
+    import torch
+
+    from de6d_tpu_torch.ops import sampling
+
+    dm = sampling.calc_dist_matrix_for_sampling(
+        xyz[None], None if feats is None else feats[None], gamma)[0]
+    md, arg = dm[prefix].min(dim=0)
+    norm = (xyz * xyz).sum(-1)
+    if feats is not None:
+        norm = norm + gamma * (feats * feats).sum(-1)
+    scale = norm + norm[prefix[arg]]  # |a|² + |b|² of the entry held
+    md = torch.where(valid, md, -1.0)
+    return float(md[p] - md[r]), float(matrix_tolerance(scale[p] + scale[r]))
+
+
+def certify_sampling_call(tag, k, call, ref_scores, tol):
+    """The k-th sampling call of a forced run: where the port's own picks
+    differ from the reference's, each difference must be a near-tie, or
+    RuntimeError. Returns the partings.
+
+    * 'exact' segments must be identical.
+    * 'ffps' / 'sfps': at a sample's first differing pick the port's key of
+      its own pick exceeds its key of the reference's pick by no more than
+      the matrix tolerance (:func:`ffps_parting`) or the weights'
+      differences (:func:`sfps_parting`) explain.
+    * 'topk': the scores that are ranked lie within ``tol`` of the
+      reference's (largest difference ``delta``); a position may hold
+      another point only where the two points' reference scores lie within
+      ``2 * delta`` of each other."""
+    import torch
+
+    lo, hi = call["range"]
+    hi = call["xyz"].shape[1] if hi == -1 else hi
+    xyz, valid = call["xyz"][:, lo:hi].float(), call["valid"][:, lo:hi]
+    own, ref = call["own"].long() - lo, call["ref"].long() - lo
+    gamma = call["gamma"]
+
+    def weights(scores):
+        w = scores[:, lo:hi]
+        if w.ndim == 3:  # IA-SSD: per-class logits, the largest ranks
+            w = w.amax(dim=-1)
+        return torch.sigmoid(w.float()) ** gamma
+
+    partings = []
+    for kind, a, z in sampling_segments(call["method"], call["npoint"]):
+        differs = own[:, a:z] != ref[:, a:z]
+        if not bool(differs.any()):
+            continue
+        name = f"sampling call {k} ({call['method']}, picks {a}:{z})"
+        if kind == "exact":
+            raise RuntimeError(f"{tag}: {name} has no learned input and "
+                               "differs from the reference")
+        if kind == "topk":
+            w_port = weights(call["scores"])
+            w_ref = weights(torch.as_tensor(ref_scores, device=xyz.device))
+            delta = float(torch.where(valid, (w_port - w_ref).abs(),
+                                      0.0).max())
+            if not delta <= tol:
+                raise RuntimeError(f"{tag}: {name}: scores differ by "
+                                   f"{delta:.3g} > {tol}")
+            w_ref = torch.where(valid, w_ref, -1e10)
+            gaps = (torch.gather(w_ref, 1, own[:, a:z])
+                    - torch.gather(w_ref, 1, ref[:, a:z])).abs()[differs]
+            near = 2 * delta + 1e-7
+            if float(gaps.max()) > near:
+                raise RuntimeError(f"{tag}: {name}: a position differs "
+                                   f"that is no near-tie ({float(gaps.max()):.3g}"
+                                   f" > {near:.3g})")
+            partings.append({"call": k, "method": call["method"],
+                             "positions": int(differs.sum()),
+                             "score_gap": float(gaps.max()), "allowed": near})
+            continue
+        for b in differs.any(dim=1).nonzero().flatten().tolist():
+            j = a + int(differs[b].int().argmax())
+            p, r = int(own[b, j]), int(ref[b, j])
+            if kind == "ffps":
+                if j == a:
+                    raise RuntimeError(f"{tag}: {name}: the seed differs")
+                feats = call["features"]
+                feats = None if feats is None else feats[b, lo:hi].float()
+                gap, allowed = ffps_parting(xyz[b], feats, gamma, valid[b],
+                                            own[b, a:j], p, r)
+            else:
+                w_ref = weights(torch.as_tensor(ref_scores,
+                                                device=xyz.device))
+                gap, allowed = sfps_parting(
+                    xyz[b], valid[b], weights(call["scores"])[b], w_ref[b],
+                    own[b, a:j].tolist(), p, r)
+            partings.append({"call": k, "method": call["method"],
+                             "sample": b, "pick": j, "port": p, "ref": r,
+                             "key_gap": gap, "allowed": allowed})
+            print(f"{tag}: sample {b} parts from the reference at {name}, "
+                  f"pick {j} (port row {p}, reference row {r}); key gap "
+                  f"{gap:.3g}, allowed {allowed:.3g}", flush=True)
+            if not 0.0 <= gap <= allowed:
+                raise RuntimeError(f"{tag}: {name}: pick {j} of sample {b} "
+                                   f"is no near-tie ({gap:.3g} > "
+                                   f"{allowed:.3g})")
+    return partings
+
+
+def vote_group_changes(sa, xyz, valid, votes, ref_votes, votes_valid):
+    """(B, M) bool: the votes around which the SA module ``sa`` groups
+    other points of ``xyz`` than around the reference's votes, both sets
+    taken by the port's ball query. A vote differs from the reference's
+    by ulps (dense sums in another order), which moves a point that lies
+    on one of its spheres in or out."""
+    import torch
+
+    from de6d_tpu_torch.ops import ball_query as bq
+
+    scales = list(zip(*sa._scale_tuples()))
+    own = bq.ball_query_scales(xyz, votes, scales, valid, votes_valid)
+    other = bq.ball_query_scales(xyz, ref_votes, scales, valid, votes_valid)
+    changed = torch.zeros_like(votes_valid)
+    for (ia, ca), (ib, cb) in zip(own, other):
+        changed |= (ia != ib).any(dim=-1) | (ca != cb)
+    return changed
+
+
+def check_point_parity(tag, model, points, mask, post_cfg, nc, ref,
+                       tol=PARITY_TOL):
+    """A single-stage point detector (3DSSD, 3DSSD-SASA, IA-SSD) against
+    the JAX reference ``ref`` (the fixture's arrays), in one forced run
+    (:func:`forced_sampling`): without a parting it is the free run.
+
+    1. Every sampling call's picks equal the reference's or part at a
+       certified near-tie (:func:`certify_sampling_call`).
+    2. The votes (3DSSD: the head's vote coordinates; IA-SSD: the vote
+       layer's centres) within ``tol``.
+    3. The head's candidates: class scores within ``tol``, boxes within
+       ``tol`` (relative above 1) — except a candidate with a point on one
+       of its vote's grouping spheres (:func:`vote_group_changes`), whose
+       grouped set, and with it its features, may differ; those are
+       counted and reported.
+    4. Detections of a sample without such a candidate: counts and labels
+       equal, boxes and scores within ``tol``. Other samples' detections
+       are reported as not compared.
+    Returns (the batch dict, a report); raises RuntimeError where a check
+    fails."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        post_processing,
+    )
+
+    n_calls = sum(k.startswith("picks_") for k in ref)
+    with torch.no_grad(), forced_sampling(
+            [ref[f"picks_{k}"] for k in range(n_calls)]) as calls:
+        out = model({"points": points, "points_mask": mask})
+        post = post_processing(out, post_cfg, nc)
+    if len(calls) != n_calls:
+        raise RuntimeError(f"{tag}: {len(calls)} sampling calls, reference "
+                           f"{n_calls}")
+    partings = []
+    for k, call in enumerate(calls):
+        partings += certify_sampling_call(tag, k, call,
+                                          ref.get(f"scores_{k}"), tol)
+
+    # the SA module at the votes, and the points it groups
+    sa = getattr(model.point_head, "sa_module", None)
+    if sa is not None:  # 3DSSD: in the head, over all backbone points
+        votes, votes_valid = out["point_vote_coords"], out["point_vote_valid"]
+        xyz, valid = out["point_coords"], out["point_valid"]
+    else:  # IA-SSD: the backbone's last layer, over its LAYER_INPUT
+        backbone = model.backbone_3d
+        sa, inp = backbone.sa_modules[-1], backbone.layer_inputs[-1]
+        votes, votes_valid = out["centers"], out["centers_valid"]
+        xyz, valid = out["encoder_coords"][inp], out["encoder_valid"][inp]
+    diffs = {"vote_coords": close_to(tag, "vote coordinates",
+                                     votes.cpu().numpy(), ref["vote_coords"],
+                                     tol)}
+    moved = vote_group_changes(
+        sa, xyz, valid, votes,
+        torch.as_tensor(ref["vote_coords"], device=votes.device),
+        votes_valid).cpu().numpy()
+    held = ~moved
+    diffs["cand_scores"] = close_to(
+        tag, "candidate scores",
+        torch.sigmoid(out["batch_cls_preds"]).cpu().numpy()[held],
+        ref["cand_scores"][held], tol)
+    diffs["cand_boxes"] = close_to(
+        tag, "candidate boxes", out["batch_box_preds"].cpu().numpy()[held],
+        ref["cand_boxes"][held], tol)
+    diffs.update(pred_boxes=0.0, pred_scores=0.0)
+    got = {k: v.cpu().numpy() for k, v in post.items()}
+    skipped = []
+    for b, c in enumerate(ref["pred_count"].tolist()):
+        if moved[b].any():
+            skipped.append(b)
+            continue
+        if int(got["pred_count"][b]) != c:
+            raise RuntimeError(f"{tag}: counts {got['pred_count']} vs "
+                               f"{ref['pred_count']}")
+        if not np.array_equal(got["pred_labels"][b, :c],
+                              ref["pred_labels"][b, :c]):
+            raise RuntimeError(f"{tag}: labels of scan {b} differ")
+        for k in ("pred_boxes", "pred_scores"):
+            diffs[k] = max(diffs[k], close_to(
+                tag, k, got[k][b, :c], ref[k][b, :c], tol, f" of scan {b}"))
+    return out, {
+        "counts": got["pred_count"].tolist(), "max_abs_diff": diffs,
+        "sampling_calls": [c["method"] for c in calls],
+        "picks_differing": [int((c["own"] != c["ref"]).sum()) for c in calls],
+        "partings": partings,
+        "candidates_on_a_sphere": moved.sum(-1).tolist(),
+        "detections_not_compared": skipped,
+    }
+
+
+def check_matrix_fps(cases, report):
+    """cases: {label: (dist matrix (B, N, N), valid (B, N), npoint)};
+    kernel picks must equal the plain loop's. Times the kernel and the
+    plain loop; the bound is the bytes of the rows these picks read; the
+    latency floor is npoint - 1 empty block-wide argmax rounds (the pick
+    loop without its dependent row read)."""
+    import torch
+
+    from de6d_tpu_torch.ops.kernels import matrix_fps as mk
+
+    round_ms = argmax_round_ms()
+    lines = {}
+    for label, (dm, valid, npoint) in cases.items():
+        got = mk.matrix_fps(dm, valid, npoint)
+        ref, plain_ms = timed(lambda: mk.matrix_fps_plain(dm, valid, npoint))
+        if not torch.equal(got, ref):
+            bad = (got != ref).nonzero()[0].tolist()
+            fail(f"kernels / matrix_fps {label}: picks differ from the "
+                 f"plain version, first at (sample, pick) {bad}")
+        b, n = valid.shape
+        nbytes = mk.bytes_moved(got, n)
+        lines[label] = {
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: mk.matrix_fps(dm, valid, npoint), 5),
+            "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "bytes": nbytes,
+            "latency_floor_ms": (npoint - 1) * round_ms,
+            "shape": f"f-fps ({b}, {n}, {n}) -> {npoint}, "
+                     f"{int(valid.sum())} valid",
+        }
+        ln = lines[label]
+        print(f"kernels / matrix_fps {label}: identical picks, "
+              f"{ln['shape']}: {ln['ms']:.4f} ms, plain "
+              f"{ln['plain_ms']:.1f} ms, bound {ln['bound_ms']:.5f} ms "
+              f"({nbytes} bytes), latency floor "
+              f"{ln['latency_floor_ms']:.4f} ms", flush=True)
+    report["matrix_fps_round_ms"] = round_ms
+    return lines
+
+
+def phase_ssd3d_kernels(report):
+    """The f-fps kernel at the served 3DSSD model's shapes and inputs (the
+    real xyz-plus-feature matrices of SA2 and SA3) and at ragged shapes;
+    the matrix against float64; what the seeded weights give."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        post_processing, select_candidates,
+    )
+    from de6d_tpu_torch.ops import sampling
+    from de6d_tpu_torch.ops.nms import NEG_INF
+
+    model, mc, nc = build_model("bfloat16", "cuda", SSD3D_CFG, SSD3D_SEED)
+    sa_cfg = mc["BACKBONE_3D"]["SA_CONFIG"]
+    gamma = float(sa_cfg.get("WEIGHT_GAMMA", 1.0))
+    pts, mask = load_ssd3d_scans()
+    points = torch.from_numpy(pts).cuda()
+    valid = torch.from_numpy(mask).cuda()
+    levels = []  # each SA layer's (xyz, features, scores, valid, picks)
+    hooks = [sa.register_forward_hook(lambda m, a, o: levels.append(o))
+             for sa in model.backbone_3d.sa_modules]
+    with torch.no_grad():
+        out = model({"points": points, "points_mask": valid})
+        post = post_processing(out, mc["POST_PROCESSING"], nc)
+    for h in hooks:
+        h.remove()
+
+    # SA2 samples all of SA1's points, SA3's f-fps the first 512 of SA2's
+    (_, hi3), _ = sa_cfg["SAMPLE_RANGE_LIST"][2]
+    dm2 = sampling.calc_dist_matrix_for_sampling(levels[0][0], levels[0][1],
+                                                 gamma)
+    dm3 = sampling.calc_dist_matrix_for_sampling(
+        levels[1][0][:, :hi3], levels[1][1][:, :hi3], gamma)
+    xyz64, f64 = levels[0][0][0].double(), levels[0][1][0].double()
+    n_x, n_f = (xyz64 * xyz64).sum(-1), (f64 * f64).sum(-1)
+    exact = ((n_x[:, None] + n_x[None] - 2 * xyz64 @ xyz64.t()).clamp(min=0)
+             + gamma * (n_f[:, None] + n_f[None]
+                        - 2 * f64 @ f64.t()).clamp(min=0))
+    norm = n_x + gamma * n_f
+    err = ((dm2[0].double() - exact).abs()
+           / matrix_tolerance(norm[:, None] + norm[None])).max()
+    del exact
+    if not float(err) <= 1.0:
+        fail(f"kernels / matrix_fps: the SA2 distance matrix is {err:.3g} "
+             "times its tolerance away from float64")
+    print(f"kernels / matrix_fps: SA2 distance matrix {tuple(dm2.shape)} "
+          f"within {float(err):.3f} of its tolerance ({MATRIX_RTOL:g} x "
+          "(|a|^2 + |b|^2)) of float64", flush=True)
+
+    rng = np.random.RandomState(0)
+
+    def synthetic(b, n, counts, ties=False):
+        a = torch.from_numpy(rng.uniform(-40, 70, (b, n, 3)).astype(
+            np.float32)).cuda()
+        if ties:  # a lattice: many exactly equal distances
+            a = a.round()
+        f = torch.from_numpy(np.abs(rng.normal(0, 1, (b, n, 16))).astype(
+            np.float32)).cuda()
+        v = (torch.arange(n, device="cuda")[None]
+             < torch.tensor(counts, device="cuda")[:, None])
+        return sampling.calc_dist_matrix_for_sampling(
+            a, None if ties else f), v
+
+    cases = {
+        "sa2_ffps": (dm2, levels[0][3], int(sa_cfg["NPOINT_LIST"][1][0])),
+        "sa3_ffps": (dm3, levels[1][3][:, :hi3].contiguous(),
+                     int(sa_cfg["NPOINT_LIST"][2][0])),
+        # N not a multiple of 32, a ragged mask, fewer valid points than
+        # picks, no valid point
+        "ragged_1000": synthetic(4, 1000, [1000, 700, 100, 0]) + (333,),
+        "ties_2047": synthetic(2, 2047, [2047, 1500], ties=True) + (400,),
+        "n5000": synthetic(2, 5000, [5000, 4097]) + (128,),
+        "n9000": synthetic(1, 9000, [8500]) + (64,),
+        "n1": synthetic(3, 1, [1, 0, 1]) + (5,),
+    }
+    lines = check_matrix_fps(cases, report)
+    path = [lines["sa2_ffps"], lines["sa3_ffps"]]  # the launches per batch
+    report["matrix_fps"] = {
+        "name": "matrix_fps",
+        "route": "cuda",
+        "source": "de6d_tpu_torch/csrc/matrix_fps.cu",
+        "replaces": "de6d_tpu/ops/pallas/fps.py:251",
+        "max_abs_err": 0.0,
+        **{k: sum(ln[k] for ln in path) for k in (
+            "ms", "plain_ms", "bound_ms", "latency_floor_ms")},
+        "bound_by": "bytes",
+        "library_ms": None,
+        "matrix_error_over_tolerance": float(err),
+        "cases": lines,
+    }
+    del dm2, dm3, cases
+
+    fps_lines = check_fps({
+        "ssd3d_sa1_dfps": (points[..., :3].contiguous(), valid,
+                           int(sa_cfg["NPOINT_LIST"][0][0]), None),
+        "ssd3d_sa3_dfps": (levels[1][0], levels[1][3],
+                           int(sa_cfg["NPOINT_LIST"][2][1]), None),
+    }, report)
+    report["fps"]["cases"].update(fps_lines)
+    report["fps"]["ssd3d_ms_per_batch"] = sum(
+        ln["ms"] for ln in fps_lines.values())
+
+    # what the seed gives: votes, candidates, detections
+    lim = model.point_head.max_translation
+    offsets = out["point_vote_coords"] - out["point_candidate_coords"]
+    clamped = float(((offsets.abs() >= lim * (1 - 1e-6))
+                     & out["point_vote_valid"][..., None]).float().mean())
+    boxes, scores, _ = select_candidates(out, mc["POST_PROCESSING"])
+    counts = (scores > NEG_INF / 2).sum(-1).to(torch.int32)
+    nms_cfg = mc["POST_PROCESSING"]["NMS_CONFIG"]
+    report["nms"]["cases"].update(check_nms(
+        {"ssd3d": (boxes.contiguous(), counts)}, float(nms_cfg["NMS_THRESH"]),
+        min(int(nms_cfg["NMS_POST_MAXSIZE"]), boxes.shape[1])))
+    live = counts.tolist()
+    kept = post["pred_count"].tolist()
+    sizes = out["batch_box_preds"][..., 3:6]
+    report["ssd3d_seeded"] = {
+        "vote_components_clamped": clamped, "candidates_live": live,
+        "detections": kept,
+        "box_size_range": [float(sizes.min()), float(sizes.max())]}
+    print(f"kernels / matrix_fps: seeded 3DSSD: {clamped:.1%} of the vote "
+          f"components clamped, live candidates {live}, detections {kept}, "
+          f"box sizes {float(sizes.min()):.3g}..{float(sizes.max()):.3g} m",
+          flush=True)
+    if not (clamped < 0.5 and 0 < sum(kept) < sum(live)):
+        fail("kernels / matrix_fps: the seeded 3DSSD weights give a trivial "
+             "head (votes clamped, or an NMS that keeps all or nothing)")
+    return model, mc
+
+
+def phase_point_parity(tag, cfg_path, seed, ref_path, report):
+    """fp32 (TF32 off) on 2 scans with seeded weights against the stored
+    JAX reference (:func:`check_point_parity`)."""
+    import numpy as np
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, mc, nc = build_model("float32", "cuda", cfg_path, seed)
+    pts, mask = load_ssd3d_scans()
+    try:
+        _, res = check_point_parity(
+            tag, model, torch.from_numpy(pts[:2]).cuda(),
+            torch.from_numpy(mask[:2]).cuda(), mc["POST_PROCESSING"], nc,
+            dict(np.load(ref_path)))
+    except RuntimeError as e:
+        fail(str(e))
+    report[tag.replace(" / ", "_")] = res
+    d = res["max_abs_diff"]
+    print(f"{tag}: fp32 (TF32 off) on 2 scans matches the JAX reference: "
+          f"sampling calls {res['sampling_calls']}, picks differing "
+          f"{res['picks_differing']} ({len(res['partings'])} partings, each "
+          f"a certified near-tie), candidates with a point on a grouping "
+          f"sphere {res['candidates_on_a_sphere']}, detections not compared "
+          f"for samples {res['detections_not_compared']}, counts "
+          f"{res['counts']}, max |d| vote {d['vote_coords']:.3g}, "
+          f"candidate score {d['cand_scores']:.3g}, candidate box "
+          f"{d['cand_boxes']:.3g}, box {d['pred_boxes']:.3g}, score "
+          f"{d['pred_scores']:.3g} (tol {PARITY_TOL})", flush=True)
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
     from de6d_tpu_torch.ops.kernels import (
-        build, canvas, fps, nms_fused, nms_mask,
+        build, canvas, fps, matrix_fps, nms_fused, nms_mask,
     )
 
     profile = "--profile" in sys.argv[1:]
@@ -1249,6 +1809,26 @@ def main():
     del model
     phase_rcnn_parity(report)
 
+    ffps = matrix_fps.matrix_fps
+    model, mc = phase_ssd3d_kernels(report)
+    pts, mask = load_ssd3d_scans()
+    report["serve_3dssd"] = phase_serve(
+        "serve / 3dssd", model, mc, 1, pts, mask,
+        {"matrix_fps": ffps, "fps": fps.fps, "nms": nms}, 7, profile,
+        per_batch={"matrix_fps": 2, "fps": 2, "nms": 1})
+    del model
+    phase_point_parity("parity / 3dssd", SSD3D_CFG, SSD3D_SEED, SSD3D_REF,
+                       report)
+
+    model, mc, nc = build_model("bfloat16", "cuda", IASSD_CFG, IASSD_SEED)
+    report["serve_iassd"] = phase_serve(
+        "serve / iassd", model, mc, nc, pts, mask,
+        {"matrix_fps": ffps, "fps": fps.fps, "nms": nms}, 7, profile,
+        per_batch={"matrix_fps": 0, "fps": 2, "nms": 1}, serve_s=2.0)
+    del model
+    phase_point_parity("parity / iassd", IASSD_CFG, IASSD_SEED, IASSD_REF,
+                       report)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1258,9 +1838,11 @@ def main():
     report["seconds"] = time.perf_counter() - t_start
     by_path = {"pointpillar": report["serve"]["launches"],
                "det6d": report["serve_det6d"]["launches"],
-               "pointrcnn": report["serve_pointrcnn"]["launches"]}
+               "pointrcnn": report["serve_pointrcnn"]["launches"],
+               "3dssd": report["serve_3dssd"]["launches"],
+               "iassd": report["serve_iassd"]["launches"]}
     kernels = []
-    for key in ("canvas", "nms", "nms_mask", "fps"):
+    for key in ("canvas", "nms", "nms_mask", "fps", "matrix_fps"):
         k = {f: report[key][f] for f in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -21,10 +21,11 @@
 //   * each thread keeps its ITEMS = ceil(N / 1024) running minima (and
 //     weights) in registers; points i = tid + k * 1024, so a thread's
 //     candidates ascend in index and a strict '>' keeps the first max;
-//   * argmax per pick: warp shuffle over (key, idx), larger key first and
-//     lower index on equal keys; warp winners go to a double-buffered
-//     shared slot, one barrier, then every warp reduces the 32 winners
-//     itself (no second barrier: the slot parity alternates per pick).
+//   * argmax per pick: block_argmax.cuh (shared with matrix_fps.cu): warp
+//     shuffle over (key, idx), larger key first and lower index on equal
+//     keys; warp winners go to a double-buffered shared slot, one barrier,
+//     then every warp reduces the 32 winners itself (no second barrier:
+//     the slot parity alternates per pick).
 // Splitting one sample over a cluster of blocks (DSMEM) is left to a
 // later change; on the main path 8 of 132 SMs are busy.
 
@@ -34,46 +35,16 @@
 #include <climits>
 #include <cmath>
 
+#include "block_argmax.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+using de6d::block_argmax;
+using de6d::kInit;
+using de6d::kThreads;
+using de6d::kWarps;
+
 constexpr int kMaxItems = 16;  // N <= 16384
-constexpr float kInit = 1e10f;
-
-__device__ __forceinline__ void better(float& key, int& idx, float ok, int oi) {
-  if (ok > key || (ok == key && oi < idx)) {
-    key = ok;
-    idx = oi;
-  }
-}
-
-__device__ __forceinline__ void warp_argmax(float& key, int& idx) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ok = __shfl_xor_sync(0xffffffffu, key, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, idx, off);
-    better(key, idx, ok, oi);
-  }
-}
-
-// Block-wide first argmax; every thread returns the winner. `slot`
-// alternates between consecutive calls (see the file comment).
-__device__ __forceinline__ void block_argmax(float& key, int& idx,
-                                             float (*red_key)[kWarps],
-                                             int (*red_idx)[kWarps], int slot) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  warp_argmax(key, idx);
-  if (lane == 0) {
-    red_key[slot][warp] = key;
-    red_idx[slot][warp] = idx;
-  }
-  __syncthreads();
-  key = red_key[slot][lane];
-  idx = red_idx[slot][lane];
-  warp_argmax(key, idx);
-}
 
 template <int ITEMS, bool WEIGHTED>
 __global__ void __launch_bounds__(kThreads, 1)

@@ -26,8 +26,9 @@ from ..model_utils.mlp import SharedMLP
 def run_sampling(method: str, xyz, features, scores, valid, npoint: int,
                  sample_range, weight_gamma: float = 1.0):
     """One entry of SAMPLE_METHOD_LIST on a slice of the point axis;
-    (B, npoint) int32 indices into the full point axis. d-fps and s-fps
-    are ported; the other methods raise."""
+    (B, npoint) int32 indices into the full point axis. d-fps, f-fps,
+    s-fps and c-fps are ported; df-fps, sectorized-fps and the
+    ground-aware methods raise."""
     lo, hi = int(sample_range[0]), int(sample_range[1])
     if hi == -1:
         hi = xyz.shape[1]
@@ -35,12 +36,21 @@ def run_sampling(method: str, xyz, features, scores, valid, npoint: int,
     valid_s = valid[:, lo:hi]
     if method == "d-fps":
         idx = sampling.farthest_point_sample(xyz_s, npoint, valid_s)
-    elif method == "s-fps":
+    elif method == "f-fps":
+        # fp32 distance keys whatever the compute dtype: the picks must
+        # not depend on it
+        dm = sampling.calc_dist_matrix_for_sampling(
+            xyz_s, features[:, lo:hi].float(), weight_gamma)
+        idx = sampling.matrix_farthest_point_sample(dm, npoint, valid_s)
+    elif method in ("s-fps", "c-fps"):
         if scores is None:
-            raise ValueError("s-fps needs confidence scores")
+            raise ValueError(f"{method} needs confidence scores")
         w = torch.sigmoid(scores[:, lo:hi]) ** weight_gamma
-        idx = sampling.weighted_farthest_point_sample(xyz_s, w, npoint,
-                                                      valid_s)
+        if method == "s-fps":
+            idx = sampling.weighted_farthest_point_sample(xyz_s, w, npoint,
+                                                          valid_s)
+        else:
+            idx = sampling.sample_top_k_by_score(w, npoint, valid_s)
     else:
         raise NotImplementedError(
             f"sampling method {method!r} is not ported yet")
@@ -53,14 +63,15 @@ class PointnetSAModuleFSMSG(nn.Module):
 
     Children follow the flax names: ``SharedMLP_0..S-1`` per scale, then
     the aggregation MLP, then the confidence MLP, and ``Dense_0`` for
-    the confidence logits."""
+    the confidence logits: one per point, or ``confidence_num_class``
+    per-class logits (IA-SSD)."""
 
     def __init__(self, in_channels: int, radii, nsamples, mlps,
                  npoint_list=(), sample_range_list=(), sample_method_list=(),
                  use_xyz=True, dilated_radius_group=False, weight_gamma=1.0,
-                 aggregation_mlp=(), confidence_mlp=(), use_bn=True,
-                 dtype=torch.float32, pc_range=(), bin_cell_cap=128,
-                 bin_spill_cap=256):
+                 aggregation_mlp=(), confidence_mlp=(),
+                 confidence_num_class=0, use_bn=True, dtype=torch.float32,
+                 pc_range=(), bin_cell_cap=128, bin_spill_cap=256):
         super().__init__()
         self.radii = tuple(float(r) for r in radii)
         self.nsamples = tuple(int(s) for s in nsamples)
@@ -89,10 +100,12 @@ class PointnetSAModuleFSMSG(nn.Module):
             out = m.out_channels
             n += 1
         self.has_confidence = bool(confidence_mlp)
+        self.confidence_num_class = int(confidence_num_class)
         if confidence_mlp:
             m = SharedMLP(out, confidence_mlp, use_bn=use_bn, dtype=dtype)
             self.add_module(f"SharedMLP_{n}", m)
-            self.Dense_0 = Dense(m.out_channels, 1)
+            self.Dense_0 = Dense(m.out_channels,
+                                 max(self.confidence_num_class, 1))
         self.out_channels = out
 
     def _scale_tuples(self):
@@ -120,8 +133,9 @@ class PointnetSAModuleFSMSG(nn.Module):
         (B, N) or None; optional externally supplied centers.
 
         Returns (new_xyz (B, M, 3), new_features (B, M, C'), new_scores
-        (B, M) fp32 or None, new_valid (B, M), sample_idx (B, M) int32 or
-        None when the centers were given)."""
+        (B, M) or (B, M, confidence_num_class) fp32 or None, new_valid
+        (B, M), sample_idx (B, M) int32 or None when the centers were
+        given)."""
         b, n, _ = xyz.shape
         if valid is None:
             valid = torch.ones(b, n, dtype=torch.bool, device=xyz.device)
@@ -172,7 +186,9 @@ class PointnetSAModuleFSMSG(nn.Module):
         new_scores = None
         if self.has_confidence:
             h = getattr(self, f"SharedMLP_{n_named}")(new_features)
-            new_scores = self.Dense_0(h.float()).squeeze(-1)
+            new_scores = self.Dense_0(h.float())
+            if self.confidence_num_class == 0:
+                new_scores = new_scores.squeeze(-1)
         return new_xyz, new_features, new_scores, new_valid, sample_idx
 
 

@@ -1,6 +1,7 @@
-"""Vote-based point head, inference only (counterpart of
+"""Vote-based point heads, inference only (counterpart of
 ``de6d_tpu/models/dense_heads/point_head_vote.py``:
-``_PointHeadVoteBase.__call__`` in eval and ``PointHeadBox6DVote``).
+``_PointHeadVoteBase.__call__`` in eval, ``PointHeadBoxVote`` and
+``PointHeadBox6DVote``).
 
 Candidates (``SAMPLE_RANGE`` of the backbone's points) → vote FC (fp32,
 offsets clamped to ``MAX_TRANSLATION_RANGE``) → SA re-aggregation at the
@@ -98,6 +99,12 @@ class _PointHeadVoteBase(nn.Module):
         batch_dict["batch_box_preds"] = point_box_preds
         batch_dict["cls_preds_normalized"] = False
         return batch_dict
+
+
+@POINT_HEADS.register
+class PointHeadBoxVote(_PointHeadVoteBase):
+    """7-DoF vote head (3DSSD / SASA): the box layout comes from
+    ``PointBinResidualCoder``."""
 
 
 @POINT_HEADS.register

@@ -71,12 +71,14 @@ class Detector3DTemplate(nn.Module):
             )
             self.module_names.append("vfe")
         if "BACKBONE_3D" in cfg:
-            # point backbones take the pc range for the fused SA path
+            # point backbones take the pc range for the fused SA path,
+            # IA-SSD's the class count for its per-class confidences
             self.backbone_3d = BACKBONES_3D.get(cfg["BACKBONE_3D"]["NAME"])(
                 model_cfg=cfg["BACKBONE_3D"],
                 input_channels=(self.vfe.output_feature_dim if "VFE" in cfg
                                 else spec.point_feature_dim),
                 point_cloud_range=tuple(spec.point_cloud_range),
+                num_class=num_class,
             )
             self.module_names.append("backbone_3d")
         if "MAP_TO_BEV" in cfg:

@@ -27,8 +27,10 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("canvas.cu", "nms_fused.cu", "nms_mask.cu", "fps.cu")
-HEADERS = ("iou_bev.cuh",)  # included by the sources; part of the hash
+SOURCES = ("canvas.cu", "nms_fused.cu", "nms_mask.cu", "fps.cu",
+           "matrix_fps.cu")
+# included by the sources; part of the hash
+HEADERS = ("iou_bev.cuh", "block_argmax.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
@@ -127,6 +129,8 @@ def lib() -> ctypes.CDLL:
             handle.de6d_fps.restype = i
             handle.de6d_fps_argmax_rounds.argtypes = [i, i, p, p]
             handle.de6d_fps_argmax_rounds.restype = i
+            handle.de6d_matrix_fps.argtypes = [p, p, p, i, i, i, p]
+            handle.de6d_matrix_fps.restype = i
             _lib = handle
     return _lib
 

@@ -1,7 +1,9 @@
 """Box coders (counterpart of ``de6d_tpu/utils/box_coder_utils.py``):
 ``ResidualCoder`` (anchor heads, RoI heads) and the decodes of
-``PointResidualCoder`` (PointRCNN's first stage) and
-``PointBinResidual6DCoder`` (the Det6D vote head)."""
+``PointResidualCoder`` (PointRCNN's first stage),
+``PointBinResidualCoder`` (the 3DSSD / SASA vote head),
+``PointBinResidual6DCoder`` (the Det6D vote head) and
+``PointResidual_BinOri_Coder`` (the IA-SSD head)."""
 
 from __future__ import annotations
 
@@ -106,6 +108,16 @@ def _point_offsets_decode(offsets, points, mean_size=None,
             torch.exp(dxt) * dxa, torch.exp(dyt) * dya, torch.exp(dzt) * dza]
 
 
+def _mean_size(use_mean_size, mean_size):
+    """(classes, 3) per-class mean box sizes, or None."""
+    if not use_mean_size:
+        return None
+    mean_size = torch.tensor(mean_size, dtype=torch.float32)
+    if not float(mean_size.min()) > 0:
+        raise ValueError("point box coder: mean sizes must be > 0")
+    return mean_size
+
+
 @BOX_CODERS.register
 class PointResidualCoder:
     """8-column point-to-box code with cos/sin yaw, decode only: 6
@@ -115,11 +127,7 @@ class PointResidualCoder:
     def __init__(self, code_size=8, use_mean_size=True, mean_size=None,
                  **kwargs):
         self.code_size = code_size
-        self.mean_size = None
-        if use_mean_size:
-            self.mean_size = torch.tensor(mean_size, dtype=torch.float32)
-            if not float(self.mean_size.min()) > 0:
-                raise ValueError("PointResidualCoder: mean sizes must be > 0")
+        self.mean_size = _mean_size(use_mean_size, mean_size)
 
     def decode(self, encodings, points, pred_classes=None):
         out = _point_offsets_decode(encodings, points, self.mean_size,
@@ -136,6 +144,55 @@ def decode_angle_from_bins(cls_logits, res):
     idx = torch.argmax(cls_logits, dim=-1)
     res_sel = torch.gather(res, -1, idx[..., None])[..., 0]
     return (idx.to(res.dtype) + res_sel) * (2.0 * math.pi / num_bins)
+
+
+@BOX_CODERS.register
+class PointBinResidualCoder:
+    """Yaw bin classification + residual point coder (3DSSD / SASA),
+    decode only. Code: [6 offsets | yaw bin cls x B | yaw bin res x B |
+    velocity x 2 (``pred_velo``)]; output (..., 7) plus the columns past
+    the bins."""
+
+    def __init__(self, use_mean_size=True, mean_size=None, angle_bin_num=12,
+                 pred_velo=False, **kwargs):
+        self.mean_size = _mean_size(use_mean_size, mean_size)
+        self.angle_bin_num = angle_bin_num
+        self.code_size = 6 + 2 * angle_bin_num + (2 if pred_velo else 0)
+
+    def decode(self, encodings, points, pred_classes=None):
+        nb = self.angle_bin_num
+        out = _point_offsets_decode(encodings, points, self.mean_size,
+                                    pred_classes)
+        out.append(decode_angle_from_bins(encodings[..., 6:6 + nb],
+                                          encodings[..., 6 + nb:6 + 2 * nb]))
+        return torch.cat([torch.stack(out, dim=-1),
+                          encodings[..., 6 + 2 * nb:]], dim=-1)
+
+
+@BOX_CODERS.register
+class PointResidual_BinOri_Coder:
+    """IA-SSD bin-orientation point coder, decode only. Code: [6 offsets
+    | bin logits x B | bin residuals x B], residuals in half bins; the
+    yaw is the chosen bin's centre in [-pi, pi) plus its residual.
+    Output (..., 7)."""
+
+    def __init__(self, code_size=8, use_mean_size=True, mean_size=None,
+                 bin_size=12, **kwargs):
+        self.mean_size = _mean_size(use_mean_size, mean_size)
+        self.bin_size = int(bin_size)
+        self.code_size = 6 + 2 * self.bin_size
+        self.bin_inter = 2 * math.pi / self.bin_size
+
+    def decode(self, encodings, points, pred_classes=None):
+        nb = self.bin_size
+        out = _point_offsets_decode(encodings, points, self.mean_size,
+                                    pred_classes)
+        bin_id = torch.argmax(encodings[..., 6:6 + nb], dim=-1)
+        res = torch.gather(encodings[..., 6 + nb:6 + 2 * nb], -1,
+                           bin_id[..., None])[..., 0]
+        rg = (bin_id.to(res.dtype) * self.bin_inter - math.pi
+              + self.bin_inter / 2 + res * (self.bin_inter / 2))
+        return torch.stack(out + [rg], dim=-1)
 
 
 @BOX_CODERS.register

@@ -7,15 +7,18 @@ runs where the card is:
 Elsewhere every test skips (no card). Every kernel is an exact copy of
 its plain version's arithmetic: canvas rows are copied bytes, the NMS
 IoU and the FPS distances are built with -fmad=false, and FPS picks are
-indices, so the comparisons have no tolerance (the suppression mask is
+indices (the f-fps kernel reads its keys from a matrix and only takes
+minima), so the comparisons have no tolerance (the suppression mask is
 compared whole, bit for bit)."""
 
 import numpy as np
 import pytest
 import torch
 
-from de6d_tpu_torch.ops import iou3d, nms
-from de6d_tpu_torch.ops.kernels import canvas, fps, nms_fused, nms_mask
+from de6d_tpu_torch.ops import iou3d, nms, sampling
+from de6d_tpu_torch.ops.kernels import (
+    canvas, fps, matrix_fps, nms_fused, nms_mask,
+)
 from torch_fixtures import canvas_inputs, cuda_device, nms_boxes  # noqa: F401
 
 
@@ -141,6 +144,63 @@ def test_fps_kernel_equals_plain(cuda_device, weighted, n):  # noqa: F811
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,npoint", [(1, 4), (130, 64), (1000, 333),
+                                      (2047, 256), (4096, 512), (5000, 64),
+                                      (9000, 32)])
+@pytest.mark.parametrize("ties", [False, True], ids=["real", "ties"])
+def test_matrix_fps_kernel_equals_plain(cuda_device, n, npoint, ties):  # noqa: F811
+    """An xyz-plus-feature matrix (or, with ``ties``, a lattice's matrix
+    of many equal distances), a ragged valid mask with one empty sample
+    and one with fewer valid points than picks; every register tiling of
+    the kernel (N up to 1024, 2048, 4096, 8192, 16384)."""
+    rng = np.random.RandomState(n)
+    b = 4
+    xyz = rng.uniform(-40, 70, (b, n, 3)).astype(np.float32)
+    feats = None
+    if ties:
+        xyz = np.round(xyz / 4) * 4
+    else:
+        feats = torch.from_numpy(np.abs(rng.normal(0, 1, (b, n, 32))).astype(
+            np.float32)).to(cuda_device)
+    dm = sampling.calc_dist_matrix_for_sampling(
+        torch.from_numpy(xyz).to(cuda_device), feats)
+    counts = torch.tensor([n, max(n // 2, 1), min(n, npoint // 2), 0],
+                          device=cuda_device)
+    valid = torch.arange(n, device=cuda_device)[None] < counts[:, None]
+    before = matrix_fps.matrix_fps.launches
+    got = matrix_fps.matrix_fps(dm, valid, npoint)
+    torch.cuda.synchronize()
+    assert matrix_fps.matrix_fps.launches == before + 1
+    assert torch.equal(got, matrix_fps.matrix_fps_plain(dm, valid, npoint))
+    assert (got[3] == 0).all() and (got[:, 0] == 0).all()
+    if n >= npoint:
+        assert got[0].unique().numel() == npoint
+
+
+@pytest.mark.cuda
+def test_ffps_on_the_card_equals_cpu_on_the_same_matrix(cuda_device):  # noqa: F811
+    """``matrix_farthest_point_sample`` on the card (kernel) against the
+    CPU (plain loop) on one matrix; the matrix built on the card lies
+    within twice the stated tolerance of the CPU's."""
+    from chip_smoke import matrix_tolerance
+
+    rng = np.random.RandomState(3)
+    xyz = torch.from_numpy(rng.uniform(-40, 70, (2, 600, 3)).astype(
+        np.float32))
+    feats = torch.from_numpy(np.abs(rng.normal(0, 1, (2, 600, 64))).astype(
+        np.float32))
+    dm = sampling.calc_dist_matrix_for_sampling(xyz, feats)
+    want = sampling.matrix_farthest_point_sample(dm, 200)
+    got = sampling.matrix_farthest_point_sample(dm.to(cuda_device), 200)
+    assert torch.equal(got.cpu(), want)
+    on_card = sampling.calc_dist_matrix_for_sampling(
+        xyz.to(cuda_device), feats.to(cuda_device)).cpu()
+    norm = (xyz * xyz).sum(-1) + (feats * feats).sum(-1)
+    tol = matrix_tolerance(norm[:, :, None] + norm[:, None, :])
+    assert bool(((on_card - dm).abs() <= 2 * tol).all())
+
+
+@pytest.mark.cuda
 def test_wrappers_reject_bad_input(cuda_device):  # noqa: F811
     f = torch.zeros(1, 4, 6, device=cuda_device)  # 24-byte rows
     lin = torch.zeros(1, 4, dtype=torch.int32, device=cuda_device)
@@ -156,6 +216,13 @@ def test_wrappers_reject_bad_input(cuda_device):  # noqa: F811
     with pytest.raises(TypeError):
         fps.fps(torch.zeros(1, 8, 3, device=cuda_device, dtype=torch.float64),
                 torch.ones(1, 8, dtype=torch.bool, device=cuda_device), 4)
+    with pytest.raises(TypeError):
+        matrix_fps.matrix_fps(
+            torch.zeros(1, 8, 8, device=cuda_device, dtype=torch.float64),
+            torch.ones(1, 8, dtype=torch.bool, device=cuda_device), 4)
+    with pytest.raises(ValueError):  # the mask on another device
+        matrix_fps.matrix_fps(torch.zeros(1, 8, 8, device=cuda_device),
+                              torch.ones(1, 8, dtype=torch.bool), 4)
     counts = torch.ones(2, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):  # fp64 corners
         nms_mask.nms_suppression_mask(

@@ -120,6 +120,41 @@ def test_det6d_bench_assets_load_into_full_model():
     model.load_state_dict(sd, strict=True)
 
 
+@pytest.mark.parametrize("yaml,arrays,probe", [
+    ("3dssd_car", 211, "backbone_3d/sa_modules_2/SharedMLP_3/Dense_0"),
+    ("3dssd_sasa_car", 225, "backbone_3d/sa_modules_1/Dense_0"),
+    ("IA-SSD", 185, "backbone_3d/sa_modules_4/Dense_1"),
+])
+def test_seeded_weights_cover_the_point_detectors(yaml, arrays, probe):
+    """``seeded_flax`` names every array of 3DSSD, 3DSSD-SASA and IA-SSD
+    in the flax layout (list members ``sa_modules_<i>``, the vote layer's
+    ``Dense_i`` / ``BatchNorm_i``), ``flax_to_torch`` consumes every key
+    and checks every shape, and a Dense kernel lands transposed."""
+    from de6d_tpu_torch.config import cfg_from_yaml_file
+    from de6d_tpu_torch.models import build_network
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        DatasetSpec,
+    )
+
+    cfg = cfg_from_yaml_file(ROOT / f"configs/kitti_models/{yaml}.yaml")
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), DatasetSpec(
+        class_names=tuple(cfg.CLASS_NAMES), point_feature_dim=4,
+        point_cloud_range=tuple(cfg.DATA_CONFIG.POINT_CLOUD_RANGE)),
+        device="cpu")
+    flat = weights.seeded_flax(model, 3)
+    assert len(flat) == arrays == len(model.state_dict())
+    sd = weights.flax_to_torch(flat, model)
+    name = probe.replace("sa_modules_", "sa_modules.").replace("/", ".")
+    np.testing.assert_array_equal(sd[f"{name}.weight"].numpy(),
+                                  flat[f"params/{probe}/kernel"].T)
+    model.load_state_dict(sd, strict=True)
+    extra = dict(flat)
+    extra["params/backbone_3d/sa_modules_9/Dense_0/kernel"] = np.zeros(
+        (2, 2), np.float32)
+    with pytest.raises(ValueError):
+        weights.flax_to_torch(extra, model)
+
+
 @pytest.mark.parametrize("name,path", [
     ("backbone_3d.sa_modules.0.SharedMLP_4.Dense_0",
      "backbone_3d/sa_modules_0/SharedMLP_4/Dense_0"),

@@ -1,6 +1,7 @@
 """Shared helpers for the PyTorch-port parity tests: build the same
-PointPillars model in both packages from a yaml and carry the JAX
-variables across as numpy."""
+PointPillars model in both packages from a yaml, carry the JAX
+variables across as numpy, and run the JAX package's single-stage point
+detectors with their sampling calls recorded."""
 
 import copy
 
@@ -144,3 +145,64 @@ def nms_boxes(rng, b, p, spread=12.0, cluster=80):
     cluster = min(cluster, p)
     boxes[:, :cluster, 0:2] = rng.uniform(-3, 3, (b, cluster, 2))
     return boxes
+
+
+def run_jax_point_detector(jmodel, variables, post_cfg, num_class, pts, mask):
+    """A single-stage point detector of the JAX package (3DSSD,
+    3DSSD-SASA, IA-SSD) on (B, N, 4) points → what
+    ``chip_smoke.check_point_parity`` reads: ``picks_<k>`` of the k-th
+    sampling call (``run_sampling`` / ``run_sampling_iassd``, in call
+    order), ``scores_<k>`` where that call ranks or weights by scores, the
+    votes (``vote_coords``), the head's candidates (``cand_scores``,
+    ``cand_boxes``) and the detections."""
+    import jax
+    import jax.numpy as jnp
+
+    from chip_smoke import sampling_segments
+    from de6d_tpu.models.backbones_3d import iassd_backbone as jax_iassd
+    from de6d_tpu.models.backbones_3d import pointnet2_modules as jax_pn2
+    from de6d_tpu.models.detectors.detector3d_template import (
+        post_processing as jax_post_processing,
+    )
+
+    rec = []
+
+    def wrap(fn):
+        def run(method, xyz, features, scores, valid, npoint, sample_range,
+                *rest):
+            idx = fn(method, xyz, features, scores, valid, npoint,
+                     sample_range, *rest)
+            kinds = {k for k, _, _ in sampling_segments(method, int(npoint))}
+            rec.append((idx, scores if kinds & {"topk", "sfps"} else None))
+            return idx
+        return run
+
+    orig = (jax_pn2.run_sampling, jax_iassd.run_sampling_iassd)
+    jax_pn2.run_sampling = wrap(orig[0])
+    jax_iassd.run_sampling_iassd = wrap(orig[1])
+    try:
+        @jax.jit
+        def infer(v, p, m):
+            rec.clear()
+            out = jmodel.apply(v, {"points": p, "points_mask": m},
+                               train=False)
+            post = jax_post_processing(out, post_cfg, num_class)
+            votes = out.get("point_vote_coords", out.get("centers"))
+            return (post, jax.nn.sigmoid(out["batch_cls_preds"]),
+                    out["batch_box_preds"], votes, list(rec))
+
+        post, cand_scores, cand_boxes, votes, calls = infer(
+            variables, jnp.asarray(pts), jnp.asarray(mask))
+    finally:
+        jax_pn2.run_sampling, jax_iassd.run_sampling_iassd = orig
+    out = {k: np.asarray(post[k]) for k in
+           ("pred_boxes", "pred_scores", "pred_labels", "pred_count")}
+    out["cand_scores"] = np.asarray(cand_scores)
+    out["cand_boxes"] = np.asarray(cand_boxes)
+    out["vote_coords"] = np.asarray(votes)
+    for k, (idx, scores) in enumerate(calls):
+        out[f"picks_{k}"] = np.asarray(idx)
+        if scores is not None:
+            out[f"scores_{k}"] = np.asarray(scores)
+    return out
+
