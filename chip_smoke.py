@@ -77,6 +77,28 @@ Phases, one status line each; any failure exits non-zero:
 15. parity / iassd — IA-SSD against ``de6d_tpu_torch/testdata/
                     iassd_jax_ref.npz``.
 
+16. kernels / lookup — the key-lookup kernel against its plain version
+                    (hit and idx identical everywhere) at the 8 tables the
+                    served SECOND model builds per batch (recorded from one
+                    bf16 forward of the 8 scans), an empty table,
+                    all-INVALID queries, queries outside the keys, tables
+                    of 40,000 keys (shared memory) and 120,000 (global
+                    memory); kernel ms, plain ms, ``torch.searchsorted`` ms,
+                    bytes bound; each stage's active sites.
+17. kernels / sparse_conv — the gather-GEMM kernel against its plain
+                    version at the 12 served layers in bf16 and fp32, and
+                    Cin = 48 / Cout = 40; per-layer ms, plain ms, the bound
+                    from these inputs' hits and the dense bound at the caps.
+18. serve / second — ``StreamingDetector`` with ``configs/kitti_models/
+                    second.yaml`` in bf16, the trained ``bench_assets/
+                    second_params.npz``, the 8 scans clipped to SECOND's
+                    range: per batch 8 lookup and 12 sparse-conv launches,
+                    the fused NMS.
+19. parity / second — SECOND in fp32 (TF32 off) on 2 scans against
+                    ``de6d_tpu_torch/testdata/second_jax_ref.npz``
+                    (:func:`check_second_parity`: stage keys, candidates,
+                    detections).
+
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -110,6 +132,9 @@ SSD3D_REF = ROOT / "de6d_tpu_torch/testdata/ssd3d_jax_ref.npz"
 IASSD_CFG = ROOT / "configs/kitti_models/IA-SSD.yaml"
 IASSD_REF = ROOT / "de6d_tpu_torch/testdata/iassd_jax_ref.npz"
 SSD3D_SEED = IASSD_SEED = 2026  # no trained weights in the repository
+SECOND_CFG = ROOT / "configs/kitti_models/second.yaml"
+SECOND_PARAMS = ROOT / "bench_assets/second_params.npz"
+SECOND_REF = ROOT / "de6d_tpu_torch/testdata/second_jax_ref.npz"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # H100 SXM fp32 outside the tensor cores, an FMA counted as two; the
@@ -236,6 +261,10 @@ def load_rcnn_scans():
 def load_ssd3d_scans():
     """For 3DSSD, 3DSSD-SASA and IA-SSD (one KITTI range)."""
     return load_clipped_scans(SSD3D_CFG, SCANS)
+
+
+def load_second_scans():
+    return load_clipped_scans(SECOND_CFG, SCANS)
 
 
 # ---------------------------------------------------------------------
@@ -1756,13 +1785,417 @@ def phase_point_parity(tag, cfg_path, seed, ref_path, report):
           f"{d['pred_scores']:.3g} (tol {PARITY_TOL})", flush=True)
 
 
+# ---------------------------------------------------------------------
+# SECOND: lookup and sparse-conv kernels, serve, parity
+# ---------------------------------------------------------------------
+
+def second_stage_keys(out):
+    """The sparse backbone's sorted site keys per stage, x_conv1..x_conv4
+    and the output of the (3, 1, 1) z-conv: five (B, V_s) int32 tensors."""
+    ms = out["multi_scale_3d_features"]
+    return [ms[f"x_conv{s}"][1] for s in range(1, 5)] + [
+        out["encoded_spconv_keys"]]
+
+
+@contextlib.contextmanager
+def recorded_sparse_calls():
+    """Within the block every lookup and sparse-conv call of
+    ``de6d_tpu_torch.ops.sparse`` is recorded with its inputs, in call
+    order, and then run as usual."""
+    from de6d_tpu_torch.ops import sparse as sp
+
+    calls = {"lookup": [], "sparse_conv": []}
+    orig = (sp.lookup, sp.sparse_conv)
+
+    def lookup(table, queries):
+        calls["lookup"].append((table, queries))
+        return orig[0](table, queries)
+
+    def conv(*args):
+        calls["sparse_conv"].append(args)
+        return orig[1](*args)
+
+    sp.lookup, sp.sparse_conv = lookup, conv
+    try:
+        yield calls
+    finally:
+        sp.lookup, sp.sparse_conv = orig
+
+
+# the backbone's calls in order: a stage's submanifold table, then the
+# strided layer into the next stage
+SECOND_LOOKUPS = ("subm_s1", "down_s2", "subm_s2", "down_s3", "subm_s3",
+                  "down_s4", "subm_s4", "down_z")
+SECOND_CONVS = ("subm_s1_in", "subm_s1", "down_s2", "subm_s2a", "subm_s2b",
+                "down_s3", "subm_s3a", "subm_s3b", "down_s4", "subm_s4a",
+                "subm_s4b", "down_z")
+BF16_FLOPS = 989e12  # H100 SXM data sheet, dense tensor cores
+# fp32 sums of up to 27 x 64 products in another order; bf16 outputs are
+# one rounding of an fp32 sum, so an order change can move one bf16 ulp
+# (2^-7 relative)
+CONV_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def check_lookup(cases):
+    """cases: {label: (tables (B, V), queries (B, Q))} → a result line per
+    case. ``hit`` and ``idx`` must equal the plain version's everywhere
+    (the kernel returns searchsorted's clipped insertion point on a miss,
+    so idx agrees on misses too, not only on hits)."""
+    import torch
+
+    from de6d_tpu_torch.ops.kernels import lookup as lk
+
+    lines = {}
+    for label, (table, queries) in cases.items():
+        idx, hit = lk.lookup(table, queries)
+        ridx, rhit = lk.lookup_plain(table, queries)
+        torch.cuda.synchronize()
+        if not (torch.equal(hit, rhit) and torch.equal(idx, ridx)):
+            bad = (hit != rhit) | (idx != ridx)
+            fail(f"kernels / lookup {label}: differs from the plain version "
+                 f"at (sample, query) {bad.nonzero()[0].tolist()}")
+        b, v = table.shape
+        nbytes = lk.bytes_moved(v, queries)
+        lines[label] = {
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: lk.lookup(table, queries), 20),
+            "plain_ms": time_ms(lambda: lk.lookup_plain(table, queries), 5),
+            "library_ms": time_ms(lambda: torch.searchsorted(
+                table, queries, out_int32=True), 5),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "bytes": nbytes,
+            "hits": int(hit.sum()),
+            "shape": f"tables ({b}, {v}), queries {tuple(queries.shape)}",
+        }
+        ln = lines[label]
+        print(f"kernels / lookup {label}: hit and idx identical, "
+              f"{ln['shape']}, {ln['hits']} hits: {ln['ms']:.4f} ms, plain "
+              f"{ln['plain_ms']:.4f} ms, searchsorted {ln['library_ms']:.4f}"
+              f" ms, bound {ln['bound_ms']:.5f} ms ({nbytes} bytes)",
+              flush=True)
+    return lines
+
+
+def check_sparse_conv(cases):
+    """cases: {label: (features, idx, hit, weights, valid)} → a result line
+    per case: the kernel within ``CONV_TOL`` (absolute + relative to the
+    plain value) of the plain version on the same inputs, timings, the
+    bound from the hits of these inputs, and the dense product's count."""
+    import torch
+
+    from de6d_tpu_torch.ops.kernels import sparse_conv as sc
+
+    lines = {}
+    for label, args in cases.items():
+        f, idx, hit, w, valid = args
+        got = sc.sparse_conv(*args)
+        ref = sc.sparse_conv_plain(*args)
+        torch.cuda.synchronize()
+        tol = CONV_TOL[str(f.dtype).split(".")[-1]]
+        d = (got.float() - ref.float()).abs()
+        excess = float((d - tol * (1 + ref.float().abs())).max())
+        if not excess <= 0:
+            fail(f"kernels / sparse_conv {label}: differs from the plain "
+                 f"version by {float(d.max()):.3g} (tol {tol} abs + rel)")
+        nbytes, ops = sc.work(*args)
+        peak = BF16_FLOPS if f.dtype == torch.bfloat16 else FP32_FLOPS
+        t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
+        b, q, k = idx.shape
+        cin, cout = w.shape[1:]
+        dense = 2 * b * q * k * cin * cout
+        lines[label] = {
+            "max_abs_err": float(d.max()),
+            "ms": time_ms(lambda: sc.sparse_conv(*args), 10),
+            "plain_ms": time_ms(lambda: sc.sparse_conv_plain(*args), 3),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bytes": nbytes,
+            "flops_hits": ops,
+            "flops_dense_at_caps": dense,
+            "bound_dense_at_caps_ms": max(dense / peak, t_bytes) * 1e3,
+            "valid_rows": valid.sum(-1).tolist(),
+            "hits_per_valid_row": ops / (2 * cin * cout)
+            / max(1, int(valid.sum())),
+            "shape": f"{str(f.dtype).split('.')[-1]} feats {tuple(f.shape)}, "
+                     f"table ({b}, {q}, {k}), W ({k}, {cin}, {cout})",
+        }
+        ln = lines[label]
+        print(f"kernels / sparse_conv {label}: within {tol} of plain (max "
+              f"|d| {ln['max_abs_err']:.3g}), {ln['shape']}, "
+              f"{ln['hits_per_valid_row']:.2f} hits/row: {ln['ms']:.4f} ms, "
+              f"plain {ln['plain_ms']:.3f} ms, bound {ln['bound_ms']:.5f} ms "
+              f"({ln['bound_by']}), dense at caps "
+              f"{ln['bound_dense_at_caps_ms']:.5f} ms", flush=True)
+    return lines
+
+
+def phase_second_kernels(report):
+    """``lookup`` and ``sparse_conv`` at the served SECOND model's shapes
+    and inputs (recorded from one bf16 forward of the 8 scans), and the
+    edge cases: an empty table, all-INVALID queries, queries outside the
+    keys, tables of 40,000 (shared memory) and 120,000 (global memory)
+    keys; fp32 layers, Cin = 48 and Cout = 40."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.ops import sparse
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    model, mc, nc = build_model("bfloat16", "cuda", SECOND_CFG, SECOND_PARAMS)
+    pts, mask = load_second_scans()
+    with torch.no_grad(), recorded_sparse_calls() as calls:
+        out = model({"points": torch.from_numpy(pts).cuda(),
+                     "points_mask": torch.from_numpy(mask).cuda()})
+    if (len(calls["lookup"]), len(calls["sparse_conv"])) != (8, 12):
+        fail(f"kernels / second: {len(calls['lookup'])} lookups and "
+             f"{len(calls['sparse_conv'])} convs in one forward, expected "
+             "8 and 12")
+    keys = second_stage_keys(out)
+    sites = [(k != sparse.INVALID).sum(-1).tolist() for k in keys]
+    # how many active outputs each strided layer finds before its cap
+    uncapped = []
+    for (k_in, grid), layer in zip(
+            [(ms[1], ms[2]) for ms in out["multi_scale_3d_features"].values()],
+            (model.backbone_3d.SparseDownLayer_0,
+             model.backbone_3d.SparseDownLayer_1,
+             model.backbone_3d.SparseDownLayer_2,
+             model.backbone_3d.SparseDownLayer_3)):
+        full, _ = sparse.downsample_coords(
+            k_in, grid, layer.stride, layer.padding,
+            8 * k_in.shape[1], layer.kernel)
+        uncapped.append((full != sparse.INVALID).sum(-1).tolist())
+    report["second_sites"] = {"per_stage": sites,
+                              "strided_outputs_before_cap": uncapped}
+    print(f"kernels / second: active sites per stage (x_conv1..4, z-conv) "
+          f"{sites}; strided outputs before the caps {uncapped}", flush=True)
+
+    look = dict(zip(SECOND_LOOKUPS, calls["lookup"]))
+    t1, q1 = look["subm_s1"]
+    rng = np.random.RandomState(0)
+
+    def synthetic(v, q):
+        tables = np.full((8, v), sparse.INVALID, np.int32)
+        queries = np.empty((8, q), np.int32)
+        for b in range(8):
+            u = np.unique(rng.randint(0, 41 * 1600 * 1408, v + v // 8))[:v]
+            tables[b, :len(u)] = u
+            queries[b] = np.where(rng.random_sample(q) < 0.5,
+                                  u[rng.randint(0, len(u), q)],
+                                  rng.randint(0, 41 * 1600 * 1408, q))
+        return torch.from_numpy(tables).cuda(), torch.from_numpy(
+            queries).cuda()
+
+    first, last = t1[:, :1], t1.gather(1, (t1 != sparse.INVALID).sum(
+        1, keepdim=True).clamp(min=1) - 1)
+    ar = torch.arange(2048, device=t1.device, dtype=torch.int32)
+    outside = torch.cat([first - 1 - ar, last + 1 + ar,
+                         torch.full_like(first, sparse.INVALID - 1)], dim=1)
+    cases = dict(look)
+    cases.update({
+        "empty_table": (torch.full_like(t1, sparse.INVALID), q1),
+        "invalid_queries": (t1, torch.full_like(q1, sparse.INVALID)),
+        "outside_the_keys": (t1, outside.contiguous()),
+        # 40,000 keys (160 KB) fit the 224 KB that csrc/lookup.cu stages
+        # in shared memory; 120,000 (480 KB) take its global-memory search
+        "v40000_shared": synthetic(40000, 27 * 40000 // 8),
+        "v120000_global": synthetic(120000, 27 * 120000 // 8),
+    })
+    lines = check_lookup({k: (t.contiguous(), q.contiguous())
+                          for k, (t, q) in cases.items()})
+    if lines["empty_table"]["hits"] or lines["invalid_queries"]["hits"] or (
+            lines["outside_the_keys"]["hits"]):
+        fail("kernels / lookup: hits where none can be")
+    path = [lines[k] for k in SECOND_LOOKUPS]
+    report["lookup"] = {
+        "name": "lookup",
+        "route": "cuda",
+        "source": "de6d_tpu_torch/csrc/lookup.cu",
+        "replaces": "de6d_tpu/ops/pallas/lookup.py:80",
+        "max_abs_err": 0.0,
+        # per served batch: the 8 launches
+        **{k: sum(ln[k] for ln in path) for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms")},
+        "bound_by": "bytes",
+        "cases": lines,
+    }
+
+    convs = dict(zip(SECOND_CONVS, calls["sparse_conv"]))
+    f3, i3, h3, _, v3 = convs["subm_s3a"]
+    w48 = torch.from_numpy((rng.randn(27, 48, 40) / np.sqrt(27 * 48)).astype(
+        np.float32)).cuda()
+    f48 = torch.from_numpy(rng.randn(*f3.shape[:2], 48).astype(
+        np.float32)).cuda()
+    cases = dict(convs)
+    cases.update({f"{k}_fp32": tuple(
+        a.float() if a.is_floating_point() else a for a in convs[k])
+        for k in SECOND_CONVS})
+    cases.update({
+        "cin48_cout40_fp32": (f48, i3, h3, w48, v3),
+        "cin48_cout40_bf16": (f48.bfloat16(), i3, h3, w48.bfloat16(), v3),
+    })
+    lines = check_sparse_conv(cases)
+    path = [lines[k] for k in SECOND_CONVS]
+    report["sparse_conv"] = {
+        "name": "sparse_conv",
+        "route": "cuda",
+        "source": "de6d_tpu_torch/csrc/sparse_conv.cu",
+        "replaces": "de6d_tpu/ops/pallas/sparse_gather.py:161",
+        "max_abs_err": max(ln["max_abs_err"] for ln in path),
+        # per served batch: the 12 bf16 layers
+        **{k: sum(ln[k] for ln in path) for k in (
+            "ms", "plain_ms", "bound_ms", "bound_dense_at_caps_ms")},
+        "bound_by": "bytes" if all(ln["bound_by"] == "bytes" for ln in path)
+        else "operations",
+        "library_ms": None,
+        "cases": lines,
+    }
+    r = report["sparse_conv"]
+    print(f"kernels / sparse_conv: per served batch (12 bf16 layers) "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+          f"{r['bound_ms']:.5f} ms at the scans' sites, "
+          f"{r['bound_dense_at_caps_ms']:.5f} ms dense at the caps; lookup "
+          f"per batch (8) {report['lookup']['ms']:.4f} ms, bound "
+          f"{report['lookup']['bound_ms']:.5f} ms", flush=True)
+    del calls, cases, look, convs
+    return model, mc, nc
+
+
+def phase_second_parity(report):
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        post_processing,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, mc, nc = build_model("float32", "cuda", SECOND_CFG, SECOND_PARAMS)
+    pts, mask = load_second_scans()
+    with torch.no_grad():
+        out = model({"points": torch.from_numpy(pts[:2]).cuda(),
+                     "points_mask": torch.from_numpy(mask[:2]).cuda()})
+        post = post_processing(out, mc["POST_PROCESSING"], nc)
+    try:
+        res = check_second_parity(out, post, dict(np.load(SECOND_REF)),
+                                  mc["POST_PROCESSING"])
+    except RuntimeError as e:
+        fail(str(e))
+    report["parity_second"] = res
+    d = res["max_abs_diff"]
+    print(f"parity / second: fp32 (TF32 off) on 2 scans matches the JAX "
+          f"reference: stage keys identical (sites {res['stage_sites']}), "
+          f"live candidates {res['candidates_live']}, "
+          f"{len(res['candidates_swapped'])} swapped at certified near-ties, "
+          f"counts {res['counts']}, max |d| candidate score "
+          f"{d['cand_scores']:.3g}, candidate box {d['cand_boxes']:.3g}, box "
+          f"{d['pred_boxes']:.3g}, score {d['pred_scores']:.3g} (tol "
+          f"{PARITY_TOL})", flush=True)
+
+
+def check_second_parity(out, post, ref, post_cfg, tol=PARITY_TOL):
+    """SECOND against the JAX reference ``ref`` (the fixture's arrays).
+
+    1. Every stage's sorted site keys (``keys_1`` .. ``keys_5``) and so its
+       active-site count identical.
+    2. Candidates (the top ``NMS_PRE_MAXSIZE`` gated scores, the NMS
+       input): the same number above ``SCORE_THRESH``; the port's score of
+       every reference candidate's anchor within ``tol`` of the
+       reference's (the largest difference is ``delta``). A position may
+       hold another anchor than the reference's only at a near-tie: the
+       port's scores of the two anchors within ``2 * delta`` (fp32 sums
+       in another order move scores by ulps). Anchors in both lists:
+       boxes within ``tol``, labels equal.
+    3. Detections: counts and labels equal, boxes and scores within
+       ``tol``.
+    "Within ``tol``" is absolute below 1 and relative above.
+    Returns a report; raises RuntimeError where a check fails."""
+    import numpy as np
+
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        rank_candidates, select_candidates,
+    )
+    from de6d_tpu_torch.ops.nms import NEG_INF
+
+    tag = "parity / second"
+    stages = []
+    for s, keys in enumerate(second_stage_keys(out), start=1):
+        got, want = keys.cpu().numpy(), ref[f"keys_{s}"]
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise RuntimeError(f"{tag}: stage {s} keys differ from the "
+                               "reference")
+        stages.append((want != np.iinfo(np.int32).max).sum(-1).tolist())
+
+    masked, labels, top, order = rank_candidates(out, post_cfg)
+    boxes, _, cand_labels = select_candidates(out, post_cfg)
+    masked, top, order = (t.cpu().numpy() for t in (masked, top, order))
+    boxes, cand_labels = boxes.cpu().numpy(), cand_labels.cpu().numpy()
+    ref_order = ref["cand_order"].astype(np.int64)
+    ref_scores = ref["cand_scores"]
+    diffs = {}
+    swapped, delta = [], 0.0
+    live = (ref_scores > NEG_INF / 2).sum(-1)
+    got_live = (top > NEG_INF / 2).sum(-1)
+    if not np.array_equal(live, got_live):
+        raise RuntimeError(f"{tag}: {got_live.tolist()} candidates above "
+                           f"the score gate, reference {live.tolist()}")
+    for b, n in enumerate(live.tolist()):
+        delta = max(delta, close_to(
+            tag, "candidate scores", masked[b, ref_order[b, :n]],
+            ref_scores[b, :n], tol, f" of sample {b}"))
+    near = 2 * delta + 1e-7
+    for b, n in enumerate(live.tolist()):
+        for j in np.nonzero(order[b, :n] != ref_order[b, :n])[0].tolist():
+            p, r = int(order[b, j]), int(ref_order[b, j])
+            gap = abs(float(masked[b, p]) - float(masked[b, r]))
+            if gap > near:
+                raise RuntimeError(
+                    f"{tag}: candidate {j} of sample {b} (port anchor {p}, "
+                    f"reference {r}) is no near-tie: score gap {gap:.3g} > "
+                    f"{near:.3g}")
+            swapped.append({"sample": b, "position": j, "port": p,
+                            "ref": r, "score_gap": gap})
+        slot = {int(a): j for j, a in enumerate(order[b, :n])}
+        pairs = [(slot[int(a)], j) for j, a in enumerate(ref_order[b, :n])
+                 if int(a) in slot]
+        gi = np.array([g for g, _ in pairs], np.int64)
+        ri = np.array([r for _, r in pairs], np.int64)
+        diffs["cand_boxes"] = max(diffs.get("cand_boxes", 0.0), close_to(
+            tag, "candidate boxes", boxes[b, gi], ref["cand_boxes"][b, ri],
+            tol, f" of sample {b}"))
+        if not np.array_equal(cand_labels[b, gi], ref["cand_labels"][b, ri]):
+            raise RuntimeError(f"{tag}: candidate labels of sample {b} "
+                               "differ")
+    diffs["cand_scores"] = delta
+
+    got = {k: v.cpu().numpy() for k, v in post.items()}
+    if not np.array_equal(got["pred_count"], ref["pred_count"]):
+        raise RuntimeError(f"{tag}: counts {got['pred_count']} vs "
+                           f"{ref['pred_count']}")
+    for k in ("pred_boxes", "pred_scores"):
+        diffs[k] = 0.0
+    for b, c in enumerate(ref["pred_count"].tolist()):
+        if not np.array_equal(got["pred_labels"][b, :c],
+                              ref["pred_labels"][b, :c]):
+            raise RuntimeError(f"{tag}: labels of scan {b} differ")
+        for k in ("pred_boxes", "pred_scores"):
+            diffs[k] = max(diffs[k], close_to(tag, k, got[k][b, :c],
+                                              ref[k][b, :c], tol))
+    return {"counts": got["pred_count"].tolist(), "stage_sites": stages,
+            "candidates_live": live.tolist(),
+            "candidates_swapped": swapped, "max_abs_diff": diffs}
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
     from de6d_tpu_torch.ops.kernels import (
-        build, canvas, fps, matrix_fps, nms_fused, nms_mask,
+        build, canvas, fps, lookup, matrix_fps, nms_fused, nms_mask,
+        sparse_conv,
     )
 
     profile = "--profile" in sys.argv[1:]
@@ -1829,6 +2262,16 @@ def main():
     phase_point_parity("parity / iassd", IASSD_CFG, IASSD_SEED, IASSD_REF,
                        report)
 
+    model, mc, nc = phase_second_kernels(report)
+    pts, mask = load_second_scans()
+    report["serve_second"] = phase_serve(
+        "serve / second", model, mc, nc, pts, mask,
+        {"lookup": lookup.lookup, "sparse_conv": sparse_conv.sparse_conv,
+         "nms": nms}, 7, profile,
+        per_batch={"lookup": 8, "sparse_conv": 12}, serve_s=2.0)
+    del model
+    phase_second_parity(report)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1840,9 +2283,11 @@ def main():
                "det6d": report["serve_det6d"]["launches"],
                "pointrcnn": report["serve_pointrcnn"]["launches"],
                "3dssd": report["serve_3dssd"]["launches"],
-               "iassd": report["serve_iassd"]["launches"]}
+               "iassd": report["serve_iassd"]["launches"],
+               "second": report["serve_second"]["launches"]}
     kernels = []
-    for key in ("canvas", "nms", "nms_mask", "fps", "matrix_fps"):
+    for key in ("canvas", "nms", "nms_mask", "fps", "matrix_fps", "lookup",
+                "sparse_conv"):
         k = {f: report[key][f] for f in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}

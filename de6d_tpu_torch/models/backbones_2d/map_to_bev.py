@@ -1,6 +1,7 @@
 """Map-to-BEV (counterpart of
-``de6d_tpu/models/backbones_2d/map_to_bev.py:PointPillarScatter``).
-The canvas is NHWC ``(B, ny, nx, C)`` as in the JAX package."""
+``de6d_tpu/models/backbones_2d/map_to_bev.py``: ``PointPillarScatter``,
+``HeightCompression``). The canvas is NHWC ``(B, ny, nx, C)`` as in the
+JAX package."""
 
 from __future__ import annotations
 
@@ -42,4 +43,29 @@ class PointPillarScatter(nn.Module):
             pillars, cell_ids(coords, self.ny, self.nx), self.ny, self.nx
         )
         batch_dict["spatial_features_stride"] = 1
+        return batch_dict
+
+
+@MAP_TO_BEV.register
+class HeightCompression(nn.Module):
+    """Fold the z axis of the sparse backbone's dense (B, nz, ny, nx, C)
+    volume into channels: (B, ny, nx, nz * C) with the channel order
+    (z, C), as the JAX module's ``transpose(0, 2, 3, 1, 4)`` gives (the
+    reference's is (C, z)); the converted 2D weights expect (z, C)."""
+
+    def __init__(self, model_cfg, **kwargs):
+        super().__init__()
+        self.model_cfg = model_cfg
+
+    @property
+    def num_bev_features(self):
+        return int(self.model_cfg["NUM_BEV_FEATURES"])
+
+    def forward(self, batch_dict):
+        vol = batch_dict["encoded_spconv_tensor"]  # (B, nz, ny, nx, C)
+        b, nz, ny, nx, c = vol.shape
+        batch_dict["spatial_features"] = vol.permute(0, 2, 3, 1, 4).reshape(
+            b, ny, nx, nz * c)
+        batch_dict["spatial_features_stride"] = batch_dict.get(
+            "encoded_spconv_tensor_stride", 8)
         return batch_dict

@@ -1,3 +1,4 @@
+from .mean_vfe import MeanVFE
 from .pillar_vfe import PillarVFE
 
-__all__ = ["PillarVFE"]
+__all__ = ["MeanVFE", "PillarVFE"]

@@ -72,13 +72,15 @@ class Detector3DTemplate(nn.Module):
             self.module_names.append("vfe")
         if "BACKBONE_3D" in cfg:
             # point backbones take the pc range for the fused SA path,
-            # IA-SSD's the class count for its per-class confidences
+            # IA-SSD's the class count for its per-class confidences, the
+            # voxel backbones the grid
             self.backbone_3d = BACKBONES_3D.get(cfg["BACKBONE_3D"]["NAME"])(
                 model_cfg=cfg["BACKBONE_3D"],
                 input_channels=(self.vfe.output_feature_dim if "VFE" in cfg
                                 else spec.point_feature_dim),
                 point_cloud_range=tuple(spec.point_cloud_range),
                 num_class=num_class,
+                grid_size=spec.grid_size,
             )
             self.module_names.append("backbone_3d")
         if "MAP_TO_BEV" in cfg:
@@ -150,12 +152,10 @@ class Detector3DTemplate(nn.Module):
         return batch_dict
 
 
-def select_candidates(batch_dict, post_cfg):
-    """Score gate + exact top-``NMS_PRE_MAXSIZE`` + the candidates' boxes.
-    Returns (cand_boxes (B, P, 7+), top_scores (B, P), cand_labels
-    (B, P)); gated slots score ``NEG_INF``. Anchor heads decode only the
-    gathered candidates (``lazy_box_decode``); point heads hand over
-    decoded ``batch_box_preds`` (9 columns for Det6D)."""
+def rank_candidates(batch_dict, post_cfg):
+    """Score gate + exact top-``NMS_PRE_MAXSIZE``: (masked (B, A) best
+    class score, ``NEG_INF`` below ``SCORE_THRESH``; labels (B, A),
+    1-based; top_scores (B, P); order (B, P), the candidates' rows)."""
     cls_preds = batch_dict["batch_cls_preds"]  # (B, A, nc)
     if not batch_dict.get("cls_preds_normalized", False):
         cls_preds = torch.sigmoid(cls_preds)
@@ -171,6 +171,18 @@ def select_candidates(batch_dict, post_cfg):
         top_scores, order = nms_ops.top_k_two_stage(masked, pre, a_loc)
     else:
         top_scores, order = nms_ops.stable_top_k(masked, pre)
+    return masked, labels, top_scores, order
+
+
+def select_candidates(batch_dict, post_cfg):
+    """:func:`rank_candidates` + the candidates' boxes. Returns
+    (cand_boxes (B, P, 7+), top_scores (B, P), cand_labels (B, P)); gated
+    slots score ``NEG_INF``. Anchor heads decode only the gathered
+    candidates (``lazy_box_decode``); point heads hand over decoded
+    ``batch_box_preds`` (9 columns for Det6D)."""
+    _, labels, top_scores, order = rank_candidates(batch_dict, post_cfg)
+    lazy = batch_dict.get("lazy_box_decode")
+    a_loc = int(lazy["a_loc"]) if lazy is not None else 0
     cand_labels = torch.gather(labels, 1, order)
     if lazy is None:
         box_preds = batch_dict["batch_box_preds"]  # (B, A, 7+)

@@ -9,7 +9,8 @@ The build happens on first use, never at import.
 
 ``-fmad=false`` keeps ``nvcc`` from contracting ``a*b+c`` into FMAs so
 the NMS kernels' IoU and the FPS kernel's distances round exactly like
-their plain PyTorch versions.
+their plain PyTorch versions; the sparse convolution writes its fp32
+multiply-adds as explicit ``__fmaf_rn``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("canvas.cu", "nms_fused.cu", "nms_mask.cu", "fps.cu",
-           "matrix_fps.cu")
+           "matrix_fps.cu", "lookup.cu", "sparse_conv.cu")
 # included by the sources; part of the hash
 HEADERS = ("iou_bev.cuh", "block_argmax.cuh")
 NVCC_FLAGS = (
@@ -131,6 +132,12 @@ def lib() -> ctypes.CDLL:
             handle.de6d_fps_argmax_rounds.restype = i
             handle.de6d_matrix_fps.argtypes = [p, p, p, i, i, i, p]
             handle.de6d_matrix_fps.restype = i
+            handle.de6d_lookup.argtypes = [p, p, p, p, i, i, i, p]
+            handle.de6d_lookup.restype = i
+            handle.de6d_sparse_conv.argtypes = [
+                p, p, p, p, p, p, i, i, i, i, i, i, i, p,
+            ]
+            handle.de6d_sparse_conv.restype = i
             _lib = handle
     return _lib
 

@@ -7,8 +7,10 @@ Batched over a leading B axis; every output equals the JAX function's
 (vmapped over B) bit for bit. Voxel slots are assigned in ascending
 linear-cell-key order with the unused slots as a tail; when a scan has
 more than ``max_voxels`` voxels the LARGEST keys are dropped. Voxel
-coords are (z, y, x). The ``(V, P, C)`` voxel buffer is not built: the
-fused pillar VFE reads the sorted point stream instead.
+coords are (z, y, x). ``voxelize`` does not build the ``(V, P, C)``
+voxel buffer: the fused pillar VFE reads the sorted point stream, and a
+VFE that reads the buffer (``MeanVFE``) builds it with
+:func:`voxel_buffer` from the sorted-order metadata.
 """
 
 from __future__ import annotations
@@ -21,11 +23,16 @@ BIG = 2**31 - 1  # int32 max: the invalid-key sentinel
 
 def compute_voxel_coords(points, pc_range, voxel_size):
     """(..., N, 3+) points → (..., N, 3) int32 (x, y, z) cell indices
-    plus the in-range mask."""
+    plus the in-range mask. Under ``jit`` XLA turns the JAX function's
+    division by the constant voxel size into a product with its fp32
+    reciprocal, which floors differently at a cell boundary (a KITTI
+    point at x = 14.099999 lands in cell 282 of 0.05 m, not 281); the
+    port computes what the jitted JAX model computes."""
     lo = torch.tensor(pc_range[0:3], dtype=points.dtype, device=points.device)
     hi = torch.tensor(pc_range[3:6], dtype=points.dtype, device=points.device)
     vs = torch.tensor(voxel_size, dtype=points.dtype, device=points.device)
-    ijk = torch.floor((points[..., :3] - lo) / vs).to(torch.int32)
+    ijk = torch.floor((points[..., :3] - lo) * torch.reciprocal(vs)).to(
+        torch.int32)
     grid = torch.floor((hi - lo) / vs + 0.5).to(torch.int32)
     in_range = torch.all((ijk >= 0) & (ijk < grid), dim=-1)
     return ijk, in_range, grid
@@ -157,6 +164,24 @@ def voxelize(points, valid_mask, pc_range, voxel_size,
         "sorted_rank": rank_sorted,
         "voxel_starts": starts.to(i32),
     }
+
+
+def voxel_buffer(points, order, starts, counts, p: int):
+    """The per-voxel point buffer ``voxels`` (B, V, P, C) of the JAX
+    ``voxelize``: voxel v holds the sorted points ``starts[v] + (0..P-1)``
+    (``order`` sorts the points by cell), rows past ``counts[v]`` zero."""
+    n = points.shape[-2]
+    c = points.shape[-1]
+    pts_sorted = torch.gather(
+        points, -2, order.long()[..., None].expand(*order.shape, c))
+    ar = torch.arange(p, dtype=torch.int32, device=points.device)
+    gather_idx = torch.clamp(starts[..., None] + ar, 0, n - 1).long()
+    b, v = starts.shape
+    rows = torch.gather(
+        pts_sorted, -2, gather_idx.reshape(b, v * p, 1).expand(-1, -1, c)
+    ).reshape(b, v, p, c)
+    in_voxel = ar < counts[..., None]
+    return torch.where(in_voxel[..., None], rows, 0.0).to(points.dtype)
 
 
 def _segmented_prefix(values, ids, op, identity, window):

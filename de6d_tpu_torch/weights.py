@@ -9,6 +9,7 @@ port model whose submodule paths mirror the flax module names; a
 ``sa_modules_0``.
 
 Layout mapping, by the layer's ``FLAX_KIND``:
+  * SparseConv: kernel (K, Cin, Cout) → weight, the same layout;
   * Dense: kernel (in, out) → weight (out, in);
   * Conv: kernel HWIO → weight OIHW;
   * ConvTranspose: kernel (kh, kw, in, out) → weight
@@ -52,6 +53,7 @@ def _flax_entries(kind: str, path: str):
             ("running_var", f"{s}/var", None),
         ]
     kernel = {
+        "SparseConv": lambda k: k,
         "Dense": lambda k: k.T,
         "Conv": lambda k: k.transpose(3, 2, 0, 1),
         "ConvTranspose": lambda k: k[::-1, ::-1].transpose(2, 3, 0, 1),
@@ -148,6 +150,7 @@ def seeded_flax(model: torch.nn.Module, seed: int) -> dict:
             continue
         w = tuple(module.weight.shape)
         shape = {
+            "SparseConv": lambda: w,
             "Dense": lambda: (w[1], w[0]),
             "Conv": lambda: (w[2], w[3], w[1], w[0]),
             "ConvTranspose": lambda: (w[2], w[3], w[0], w[1]),
@@ -155,6 +158,6 @@ def seeded_flax(model: torch.nn.Module, seed: int) -> dict:
         fan_in = int(np.prod(shape[:-1]))
         scale = np.sqrt(2.0 / fan_in) * (0.2 if name in predictions else 1.0)
         flat[f"{p}/kernel"] = f32(rng.normal(0.0, 1.0, shape) * scale)
-        if module.bias is not None:
+        if getattr(module, "bias", None) is not None:
             flat[f"{p}/bias"] = f32(rng.normal(0.0, 0.05, shape[-1]))
     return flat

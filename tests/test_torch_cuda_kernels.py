@@ -9,15 +9,18 @@ its plain version's arithmetic: canvas rows are copied bytes, the NMS
 IoU and the FPS distances are built with -fmad=false, and FPS picks are
 indices (the f-fps kernel reads its keys from a matrix and only takes
 minima), so the comparisons have no tolerance (the suppression mask is
-compared whole, bit for bit)."""
+compared whole, bit for bit). The key lookup returns indices (equal
+everywhere). The sparse convolution sums in fp32 in another order than
+the plain version's matmul: fp32 within 1e-5 absolute + 1e-5 relative,
+bf16 within 1e-2 + 1e-2 (one bf16 rounding can move by 2^-7)."""
 
 import numpy as np
 import pytest
 import torch
 
-from de6d_tpu_torch.ops import iou3d, nms, sampling
+from de6d_tpu_torch.ops import iou3d, nms, sampling, sparse
 from de6d_tpu_torch.ops.kernels import (
-    canvas, fps, matrix_fps, nms_fused, nms_mask,
+    canvas, fps, lookup, matrix_fps, nms_fused, nms_mask, sparse_conv,
 )
 from torch_fixtures import canvas_inputs, cuda_device, nms_boxes  # noqa: F401
 
@@ -235,3 +238,103 @@ def test_wrappers_reject_bad_input(cuda_device):  # noqa: F811
         nms_mask.nms_resolve(
             torch.zeros(2, 8, 1, dtype=torch.int64, device=cuda_device),
             counts[:1], 4)
+
+
+def lookup_inputs(rng, b, v, q, fill):
+    """(tables (b, v) with ``fill`` keys each, ascending, INVALID tail;
+    queries (b, q), half of them present)."""
+    tables = np.full((b, v), sparse.INVALID, np.int32)
+    queries = np.empty((b, q), np.int32)
+    for i in range(b):
+        u = np.unique(rng.randint(0, 41 * 1600 * 1408, fill + fill // 8 + 1))
+        u = u[:fill]
+        tables[i, :len(u)] = u
+        present = u[rng.randint(0, max(len(u), 1), q)] if len(u) else 0
+        queries[i] = np.where(rng.random_sample(q) < 0.5, present,
+                              rng.randint(-5, 41 * 1600 * 1408, q))
+    queries[:, :7] = sparse.INVALID
+    return tables, queries
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,q,fill", [
+    (16000, 432000, 12500),   # a served submanifold table
+    (4000, 12000, 4000),      # full table, the z-conv's queries
+    (16000, 5000, 0),         # empty table
+    (40000, 100000, 40000),   # beyond the TPU kernel's 16384 cap
+    (120000, 200000, 90000),  # searched in global memory
+    (1, 10, 1),
+])
+def test_lookup_kernel_equals_plain(cuda_device, v, q, fill):  # noqa: F811
+    tables, queries = lookup_inputs(np.random.RandomState(v), 3, v, q, fill)
+    t = torch.from_numpy(tables).to(cuda_device)
+    qk = torch.from_numpy(queries).to(cuda_device)
+    before = lookup.lookup.launches
+    idx, hit = lookup.lookup(t, qk)
+    torch.cuda.synchronize()
+    assert lookup.lookup.launches == before + 1
+    ridx, rhit = lookup.lookup_plain(t, qk)
+    assert torch.equal(hit, rhit) and torch.equal(idx, ridx)
+    assert bool(hit.any()) == (fill > 0)
+    cidx, chit = lookup.lookup(t.cpu(), qk.cpu())
+    assert torch.equal(chit, hit.cpu()) and torch.equal(cidx, idx.cpu())
+
+
+def conv_inputs(rng, b, v, q, k, cin, cout, dtype, device):
+    """Random features, a random neighbour table with ~20 % hits and a
+    ragged valid prefix per sample."""
+    f = torch.from_numpy(rng.randn(b, v, cin).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(0, v, (b, q, k)).astype(np.int32))
+    hit = torch.from_numpy(rng.random_sample((b, q, k)) < 0.2)
+    w = torch.from_numpy((rng.randn(k, cin, cout) / np.sqrt(k * cin)).astype(
+        np.float32))
+    valid = torch.arange(q)[None] < torch.tensor([q, q // 2, 0][:b])[:, None]
+    return (f.to(device, dtype), idx.to(device), hit.to(device),
+            w.to(device, dtype), valid.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,q,k,cin,cout", [
+    (16000, 16000, 27, 4, 16),   # conv_input
+    (16000, 8000, 27, 32, 64),   # a strided layer
+    (8000, 8000, 27, 64, 64),
+    (4000, 4000, 3, 64, 128),    # the (3, 1, 1) z-conv
+    (3000, 1000, 27, 48, 40),    # Cin the TPU kernel refuses
+    (100, 70, 5, 1, 1),
+])
+def test_sparse_conv_kernel_equals_plain(cuda_device, dtype, v, q, k, cin,  # noqa: F811
+                                         cout):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    args = conv_inputs(np.random.RandomState(q + cin), 3, v, q, k, cin, cout,
+                       dtype, cuda_device)
+    before = sparse_conv.sparse_conv.launches
+    got = sparse_conv.sparse_conv(*args)
+    torch.cuda.synchronize()
+    assert sparse_conv.sparse_conv.launches == before + 1
+    ref = sparse_conv.sparse_conv_plain(*args)
+    assert got.dtype == dtype and got.shape == (3, q, cout)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    d = (got.float() - ref.float()).abs()
+    assert bool((d <= tol * (1 + ref.float().abs())).all()), float(d.max())
+    assert not got[2].any() and not got[1, q // 2:].any()
+
+
+@pytest.mark.cuda
+def test_sparse_wrappers_reject_bad_input(cuda_device):  # noqa: F811
+    t = torch.zeros(2, 8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):  # queries on another device
+        lookup.lookup(t, t.cpu())
+    with pytest.raises(TypeError):
+        lookup.lookup(t.long(), t.long())
+    args = conv_inputs(np.random.RandomState(0), 2, 10, 10, 27, 8, 129,
+                       torch.float32, cuda_device)
+    with pytest.raises(ValueError):  # Cout above 128
+        sparse_conv.sparse_conv(*args)
+    f, idx, hit, w, valid = conv_inputs(np.random.RandomState(0), 2, 10, 10,
+                                        27, 8, 16, torch.float32, cuda_device)
+    with pytest.raises(TypeError):  # fp16 features
+        sparse_conv.sparse_conv(f.half(), idx, hit, w.half(), valid)
+    with pytest.raises(ValueError):  # valid on another device
+        sparse_conv.sparse_conv(f, idx, hit, w, valid.cpu())

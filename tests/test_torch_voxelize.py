@@ -38,9 +38,9 @@ def _both(grid, n, seed):
     # a few points outside the range and a few masked in-range ones
     pts[0, :5, 0] = pc[3] + 1.0
     mask[1, 10:20] = False
-    ref = jax.vmap(
+    ref = jax.jit(jax.vmap(
         lambda a, m: jvox.voxelize(a, m, pc, vs, v, p)
-    )(jnp.asarray(pts), jnp.asarray(mask))
+    ))(jnp.asarray(pts), jnp.asarray(mask))
     got = tvox.voxelize(torch.from_numpy(pts), torch.from_numpy(mask),
                         pc, vs, v, p)
     return {k: np.array(ref[k]) for k in ref}, {
@@ -58,6 +58,35 @@ def test_voxelize_bit_exact(grid, n):
     for k in KEYS:
         assert got[k].dtype == np.int32, k
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+SECOND = ((0.0, -40.0, -3.0, 70.4, 40.0, 1.0), (0.05, 0.05, 0.1), 16000, 5)
+
+
+@pytest.mark.parametrize("grid,x", [(SECOND, 14.099999), (KITTI, 1.5999999)],
+                         ids=["second_0.05m", "pointpillars_0.16m"])
+def test_voxel_coords_at_a_cell_boundary(grid, x):
+    """A point whose x divided by the voxel size floors one cell lower
+    than x times the fp32 reciprocal: the jitted JAX model multiplies, and
+    the port must land it in the same cell (SECOND's keys part in every
+    stage otherwise)."""
+    pc, vs, v, p = grid
+    pts, mask = random_points(6, _Spec(pc), 2, 512, 400)
+    pts[:, :3, 0] = np.float32(x)
+    pts[:, :3, 1:3] = 0.0
+    x32, vs32 = np.float32(x), np.float32(vs[0])
+    assert np.floor(x32 / vs32) != np.floor(x32 * (np.float32(1) / vs32))
+    ref = jax.jit(jax.vmap(
+        lambda a, m: jvox.voxelize(a, m, pc, vs, v, p)
+    ))(jnp.asarray(pts), jnp.asarray(mask))
+    got = tvox.voxelize(torch.from_numpy(pts), torch.from_numpy(mask),
+                        pc, vs, v, p)
+    ijk, _, _ = tvox.compute_voxel_coords(torch.from_numpy(pts[:, :3]), pc,
+                                          vs)
+    assert (ijk[:, :3, 0] == int(np.floor(x32 * (np.float32(1) / vs32)))).all()
+    for k in KEYS:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]),
+                                      err_msg=k)
 
 
 @pytest.mark.parametrize("grid", [TINY, KITTI], ids=["tiny", "kitti"])
