@@ -7,6 +7,10 @@ NVIDIA card.
 Phases, one status line each; any failure exits non-zero:
 
 1. build          — compile ``de6d_tpu_torch/csrc/*.cu`` for sm_90a.
+   grad guard     — ``scatter_canvas`` and ``sparse_conv`` on the card
+                    raise on a requires-grad input under ``enable_grad``
+                    and run under ``no_grad``; their CPU plain versions
+                    backpropagate (:func:`check_grad_guard`).
 2. kernels        — canvas and NMS against their plain PyTorch versions
                     on the card at PointPillars' shapes (canvas bit-exact
                     in bf16 and fp32; NMS keep flags identical on the
@@ -24,9 +28,14 @@ Phases, one status line each; any failure exits non-zero:
                     shapes (d-fps 8 x 16384 -> 4096 on the real scans,
                     s-fps 8 x 4096 -> 1024 and 8 x 1024 -> 512 weighted by
                     the served model's SA1/SA2 confidence scores, and an
-                    all-valid random case): identical picks, timings, the
-                    operations bound and the measured latency floor; plus
-                    NMS at Det6D's shape (8 x 256, post_k 256).
+                    all-valid random case): identical picks at the
+                    dispatched cluster size and at every other one,
+                    timings (every cluster size at SA1 and SA2), the
+                    operations bound, the dispatched variant's measured
+                    latency floor beside the first, single-block kernel's;
+                    the edge cases (N = 1 ... 16384, npoint up to N,
+                    all-invalid, ragged, exact ties); plus NMS at Det6D's
+                    shape (8 x 256, post_k 256).
 6. serve / det6d  — ``StreamingDetector`` with ``configs/kitti_models/
                     det6d_car.yaml`` in bf16, ``bench_assets/
                     det6d_car_params.npz`` and the 8 scans of
@@ -41,7 +50,12 @@ Phases, one status line each; any failure exits non-zero:
                     against their plain versions, whole outputs equal: the
                     8 x 9000 proposal candidates of the served PointRCNN
                     model (all live), its 8 x 100 final candidates, ragged
-                    counts including 0, and P = 1, 63, 64, 65, 130; plus
+                    counts including 0, P = 1, 63, 64, 65, 130, and an
+                    adversarial set (touching, 1e-6 m apart, parallel
+                    edges, 1e-3 m and 1e4 m, identical, degenerate boxes)
+                    at thresh -0.1, 0, 0.1, 0.85; each with the pairs the
+                    bound pre-test leaves (survivor share), the bound on
+                    those and the bound on all live pairs; plus
                     the FPS kernel at PointRCNN's shapes (4 backbone
                     layers, 800 RoI point sets with empty ones).
 9. serve / pointrcnn — ``StreamingDetector`` with ``configs/kitti_models/
@@ -456,6 +470,67 @@ def phase_kernels(dev, report):
     return model, mc
 
 
+def check_grad_guard(report):
+    """The kernels that carry a differentiable function in the JAX package
+    (canvas, sparse conv) refuse a requires-grad input on the card while
+    grad is enabled, run under ``no_grad``, and their CPU plain versions
+    stay differentiable."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.ops.kernels import canvas, sparse_conv
+
+    rng = np.random.RandomState(3)
+    ny, nx, v, c = 6, 5, 12, 8
+    lin = torch.from_numpy(np.concatenate(
+        [np.sort(rng.choice(ny * nx, 9, replace=False)),
+         [ny * nx] * 3]).astype(np.int32)[None])
+    feat = torch.from_numpy(rng.standard_normal((1, v, c)).astype(np.float32))
+    q, k, cin, cout = 7, 3, 8, 16
+    conv_in = (
+        torch.from_numpy(rng.standard_normal((1, v, cin)).astype(np.float32)),
+        torch.from_numpy(rng.randint(0, v, (1, q, k)).astype(np.int32)),
+        torch.from_numpy(rng.random_sample((1, q, k)) < 0.7),
+        torch.from_numpy(rng.standard_normal((k, cin, cout)).astype(
+            np.float32)),
+        torch.ones(1, q, dtype=torch.bool),
+    )
+    calls = {
+        "scatter_canvas": (lambda f: canvas.scatter_canvas(
+            f, lin.to(f.device), ny, nx), (0,)),
+        "sparse_conv": (lambda *a: sparse_conv.sparse_conv(*a), (0, 3)),
+    }
+    for name, (fn, grad_args) in calls.items():
+        args = (feat,) if name == "scatter_canvas" else conv_in
+        cpu = [a.clone().requires_grad_(i in grad_args) for i, a in
+               enumerate(args)]
+        fn(*cpu).float().sum().backward()
+        if any(cpu[i].grad is None for i in grad_args):
+            fail(f"grad guard: the CPU plain {name} lost its gradient")
+        for i in grad_args:
+            dev = [a.cuda().requires_grad_(j == i) for j, a in
+                   enumerate(args)]
+            with torch.enable_grad():
+                try:
+                    fn(*dev)
+                except RuntimeError as err:
+                    if "backward" not in str(err):
+                        raise
+                else:
+                    fail(f"grad guard: {name} on the card took argument {i} "
+                         "requiring grad under enable_grad")
+            with torch.no_grad():
+                got = fn(*dev)
+            want = fn(*[a.detach() for a in cpu])
+            torch.cuda.synchronize()
+            if not torch.allclose(got.cpu(), want, atol=1e-5, rtol=1e-5):
+                fail(f"grad guard: {name} under no_grad differs from plain")
+    report["grad_guard"] = sorted(calls)
+    print("grad guard: scatter_canvas and sparse_conv raise on a "
+          "requires-grad input under enable_grad and run under no_grad on "
+          "the card; their CPU plain versions backpropagate", flush=True)
+
+
 # ---------------------------------------------------------------------
 # serve and parity
 # ---------------------------------------------------------------------
@@ -616,20 +691,57 @@ def fps_weights(scores, gamma):
 
 
 def argmax_round_ms():
-    """The time of one empty block-wide argmax round (8 blocks, as a
-    batch of 8 samples runs): the FPS kernels' latency floor per pick."""
+    """The time of one empty block-wide argmax round of the first,
+    single-block FPS kernel (8 blocks, as a batch of 8 samples runs)."""
     from de6d_tpu_torch.ops.kernels import fps as fk
 
     rounds = 4096
     return time_ms(lambda: fk.argmax_rounds(rounds, 8, "cuda"), 10) / rounds
 
 
-def check_fps(cases, report):
+_ROUND_MS = {}  # (samples, cluster size, threads) -> ms per empty round
+
+
+def cluster_round_ms(b, n, cluster):
+    """The time of one empty pick round (warp reduce, the CTA's
+    __syncthreads and, for a cluster, the DSMEM messages) of the FPS
+    variant with ``cluster`` CTAs per sample for ``b`` samples of ``n``
+    points: that variant's latency floor per pick."""
+    from de6d_tpu_torch.ops.kernels import fps as fk
+
+    threads = fk.threads(n, cluster)
+    key = (b, cluster, threads)
+    if key not in _ROUND_MS:
+        rounds = 2048
+        _ROUND_MS[key] = time_ms(lambda: fk.cluster_rounds(
+            rounds, b, cluster, threads, "cuda"), 5) / rounds
+    return _ROUND_MS[key]
+
+
+def fps_variants_equal(label, xyz, valid, npoint, w, ref):
+    """Every cluster size the kernel takes for this N must give the plain
+    loop's picks."""
+    import torch
+
+    from de6d_tpu_torch.ops.kernels import fps as fk
+
+    for c in fk.cluster_sizes(valid.shape[1]):
+        got = fk.fps_cluster(xyz, valid, npoint, w, cluster=c)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            bad = (got != ref).nonzero()[0].tolist()
+            fail(f"kernels / fps {label}: cluster {c} picks differ from the "
+                 f"plain version, first at (sample, pick) {bad}")
+
+
+def check_fps(cases, report, variant_ms=()):
     """cases: {label: (xyz (B, N, 3), valid (B, N), npoint, weights or
-    None)}; kernel picks must equal the plain loop's. Times the kernel,
-    the plain loop and its latency floor: npoint block-wide argmax
-    rounds of ``argmax_rounds`` (the pick loop without its distance
-    work)."""
+    None)}; the kernel's picks, at the dispatched cluster size and at
+    every other one, must equal the plain loop's. Times the kernel, the
+    plain loop and its latency floor: npoint empty pick rounds of the
+    dispatched variant (``cluster_rounds``), beside the first kernel's
+    single-block floor (``argmax_rounds``). Cases in ``variant_ms`` also
+    time every cluster size."""
     import torch
 
     from de6d_tpu_torch.ops.kernels import fps as fk
@@ -644,11 +756,14 @@ def check_fps(cases, report):
             bad = (got != ref).nonzero()[0].tolist()
             fail(f"kernels / fps {label}: picks differ from the plain "
                  f"version, first at (sample, pick) {bad}")
+        fps_variants_equal(label, xyz, valid, npoint, w, ref)
         b, n = valid.shape
         weighted = w is not None
+        cluster = fk.dispatch(b, n, weighted)
         flops = b * n * (npoint - 1) * fk.FLOPS_PER_POINT[weighted]
         nbytes = b * n * (12 + 1 + 4 * weighted) + b * npoint * 4
         t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+        rounds = npoint - 1 + weighted
         lines[label] = {
             "max_abs_err": 0.0,
             "ms": time_ms(lambda: fk.fps(xyz, valid, npoint, weights=w), 5),
@@ -656,17 +771,80 @@ def check_fps(cases, report):
                                 1, warmup=0),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
-            "latency_floor_ms": (npoint - 1 + weighted) * round_ms,
+            "cluster": cluster,
+            "threads": fk.threads(n, cluster),
+            "latency_floor_ms": rounds * cluster_round_ms(b, n, cluster),
+            "latency_floor_single_block_ms": rounds * round_ms,
             "shape": f"{'s' if weighted else 'd'}-fps ({b}, {n}) -> {npoint}"
                      f", {int(valid.sum())} valid",
         }
         ln = lines[label]
-        print(f"kernels / fps {label}: identical picks, {ln['shape']}: "
-              f"{ln['ms']:.4f} ms, plain {ln['plain_ms']:.1f} ms, bound "
-              f"{ln['bound_ms']:.5f} ms ({ln['bound_by']}), latency floor "
-              f"{ln['latency_floor_ms']:.4f} ms", flush=True)
+        if label in variant_ms:
+            ln["variant_ms"] = {
+                c: time_ms(lambda: fk.fps_cluster(
+                    xyz, valid, npoint, w, cluster=c), 5)
+                for c in fk.cluster_sizes(n)}
+            ln["variant_latency_floor_ms"] = {
+                c: rounds * cluster_round_ms(b, n, c)
+                for c in fk.cluster_sizes(n)}
+        print(f"kernels / fps {label}: identical picks (every cluster "
+              f"size), {ln['shape']}: cluster {cluster} x {ln['threads']} "
+              f"threads {ln['ms']:.4f} ms, plain {ln['plain_ms']:.1f} ms, "
+              f"bound {ln['bound_ms']:.5f} ms ({ln['bound_by']}), latency "
+              f"floor {ln['latency_floor_ms']:.4f} ms (single block "
+              f"{ln['latency_floor_single_block_ms']:.4f})"
+              + (f", by cluster size {ln['variant_ms']}"
+                 if "variant_ms" in ln else ""), flush=True)
     report["fps_round_ms"] = round_ms
     return lines
+
+
+def check_fps_edges():
+    """Picks identical to the plain loop at every cluster size on the
+    edge cases: N = 1, 1023, 1024, 1025, 4096, 16384 with npoint up to N,
+    an all-invalid sample, fewer valid points than picks, an exact-tie
+    lattice (every distance an integer), d-fps and s-fps."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.ops.kernels import fps as fk
+
+    rng = np.random.RandomState(21)
+    n_cases = 0
+    for n, npoints in ((1, (1, 3)), (1023, (1023, 100)), (1024, (1024,)),
+                       (1025, (1025, 513)), (4096, (4096, 1000)),
+                       (16384, (16384, 4096))):
+        xyz = rng.uniform(-40, 70, (4, n, 3)).astype(np.float32)
+        side = int(round(n ** (1 / 3))) + 1  # lattice: exact ties
+        g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)[:n]
+        xyz[3] = g.astype(np.float32)
+        valid = np.ones((4, n), bool)
+        valid[1] = False  # all invalid
+        valid[2, max(1, n // 3):] = False  # fewer valid than picks
+        xyz_t = torch.from_numpy(xyz).cuda()
+        valid_t = torch.from_numpy(valid).cuda()
+        w = torch.from_numpy(np.floor(rng.uniform(0, 4, (4, n))).astype(
+            np.float32)).cuda()  # integer weights: tied keys
+        for npoint in npoints:
+            for weights in (None, w):
+                ref = fk.fps_plain(xyz_t, valid_t, npoint, weights)
+                got = fk.fps_cluster(xyz_t, valid_t, npoint, weights,
+                                     cluster=fk.dispatch(4, n,
+                                                         weights is not None))
+                if not torch.equal(got, ref):
+                    fail(f"kernels / fps edges N={n} npoint={npoint}: "
+                         "dispatched picks differ from the plain version")
+                fps_variants_equal(f"edges N={n} npoint={npoint}", xyz_t,
+                                   valid_t, npoint, weights, ref)
+                if not bool((ref[1] == 0).all()):
+                    fail(f"kernels / fps edges N={n}: an all-invalid sample "
+                         "must pick index 0 throughout")
+                n_cases += 1
+    print(f"kernels / fps edges: {n_cases} cases identical to the plain "
+          "loop at every cluster size (N = 1 ... 16384, npoint up to N, "
+          "all-invalid, ragged, exact-tie lattice)", flush=True)
+    return n_cases
 
 
 def phase_det6d_kernels(report):
@@ -707,7 +885,7 @@ def phase_det6d_kernels(report):
             syn_xyz[:3, :1000], torch.arange(1000, device="cuda")[None]
             < torch.tensor([[1000], [700], [0]], device="cuda"), 333, None),
     }
-    lines = check_fps(cases, report)
+    lines = check_fps(cases, report, variant_ms=("sa1_dfps", "sa2_sfps"))
     path = [lines[k] for k in ("sa1_dfps", "sa2_sfps", "sa3_sfps")]
     report["fps"] = {
         "name": "fps",
@@ -717,10 +895,12 @@ def phase_det6d_kernels(report):
         "max_abs_err": 0.0,
         # per served batch: the SA1 + SA2 + SA3 launches
         **{k: sum(ln[k] for ln in path) for k in (
-            "ms", "plain_ms", "bound_ms", "latency_floor_ms")},
+            "ms", "plain_ms", "bound_ms", "latency_floor_ms",
+            "latency_floor_single_block_ms")},
         "bound_by": "operations",
         "library_ms": None,
         "cases": lines,
+        "edge_cases": check_fps_edges(),
     }
 
     post_cfg = mc["POST_PROCESSING"]
@@ -917,6 +1097,44 @@ def random_boxes(rng, b, p, spread=12.0, cluster=80):
     return boxes
 
 
+def adversarial_boxes(rng):
+    """(2, P, 7) boxes where a bound pre-test could go wrong: pairs that
+    touch or lie 1e-6 m apart along an edge, parallel edges at small gaps,
+    1e-3 m and 1e4 m boxes, boxes far from the origin, identical boxes,
+    degenerate (zero-size) and mirrored (negative-size) boxes, and random
+    rotations."""
+    import numpy as np
+
+    rows = []
+    for gap in (0.0, 1e-6, 1e-4, 1e-3, 2e-3, 1e-2, 0.1):
+        for yaw in (0.0, np.pi / 2, 0.3):
+            for far in (0.0, 5e3):
+                l, w = 4.0, 1.6
+                c, s_ = np.cos(yaw), np.sin(yaw)
+                # box 2 beside box 1 along its heading, `gap` between faces
+                step = l + gap
+                rows.append([far, far, 0, l, w, 1.5, yaw])
+                rows.append([far + step * c, far + step * s_, 0, l, w, 1.5,
+                             yaw])
+                rows.append([far, far + w + gap, 0, l, w, 1.5, 0.0])
+    for size in (1e-3, 1e4):
+        for k in range(6):
+            rows.append([rng.uniform(-3, 3) * size, rng.uniform(-3, 3) * size,
+                         0, size, size * rng.uniform(0.5, 2), 1.0,
+                         rng.uniform(-np.pi, np.pi)])
+    same = [1.0, 2.0, 0.0, 3.9, 1.6, 1.5, 0.7]
+    rows += [same, same, [1.0, 2.0, 0.0, 0.0, 1.6, 1.5, 0.0],
+             [1.5, 2.0, 0.0, -3.9, 1.6, 1.5, 0.7],
+             [1e4, -1e4, 0.0, 4.0, 1.6, 1.5, 1.0],
+             [1e4 + 4.0 + 1e-6, -1e4, 0.0, 4.0, 1.6, 1.5, 1.0]]
+    for _ in range(40):
+        rows.append([rng.uniform(-6, 6), rng.uniform(-6, 6), 0,
+                     rng.uniform(0.5, 5), rng.uniform(0.5, 3), 1.5,
+                     rng.uniform(-np.pi, np.pi)])
+    boxes = np.asarray(rows, np.float32)
+    return np.stack([boxes, boxes[rng.permutation(len(boxes))]])
+
+
 def check_nms_mask(cases):
     """cases: {label: (boxes (B, P, 7+), counts (B,), thresh, post)} → a
     result line per case. The kernel's whole bit mask must equal the
@@ -947,8 +1165,13 @@ def check_nms_mask(cases):
         b, p = boxes.shape[:2]
         live = counts.clamp(0, p).long()
         ious = int((live * (live - 1) // 2).sum())
+        survivors = int(nm.survivors_plain(packed, counts, thresh).sum())
         nbytes = packed.numel() * 4 + b * 4 + got.numel() * 8
-        t_ops = ious * nm.FLOPS_PER_IOU / FP32_FLOPS
+        # what the function needs: the pre-test on every live pair, the IoU
+        # on the pairs it does not decide
+        t_ops = (ious * nm.PRETEST_FLOPS
+                 + survivors * nm.FLOPS_PER_IOU) / FP32_FLOPS
+        t_all = ious * nm.FLOPS_PER_IOU / FP32_FLOPS
         t_bytes = nbytes / HBM_BYTES_PER_S
         lines[label] = {
             "max_abs_err": 0.0,
@@ -957,10 +1180,13 @@ def check_nms_mask(cases):
             "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bound_all_pairs_ms": max(t_all, t_bytes) * 1e3,
             "resolve_ms": time_ms(lambda: nm.nms_resolve(got, counts, post),
                                   20),
             "resolve_plain_ms": resolve_plain_ms,
             "ious": ious,
+            "survivors": survivors,
+            "survivor_share": survivors / ious if ious else None,
             "bits_set": int(nm.unpack_bits(got, p).sum()) if p <= 1024
             else None,
             "kept": nsel.tolist(),
@@ -968,10 +1194,14 @@ def check_nms_mask(cases):
                      f"thresh {thresh}, post {post}",
         }
         ln = lines[label]
+        share = ln["survivor_share"]
         print(f"kernels / nms_mask {label}: mask and selections identical, "
               f"{ln['ms']:.4f} ms, plain {ln['plain_ms']:.2f} ms, bound "
-              f"{ln['bound_ms']:.5f} ms ({ln['bound_by']}), {ious} IoUs; "
-              f"resolve {ln['resolve_ms']:.4f} ms, plain "
+              f"{ln['bound_ms']:.5f} ms ({ln['bound_by']}; all pairs "
+              f"{ln['bound_all_pairs_ms']:.5f}), {ious} live pairs, "
+              f"{survivors} survive the pre-test ("
+              f"{'-' if share is None else f'{share:.4%}'}); resolve "
+              f"{ln['resolve_ms']:.4f} ms, plain "
               f"{ln['resolve_plain_ms']:.2f} ms, kept {ln['kept']}",
               flush=True)
     return lines
@@ -1034,6 +1264,12 @@ def phase_rcnn_kernels(report):
         counts = torch.tensor([p, p - 1, p // 2, 0], dtype=torch.int32,
                               device="cuda")
         cases[f"p{p}"] = (boxes, counts, 0.1, p)
+    adversarial = torch.from_numpy(adversarial_boxes(rng)).cuda()
+    adv_counts = torch.tensor([adversarial.shape[1]] * 2, dtype=torch.int32,
+                              device="cuda")
+    for thresh in (-0.1, 0.0, 0.1, 0.85):
+        cases[f"adversarial_thresh_{thresh}"] = (adversarial, adv_counts,
+                                                 thresh, 64)
     lines = check_nms_mask(cases)
     path = [lines["proposals"], lines["final"]]  # the two launches per batch
     report["nms_mask"] = {
@@ -1043,8 +1279,9 @@ def phase_rcnn_kernels(report):
         "replaces": "de6d_tpu/ops/pallas/nms_mask.py:132",
         "max_abs_err": 0.0,
         **{k: sum(ln[k] for ln in path) for k in (
-            "ms", "plain_ms", "bound_ms", "resolve_ms", "resolve_plain_ms")},
-        "bound_by": "operations",
+            "ms", "plain_ms", "bound_ms", "bound_all_pairs_ms", "resolve_ms",
+            "resolve_plain_ms", "ious", "survivors")},
+        "bound_by": lines["proposals"]["bound_by"],
         "library_ms": None,
         "cases": lines,
     }
@@ -2213,6 +2450,7 @@ def main():
                 or "spill" in line):
             print(f"build:   {line.strip()}")
 
+    check_grad_guard(report)
     nms = nms_fused.nms_keep_batched
     model, mc = phase_kernels("cuda", report)
     pts, mask = load_scans()

@@ -1,5 +1,6 @@
-// Farthest-point sampling, plain (d-fps) and weighted (s-fps): one
-// block of 1024 threads per sample runs the whole sequential pick loop.
+// Farthest-point sampling, plain (d-fps) and weighted (s-fps): a cluster
+// of C thread blocks per sample runs the whole sequential pick loop, each
+// block on its own slice of the points, the points in registers.
 //
 // Replaces the TPU kernel de6d_tpu/ops/pallas/fps.py:fps_pallas (eight
 // samples per grid step on the sublanes, every operand VMEM-resident).
@@ -11,73 +12,249 @@
 //   first argmax of valid ? w : -1e10 (s-fps). Picks repeat once every
 //   valid point is taken, as the reference's do.
 //
-// Bound: the picks form a dependency chain, each step a block-wide argmax
-// over N keys, so the kernel is held by latency (one __syncthreads and two
-// 5-step shuffle reductions per pick), not by its ~10-12 fp32 operations
-// per point per pick. Design:
-//   * xyz as three planes in shared memory (12 B/point, 192 KiB at
-//     N = 16384, within the 227 KiB opt-in); the winner's coordinates are
-//     broadcast reads from there;
-//   * each thread keeps its ITEMS = ceil(N / 1024) running minima (and
-//     weights) in registers; points i = tid + k * 1024, so a thread's
-//     candidates ascend in index and a strict '>' keeps the first max;
-//   * argmax per pick: block_argmax.cuh (shared with matrix_fps.cu): warp
-//     shuffle over (key, idx), larger key first and lower index on equal
-//     keys; warp winners go to a double-buffered shared slot, one barrier,
-//     then every warp reduces the 32 winners itself (no second barrier:
-//     the slot parity alternates per pick).
-// Splitting one sample over a cluster of blocks (DSMEM) is left to a
-// later change; on the main path 8 of 132 SMs are busy.
+// Bound: the picks form a dependency chain, each step an argmax over the
+// sample's N keys, so the kernel is held by the latency of one pick, not
+// by its ~10-12 fp32 operations per point per pick. One 1024-thread block
+// per sample uses 8 of 132 SMs at batch 8 and is issue-bound on its 16
+// points per thread; spreading a sample over SMs makes the per-pick
+// exchange between them the cost to minimise. Design:
+//   * a thread-block cluster of C CTAs per sample (cudaLaunchKernelEx with
+//     a cluster dimension; C = 16 needs the non-portable cluster size).
+//     CTA rank r owns points [r * ppc, (r + 1) * ppc), ppc = ceil(N / C);
+//     each thread keeps its ITEMS points' x, y, z, running minimum and
+//     (s-fps) weight in registers. Every CTA also holds the whole sample's
+//     xyz in shared memory (12 B a point, 192 KiB at N = 16384), so a
+//     winner travels as its index alone;
+//   * the argmax message is one ordered 64-bit word: the order-preserving
+//     uint image of the fp32 key (-0.0 canonicalised to +0.0) in the high
+//     word, 16383 - index in the low word, so the maximum is the first
+//     maximum whatever thread, warp or CTA held it. A warp reduces with
+//     two redux.sync (__reduce_max_sync: the high word, then the low word
+//     among the lanes that hold it);
+//   * the warps' winners meet in shared memory (one __syncthreads), warp 0
+//     reduces them and sends the CTA's winner by st.async (an 8-byte DSMEM
+//     store that completes transaction bytes on the receiver's mbarrier)
+//     into slot `rank` of a double-buffered slot array in every CTA of the
+//     cluster; each CTA waits on its own barrier for its C messages (no
+//     cluster barrier, no fence). The winner's x, y, z then come from the
+//     CTA's own copy of the sample. The buffers alternate per pick (see
+//     exchange());
+//   * one CTA per sample (C = 1) is a plain launch: warp slots and one
+//     __syncthreads per pick.
+// Why not simpler exchanges: on the H100 (chip_smoke.py's latency floors
+// per pick at batch 8) a barrier.cluster arrive.release / wait.acquire
+// per pick cost ~1.05 us (1.65 us at C = 16), every warp sending its own
+// (key, x, y, z) cost 1.16 us, and polled slots that every warp wrote
+// slowed the warps still computing distances; one CTA's round costs
+// 0.16 us, the exchange below ~0.4 us more.
+// Dispatch (de6d_fps_dispatch; ops/kernels/fps.py says the same): one CTA
+// per sample for N <= 2048 (8 points a thread); else C is the largest of
+// 16, 8, 4, 2 that leaves every CTA at least kMinPointsPerCta = 512
+// points, keeps B * C within the SM count and lets all B clusters be
+// resident at once (cudaOccupancyMaxActiveClusters); otherwise the least
+// C that fits the points in registers (1 for N <= 8192, else 2). Blocks
+// have 256 threads while ppc <= 1024 (ITEMS 1-4), 512 up to 2048 (ITEMS
+// 4), else 1024 (ITEMS 4, 8).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <climits>
 #include <cmath>
 
 #include "block_argmax.cuh"
 
 namespace {
 
-using de6d::block_argmax;
-using de6d::kInit;
-using de6d::kThreads;
-using de6d::kWarps;
+using ull = unsigned long long;
 
-constexpr int kMaxItems = 16;  // N <= 16384
+constexpr float kInit = de6d::kInit;
+constexpr int kMaxN = 16384;
+constexpr int kMaxCluster = 16;
+constexpr int kMaxPpc = 8192;          // points per CTA: 1024 threads x 8
+constexpr int kSingleCtaMaxN = 2048;    // one CTA, 8 points a thread
+constexpr int kMinPointsPerCta = 512;   // fewer: the exchange dominates
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kIdxMask = kMaxN - 1;  // index < kMaxN = 2^14
 
-template <int ITEMS, bool WEIGHTED>
-__global__ void __launch_bounds__(kThreads, 1)
-fps_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ valid,
-           const float* __restrict__ w, int* __restrict__ out, int N,
-           int npoint) {
-  extern __shared__ float planes[];  // x[N], y[N], z[N]
-  __shared__ float red_key[2][kWarps];
-  __shared__ int red_idx[2][kWarps];
+__device__ __forceinline__ unsigned ordered(float f) {
+  const unsigned u = __float_as_uint(__fadd_rn(f, 0.0f));  // -0 -> +0
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// `okey` 0 is below every real key (a warp without points sends it)
+__device__ __forceinline__ ull message(unsigned okey, int idx) {
+  return (static_cast<ull>(okey) << 32) |
+         (kIdxMask - static_cast<unsigned>(idx));
+}
+
+__device__ __forceinline__ int message_index(ull m) {
+  return static_cast<int>(kIdxMask - (static_cast<unsigned>(m) & kIdxMask));
+}
+
+__device__ __forceinline__ ull warp_max(ull m) {
+  const unsigned hi = static_cast<unsigned>(m >> 32);
+  const unsigned lo = static_cast<unsigned>(m);
+  const unsigned mhi = __reduce_max_sync(kFull, hi);
+  const unsigned mlo = __reduce_max_sync(kFull, hi == mhi ? lo : 0u);
+  return (static_cast<ull>(mhi) << 32) | mlo;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// Double-buffered message slots: one per warp of the CTA, one per CTA of
+// the cluster, and (cluster launches) one transaction barrier per buffer.
+struct Slots {
+  ull warp_msg[2][32];
+  ull cta_msg[2][kMaxCluster];
+  ull bar[2];
+};
+
+// Before the pick loop: the barriers exist in every CTA of the cluster
+// before any CTA stores into another.
+template <bool CLUSTER>
+__device__ __forceinline__ void init_slots(Slots& s) {
+  if constexpr (CLUSTER) {
+    if (threadIdx.x == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_addr(&s.bar[0])) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_addr(&s.bar[1])) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+  __syncthreads();
+  if constexpr (CLUSTER) cluster_barrier();
+}
+
+// After the pick loop: no CTA leaves while another may still address it.
+template <bool CLUSTER>
+__device__ __forceinline__ void finish_slots() {
+  if constexpr (CLUSTER) cluster_barrier();
+}
+
+// The waiting threads read only the slot that the phase's transaction
+// wrote, so the default (CTA-scope) acquire is enough.
+__device__ __forceinline__ void wait_parity(unsigned bar, unsigned parity) {
+  for (unsigned spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > (1u << 26)) __trap();  // a lost message: fail, do not hang
+  }
+}
+
+// The largest of the first `n` slots, in every lane of the warp.
+__device__ __forceinline__ ull slots_max(const ull* slots, int n) {
+  const int lane = threadIdx.x & 31;
+  return warp_max(lane < n ? slots[lane] : 0ull);
+}
+
+// Every thread of every CTA of the cluster returns the winning message of
+// pick `seq` (buffers seq & 1), given its own best message; `phase` holds
+// the parity each buffer's barrier waits for next.
+//   The warps' winners meet in the CTA's warp slots (one __syncthreads).
+//   With CLUSTER, warp 0 reduces them and its lanes r < C send the CTA's
+//   winner by st.async (an 8-byte DSMEM store that completes transaction
+//   bytes on the receiver's mbarrier) into CTA slot `rank` of CTA r; every
+//   CTA waits on its own barrier for its C messages (no cluster barrier,
+//   no fence). A CTA slot of buffer b is stored into again two picks
+//   later, only after the storing CTA has received this CTA's message of
+//   the pick between, which this CTA sends after the __syncthreads that
+//   every one of its warps reaches after reading buffer b.
+template <int T, bool CLUSTER>
+__device__ __forceinline__ ull exchange(Slots& s, ull m, int seq,
+                                        unsigned& phase, int C, int rank) {
+  constexpr int kWarps = T / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int buf = seq & 1;
+  m = warp_max(m);
+  if (lane == 0) s.warp_msg[buf][warp] = m;
+  __syncthreads();
+  if constexpr (!CLUSTER) {
+    return slots_max(s.warp_msg[buf], kWarps);
+  } else {
+    const unsigned bar = smem_addr(&s.bar[buf]);
+    if (warp == 0) {
+      m = slots_max(s.warp_msg[buf], kWarps);
+      if (lane == 0) {
+        asm volatile(
+            "{\n .reg .b64 st;\n"
+            " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}"
+            :: "r"(bar), "r"(C * static_cast<int>(sizeof(ull)))
+            : "memory");
+      }
+      if (lane < C) {
+        unsigned slot, remote_bar;
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                     : "=r"(slot)
+                     : "r"(smem_addr(&s.cta_msg[buf][rank])), "r"(lane));
+        asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                     : "=r"(remote_bar) : "r"(bar), "r"(lane));
+        asm volatile(
+            "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 "
+            "[%0], %1, [%2];" :: "r"(slot), "l"(m), "r"(remote_bar)
+            : "memory");
+      }
+    }
+    wait_parity(bar, (phase >> buf) & 1u);
+    phase ^= 1u << buf;
+    return slots_max(s.cta_msg[buf], C);
+  }
+}
+
+template <int T, int ITEMS, bool WEIGHTED, bool CLUSTER>
+__global__ void __launch_bounds__(T)
+fps_cluster_kernel(const float* __restrict__ xyz,
+                   const uint8_t* __restrict__ valid,
+                   const float* __restrict__ w, int* __restrict__ out, int N,
+                   int npoint, int C) {
+  __shared__ Slots slots;
+  extern __shared__ float planes[];  // x[N], y[N], z[N] of the sample
   float* sx = planes;
   float* sy = planes + N;
   float* sz = planes + 2 * N;
-  const int b = blockIdx.x;
+  const int b = blockIdx.x / C;
+  const int rank = blockIdx.x % C;  // the CTA's rank in its 1-D cluster
   const int tid = threadIdx.x;
+  const int ppc = (N + C - 1) / C;
+  const int base = rank * ppc;
   const float* xyz_b = xyz + static_cast<size_t>(b) * N * 3;
   const uint8_t* valid_b = valid + static_cast<size_t>(b) * N;
   int* out_b = out + static_cast<size_t>(b) * npoint;
 
-  for (int i = tid; i < 3 * N; i += kThreads) {
+  for (int i = tid; i < 3 * N; i += T) {
     planes[(i % 3) * N + i / 3] = __ldg(xyz_b + i);
   }
-
-  float md[ITEMS];
+  // md: running minimum of a valid point, -1 for an invalid one, -inf for
+  // a slot past the CTA's points (its key never wins)
+  float px[ITEMS], py[ITEMS], pz[ITEMS], md[ITEMS];
   float wk[WEIGHTED ? ITEMS : 1];
   uint32_t vbits = 0u;
   float seed_key = -INFINITY;
-  int seed = WEIGHTED ? INT_MAX : 0;
+  int seed = 0;
 #pragma unroll
   for (int k = 0; k < ITEMS; ++k) {
-    const int i = tid + k * kThreads;
-    md[k] = -1.0f;
+    const int off = tid + k * T;
+    const int i = base + off;
+    px[k] = py[k] = pz[k] = 0.f;
+    md[k] = -INFINITY;
     if constexpr (WEIGHTED) wk[k] = 1.0f;
-    if (i < N) {
+    if (off < ppc && i < N) {
+      px[k] = __ldg(xyz_b + 3 * i);
+      py[k] = __ldg(xyz_b + 3 * i + 1);
+      pz[k] = __ldg(xyz_b + 3 * i + 2);
       const bool v = valid_b[i] != 0;
       vbits |= static_cast<uint32_t>(v) << k;
       md[k] = v ? kInit : -1.0f;
@@ -85,55 +262,84 @@ fps_kernel(const float* __restrict__ xyz, const uint8_t* __restrict__ valid,
         const float wi = __ldg(w + static_cast<size_t>(b) * N + i);
         wk[k] = fmaxf(wi, 1e-12f);
         const float sk = v ? wi : -kInit;
-        if (sk > seed_key) {
+        if (sk > seed_key) {  // items ascend in index: the first maximum
           seed_key = sk;
           seed = i;
         }
       }
     }
   }
-  __syncthreads();  // planes are loaded
-  if constexpr (WEIGHTED) block_argmax(seed_key, seed, red_key, red_idx, 0);
+  unsigned phase = 0u;
+  init_slots<CLUSTER>(slots);  // also orders the planes' stores
 
-  int last = seed;
-  if (tid == 0) out_b[0] = last;
+  int last = 0;
+  if constexpr (WEIGHTED) {
+    const unsigned ok = seed_key == -INFINITY ? 0u : ordered(seed_key);
+    last = message_index(exchange<T, CLUSTER>(slots, message(ok, seed), 0,
+                                              phase, C, rank));
+  }
+  if (rank == 0 && tid == 0) out_b[0] = last;
   for (int j = 1; j < npoint; ++j) {
     const float lx = sx[last];
     const float ly = sy[last];
     const float lz = sz[last];
-    float best = -INFINITY;
-    int bi = INT_MAX;
+    // a thread's items ascend in index, so a strict '>' keeps the first
+    float bk = -INFINITY;
+    int bi = 0;
 #pragma unroll
     for (int k = 0; k < ITEMS; ++k) {
-      const int i = tid + k * kThreads;
-      if (i < N) {
-        const float dx = __fsub_rn(sx[i], lx);
-        const float dy = __fsub_rn(sy[i], ly);
-        const float dz = __fsub_rn(sz[i], lz);
-        const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                  __fmul_rn(dz, dz));
-        const float m = ((vbits >> k) & 1u) ? fminf(md[k], d) : -1.0f;
-        md[k] = m;
-        float key = m;
-        if constexpr (WEIGHTED) key = m >= 0.0f ? __fmul_rn(m, wk[k]) : m;
-        if (key > best) {
-          best = key;
-          bi = i;
-        }
+      const float dx = __fsub_rn(px[k], lx);
+      const float dy = __fsub_rn(py[k], ly);
+      const float dz = __fsub_rn(pz[k], lz);
+      const float d = __fadd_rn(
+          __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      const float m = ((vbits >> k) & 1u) ? fminf(md[k], d) : md[k];
+      md[k] = m;
+      float key = m;
+      if constexpr (WEIGHTED) key = m >= 0.0f ? __fmul_rn(m, wk[k]) : m;
+      if (key > bk) {
+        bk = key;
+        bi = k;
       }
     }
-    block_argmax(best, bi, red_key, red_idx, j & 1);
-    last = bi;
-    if (tid == 0) out_b[j] = last;
+    const unsigned ok = bk == -INFINITY ? 0u : ordered(bk);
+    last = message_index(exchange<T, CLUSTER>(
+        slots, message(ok, base + tid + bi * T), j, phase, C, rank));
+    if (rank == 0 && tid == 0) out_b[j] = last;
   }
+  finish_slots<CLUSTER>();
 }
 
 // The latency of the pick loop without its distance work: `rounds`
-// block-wide argmax rounds, each fed by a shared-memory read that
-// depends on the previous winner (as the pick loop's coordinate read
-// is). Used only to measure the kernel's latency floor.
-__global__ void __launch_bounds__(kThreads, 1)
+// rounds of the warp reduce and the exchange, each fed by a shared-memory
+// read that depends on the previous winner (as the pick loop's distances
+// depend on the previous winner's coordinates). Used only to measure the
+// kernel's latency floor.
+template <int T, bool CLUSTER>
+__global__ void __launch_bounds__(T)
+cluster_rounds_kernel(int rounds, int C, int* __restrict__ out) {
+  __shared__ Slots slots;
+  __shared__ float table[T];
+  const int rank = blockIdx.x % C;
+  table[threadIdx.x] = static_cast<float>((threadIdx.x * 7919u) & (T - 1));
+  unsigned phase = 0u;
+  init_slots<CLUSTER>(slots);
+  int last = 0;
+  for (int j = 0; j < rounds; ++j) {
+    const float key = table[(threadIdx.x + last) & (T - 1)];
+    const ull m = message(ordered(key), (rank * T + threadIdx.x) & kIdxMask);
+    last = message_index(exchange<T, CLUSTER>(slots, m, j, phase, C, rank));
+  }
+  finish_slots<CLUSTER>();
+  if (threadIdx.x == 0) out[blockIdx.x] = last;
+}
+
+// The first version's latency floor: `rounds` block-wide argmax rounds of
+// block_argmax.cuh in one 1024-thread block per sample.
+__global__ void __launch_bounds__(de6d::kThreads, 1)
 argmax_rounds_kernel(int rounds, int* __restrict__ out) {
+  using de6d::kThreads;
+  using de6d::kWarps;
   __shared__ float table[kThreads];
   __shared__ float red_key[2][kWarps];
   __shared__ int red_idx[2][kWarps];
@@ -143,64 +349,184 @@ argmax_rounds_kernel(int rounds, int* __restrict__ out) {
   for (int j = 0; j < rounds; ++j) {
     float key = table[(threadIdx.x + last) & (kThreads - 1)];
     int idx = threadIdx.x;
-    block_argmax(key, idx, red_key, red_idx, j & 1);
+    de6d::block_argmax(key, idx, red_key, red_idx, j & 1);
     last = idx;
   }
   if (threadIdx.x == 0) out[blockIdx.x] = last;
 }
 
-template <int ITEMS, bool WEIGHTED>
-cudaError_t launch(const float* xyz, const uint8_t* valid, const float* w,
-                   int* out, int B, int N, int npoint, cudaStream_t stream) {
-  const int dyn = static_cast<int>(sizeof(float)) * 3 * N;
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel<ITEMS, WEIGHTED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dyn);
-  if (err != cudaSuccess) return err;
-  fps_kernel<ITEMS, WEIGHTED><<<B, kThreads, dyn, stream>>>(xyz, valid, w, out,
-                                                            N, npoint);
-  return cudaGetLastError();
+template <typename Kernel>
+cudaLaunchConfig_t launch_config(Kernel kernel, int B, int C, int T,
+                                 int dyn, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr,
+                                 cudaError_t* err) {
+  *err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (*err == cudaSuccess && C > 8) {
+    *err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * C, 1, 1);
+  cfg.blockDim = dim3(T, 1, 1);
+  cfg.dynamicSmemBytes = dyn;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;  // one CTA per sample: a plain launch
+  return cfg;
 }
 
-template <bool WEIGHTED>
-cudaError_t dispatch(const float* xyz, const uint8_t* valid, const float* w,
-                     int* out, int B, int N, int npoint, cudaStream_t stream) {
-  if (N <= kThreads)
-    return launch<1, WEIGHTED>(xyz, valid, w, out, B, N, npoint, stream);
-  if (N <= 2 * kThreads)
-    return launch<2, WEIGHTED>(xyz, valid, w, out, B, N, npoint, stream);
-  if (N <= 4 * kThreads)
-    return launch<4, WEIGHTED>(xyz, valid, w, out, B, N, npoint, stream);
-  if (N <= 8 * kThreads)
-    return launch<8, WEIGHTED>(xyz, valid, w, out, B, N, npoint, stream);
-  return launch<kMaxItems, WEIGHTED>(xyz, valid, w, out, B, N, npoint, stream);
+// What one variant runs with: the kernel, its threads per block.
+struct Variant {
+  void (*kernel)(const float*, const uint8_t*, const float*, int*, int, int,
+                 int);
+  int threads;
+};
+
+template <bool WEIGHTED, bool CLUSTER>
+Variant variant_of(int ppc) {
+  if (ppc <= 256) return {fps_cluster_kernel<256, 1, WEIGHTED, CLUSTER>, 256};
+  if (ppc <= 512) return {fps_cluster_kernel<256, 2, WEIGHTED, CLUSTER>, 256};
+  if (ppc <= 1024) return {fps_cluster_kernel<256, 4, WEIGHTED, CLUSTER>, 256};
+  if (ppc <= 2048) return {fps_cluster_kernel<512, 4, WEIGHTED, CLUSTER>, 512};
+  if (ppc <= 4096) return {fps_cluster_kernel<1024, 4, WEIGHTED, CLUSTER>, 1024};
+  return {fps_cluster_kernel<1024, 8, WEIGHTED, CLUSTER>, 1024};
+}
+
+Variant variant(int ppc, bool weighted, int C) {
+  if (C > 1) {
+    return weighted ? variant_of<true, true>(ppc) : variant_of<false, true>(ppc);
+  }
+  return weighted ? variant_of<true, false>(ppc) : variant_of<false, false>(ppc);
+}
+
+int ppc_of(int N, int C) { return (N + C - 1) / C; }
+
+int planes_bytes(int N) { return static_cast<int>(sizeof(float)) * 3 * N; }
+
+int least_cluster(int N) { return N <= kMaxPpc ? 1 : 2; }
+
+bool valid_cluster(int N, int C) {
+  return (C == 1 || C == 2 || C == 4 || C == 8 || C == 16) &&
+         ppc_of(N, C) <= kMaxPpc;
+}
+
+// The dispatch rule (see the head of this file).
+int choose_cluster(int B, int N, bool weighted) {
+  if (N <= kSingleCtaMaxN) return 1;
+  int sms = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    cudaGetLastError();
+    return least_cluster(N);
+  }
+  for (int C = kMaxCluster; C > 1; C /= 2) {
+    if (!valid_cluster(N, C) || ppc_of(N, C) < kMinPointsPerCta ||
+        static_cast<long long>(B) * C > sms) {
+      continue;
+    }
+    const Variant v = variant(ppc_of(N, C), weighted, C);
+    cudaLaunchAttribute attr[1];
+    cudaError_t err;
+    cudaLaunchConfig_t cfg = launch_config(v.kernel, B, C, v.threads,
+                                           planes_bytes(N), nullptr, attr,
+                                           &err);
+    int clusters = 0;
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveClusters(&clusters, v.kernel, &cfg);
+    }
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      continue;
+    }
+    if (clusters >= B) return C;
+  }
+  return least_cluster(N);
 }
 
 }  // namespace
 
-// xyz (B, N, 3) fp32, valid (B, N) uint8, w (B, N) fp32 or null (d-fps),
-// out (B, npoint) int32. 1 <= N <= 16384, npoint >= 1 (checked by the
-// wrapper, ops/kernels/fps.py). Returns the CUDA error code.
-extern "C" int de6d_fps(const void* xyz, const void* valid, const void* w,
-                        void* out, int B, int N, int npoint, void* stream) {
-  if (N < 1 || N > kMaxItems * kThreads || npoint < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* x = static_cast<const float*>(xyz);
-  const auto* v = static_cast<const uint8_t*>(valid);
-  auto* o = static_cast<int*>(out);
-  const cudaError_t err =
-      w == nullptr
-          ? dispatch<false>(x, v, nullptr, o, B, N, npoint, s)
-          : dispatch<true>(x, v, static_cast<const float*>(w), o, B, N, npoint, s);
-  return static_cast<int>(err);
+// The cluster size de6d_fps takes for (B, N) when it is given 0.
+extern "C" int de6d_fps_dispatch(int B, int N, int weighted) {
+  if (N < 1 || N > kMaxN || B < 1) return -1;
+  return choose_cluster(B, N, weighted != 0);
 }
 
-// B blocks of `rounds` empty argmax rounds (latency floor of de6d_fps).
+// xyz (B, N, 3) fp32, valid (B, N) uint8, w (B, N) fp32 or null (d-fps),
+// out (B, npoint) int32. 1 <= N <= 16384, npoint >= 1 (checked by the
+// wrapper, ops/kernels/fps.py). `cluster` is the number of CTAs per
+// sample (1, 2, 4, 8 or 16, with ceil(N / cluster) <= 8192), or 0 for the
+// dispatch rule. Returns the CUDA error code.
+extern "C" int de6d_fps(const void* xyz, const void* valid, const void* w,
+                        void* out, int B, int N, int npoint, int cluster,
+                        void* stream) {
+  if (N < 1 || N > kMaxN || npoint < 1 || B < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool weighted = w != nullptr;
+  const int C = cluster == 0 ? choose_cluster(B, N, weighted) : cluster;
+  if (!valid_cluster(N, C)) return static_cast<int>(cudaErrorInvalidValue);
+  const Variant v = variant(ppc_of(N, C), weighted, C);
+  cudaLaunchAttribute attr[1];
+  cudaError_t err;
+  cudaLaunchConfig_t cfg = launch_config(
+      v.kernel, B, C, v.threads, planes_bytes(N),
+      static_cast<cudaStream_t>(stream), attr, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&cfg, v.kernel, static_cast<const float*>(xyz),
+                           static_cast<const uint8_t*>(valid),
+                           static_cast<const float*>(w),
+                           static_cast<int*>(out), N, npoint, C);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B clusters of C CTAs of `threads` (256 or 1024) threads, `rounds` empty
+// pick rounds each: the latency floor of the de6d_fps variant with that
+// cluster size and block size.
+extern "C" int de6d_fps_cluster_rounds(int rounds, int B, int C, int threads,
+                                       void* out, void* stream) {
+  if (B < 1 || !(C == 1 || C == 2 || C == 4 || C == 8 || C == 16) ||
+      (threads != 256 && threads != 512 && threads != 1024)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  void (*kernel)(int, int, int*) =
+      C > 1 ? (threads == 256   ? cluster_rounds_kernel<256, true>
+               : threads == 512 ? cluster_rounds_kernel<512, true>
+                                : cluster_rounds_kernel<1024, true>)
+            : (threads == 256   ? cluster_rounds_kernel<256, false>
+               : threads == 512 ? cluster_rounds_kernel<512, false>
+                                : cluster_rounds_kernel<1024, false>);
+  cudaLaunchAttribute attr[1];
+  cudaError_t err;
+  cudaLaunchConfig_t cfg = launch_config(
+      kernel, B, C, threads, 0, static_cast<cudaStream_t>(stream), attr,
+      &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&cfg, kernel, rounds, C, static_cast<int*>(out));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The threads per block of the de6d_fps variant for (N, C).
+extern "C" int de6d_fps_threads(int N, int C) {
+  if (N < 1 || N > kMaxN || !valid_cluster(N, C)) return -1;
+  const int ppc = ppc_of(N, C);
+  return ppc <= 1024 ? 256 : ppc <= 2048 ? 512 : 1024;
+}
+
+// B blocks of `rounds` block-wide argmax rounds of block_argmax.cuh (the
+// latency floor of the first, single-block FPS kernel).
 extern "C" int de6d_fps_argmax_rounds(int rounds, int B, void* out,
                                       void* stream) {
-  argmax_rounds_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  argmax_rounds_kernel<<<B, de6d::kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       rounds, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

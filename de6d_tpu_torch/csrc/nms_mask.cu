@@ -10,21 +10,54 @@
 // for every pair i < j < counts[b], and every other bit is 0 (rows and
 // columns past the count, the diagonal and everything below it).
 //
-// What bounds it: fp32 operations, 547 per IoU (csrc/iou_bev.cuh), for
-// count * (count - 1) / 2 IoUs per sample; the mask's bytes (P * W * 8 per
-// sample, each written once) are two orders of magnitude below that.
-// Design:
-//   * the dense fp32 array becomes the bit mask of the reference
-//     implementation's NMS: 32x fewer bytes than one float per pair;
-//   * one block of 64 threads per (64-row, 64-column) tile and sample:
-//     the column tile's corners sit in shared memory (broadcast reads),
-//     thread t owns row row0 + t in registers and builds that row's word;
-//   * tiles below the diagonal or past the live count write zero words
-//     and compute nothing (the TPU kernel's tile skip); inside a needed
-//     tile only pairs with row < column < count are evaluated, so the
-//     whole output is defined.
-// The IoU is the device function of nms_fused.cu (no FMA), so every bit
-// equals the plain PyTorch version's.
+// What bounds it: fp32 operations, 547 per IoU (csrc/iou_bev.cuh), for the
+// pairs whose bit is not known to be 0 beforehand, plus a cheap pre-test
+// (11 operations, ops/kernels/nms_mask.py:PRETEST_FLOPS) for each of the
+// count * (count - 1) / 2 live pairs. The
+// mask's bytes (P * W * 8 per sample, written once) are far below that.
+// The first version ran the full IoU on every live pair, a thread walking
+// 64 columns serially in 64-thread blocks over a W x W grid; at 8 x 9000
+// nearly all of its 324 M IoUs were between boxes metres apart. Design:
+//   * the mask is zeroed by one cudaMemsetAsync; only blocks whose tile
+//     holds a live pair on or above the diagonal do any work;
+//   * a block of 256 threads takes 64 rows x 256 columns (4 words per
+//     row). It stages both sides' corners in shared memory and every box's
+//     BEV bounds, then pre-tests all its live pairs (thread t owns column
+//     t, rows are broadcast reads), ballots the survivors into a compact
+//     list per warp in shared memory, and then all 256 threads take the
+//     surviving pairs one each: iou_pair, and atomicOr of the bit into a
+//     shared 64 x 4-word tile, written out at the end. Lanes stay busy
+//     however the survivors are spread over the tile;
+//   * the IoU is iou_bev.cuh:iou_pair, unchanged (no FMA), so every bit
+//     equals the plain PyTorch version's.
+//
+// The pre-test skips a pair only when its bit is provably 0. Boxes r, c
+// (corners as packed, which are the inputs of both the IoU and the test)
+// with axis-aligned bounds separated along x or y by gap > delta =
+// kGapAbs + kGapRel * S, S the largest |coordinate| of the two boxes:
+//   * iou_bev.cuh:green_pass clips each edge of one box to the other box
+//     with four Liang-Barsky constraints f(t) = f0 + t fd >= 0, f = (the
+//     other box's edge) x (point - its start) - eps_b. Exactly, every point
+//     of an edge lies at least gap from the other box, so it violates one
+//     of the two constraints at that box's extreme corner (a right angle)
+//     by at least gap / sqrt(2) (distance), and the constraints' allowed
+//     t-intervals are disjoint. Computed, f0 and fd carry a few ulps of
+//     |edge| * |p0 - a0| <= |edge| * 2.9 S, which moves a crossing by at
+//     most ~4e-7 * 2.9 S in distance; eps_b = 1e-5 only tightens (moves a
+//     line inward by 1e-5 / |edge|); the |fd| < 1e-8 branch treats a
+//     near-parallel line as satisfied at most 2e-8 / |edge| <= 2e-6 m
+//     beyond it. delta = 1e-3 m + 1e-4 S is far above all three, so every
+//     clip interval is empty: t1 <= t0, and after the clamps q1 == q0;
+//   * an empty span contributes 0.5 * (q0x * q0y - q0y * q0x) = 0 exactly
+//     (products commute), so the overlap is exactly 0 and, with both areas
+//     positive, the IoU is 0, which is not > thresh for thresh >= 0.
+// A pair takes the full IoU whatever its bounds when either box has an
+// edge shorter than kMinEdge or a packed area below kMinEdge^2 (degenerate
+// or mirrored boxes: exactly where the IoU misbehaves), when a corner is
+// not finite (every comparison with NaN fails), and for every pair when
+// thresh < kMinThresh. ops/kernels/nms_mask.py:skippable_plain is the
+// rule's plain twin, held against the plain IoU and the JAX package's on
+// the CPU.
 //
 // nms_resolve_kernel is not a port of a TPU kernel (the JAX package
 // resolves the recurrence with XLA sweeps); it is the reference
@@ -44,55 +77,134 @@ namespace {
 using de6d::iou_pair;
 using de6d::Quad;
 
-constexpr int kTile = 64;
+constexpr int kTile = 64;      // rows per block, bits per word
+constexpr int kColWords = 4;   // words (64-column tiles) per block
+constexpr int kCols = kTile * kColWords;
+constexpr int kMaskThreads = kCols;  // thread t owns column t
 constexpr int kRows = 9;
 constexpr int kResolveThreads = 256;
+// the pre-test (see the head of this file); ops/kernels/nms_mask.py holds
+// the same constants
+constexpr float kMinEdge = 1e-2f;
+constexpr float kMinThresh = 1e-3f;
+constexpr float kGapAbs = 1e-3f;
+constexpr float kGapRel = 1e-4f;
 
-__global__ void __launch_bounds__(kTile)
+struct Bounds {
+  float x0, x1, y0, y1, s;
+  bool ok;
+};
+
+// BEV bounds of packed box k of a (9, n) shared-memory block.
+template <int N>
+__device__ __forceinline__ Bounds box_bounds(const float (*v)[N], int k) {
+  Bounds b;
+  b.x0 = b.x1 = v[0][k];
+  b.y0 = b.y1 = v[4][k];
+  b.s = fmaxf(fabsf(v[0][k]), fabsf(v[4][k]));
+  bool ok = v[8][k] >= kMinEdge * kMinEdge;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float x = v[e][k], y = v[4 + e][k];
+    b.x0 = fminf(b.x0, x);
+    b.x1 = fmaxf(b.x1, x);
+    b.y0 = fminf(b.y0, y);
+    b.y1 = fmaxf(b.y1, y);
+    b.s = fmaxf(b.s, fmaxf(fabsf(x), fabsf(y)));
+    const float ex = v[(e + 1) % 4][k] - x;
+    const float ey = v[4 + (e + 1) % 4][k] - y;
+    ok = ok && (ex * ex + ey * ey >= kMinEdge * kMinEdge);
+  }
+  b.ok = ok;
+  return b;
+}
+
+__device__ __forceinline__ bool skippable(const Bounds& r, const Bounds& c) {
+  const float gap = fmaxf(fmaxf(c.x0 - r.x1, r.x0 - c.x1),
+                          fmaxf(c.y0 - r.y1, r.y0 - c.y1));
+  const float delta = kGapAbs + kGapRel * fmaxf(r.s, c.s);
+  return r.ok && c.ok && gap > delta;
+}
+
+__global__ void __launch_bounds__(kMaskThreads, 3)
 nms_mask_kernel(const float* __restrict__ packed,
                 const int* __restrict__ counts,
                 unsigned long long* __restrict__ mask, int P, int W,
                 float thresh) {
-  __shared__ float cols[kRows][kTile];
-  const int ct = blockIdx.x;
-  const int rt = blockIdx.y;
+  __shared__ float rows[kRows][kTile];
+  __shared__ float cols[kRows][kCols];
+  __shared__ Bounds row_b[kTile];
+  __shared__ unsigned long long words[kTile][kColWords];
+  // survivors, (row << 8) | column: warp w's in [w * 64 * 32, ...)
+  __shared__ uint16_t pairs[kTile * kCols];
+  __shared__ int n_warp[kMaskThreads / 32];
+  const int rt = blockIdx.x;
+  const int g = blockIdx.y;
   const int b = blockIdx.z;
   const int t = threadIdx.x;
   const int count = max(0, min(counts[b], P));
   const int row0 = rt * kTile;
-  const int col0 = ct * kTile;
-  const int row = row0 + t;
-  unsigned long long word = 0ull;
+  const int col0 = g * kCols;
   // block-uniform: the tile holds some pair with row < column < count
-  if (rt <= ct && col0 < count && row0 < count) {
-    const float* pk = packed + static_cast<size_t>(b) * kRows * P;
-    const int col = col0 + t;
+  if (row0 >= count || col0 >= count || row0 >= col0 + kCols) return;
+  const float* pk = packed + static_cast<size_t>(b) * kRows * P;
+  const int col = col0 + t;
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      cols[i][t] = col < P ? pk[i * P + col] : 0.f;
+  for (int i = 0; i < kRows; ++i) {
+    cols[i][t] = col < P ? pk[i * P + col] : 0.f;
+    if (t < kTile) rows[i][t] = row0 + t < P ? pk[i * P + row0 + t] : 0.f;
+  }
+  words[t / kColWords][t % kColWords] = 0ull;
+  __syncthreads();
+  if (t < kTile) row_b[t] = box_bounds<kTile>(rows, t);
+  const Bounds mine = box_bounds<kCols>(cols, t);
+  const bool pretest = thresh >= kMinThresh;
+  __syncthreads();
+
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int r_end = min(kTile, count - row0);
+  uint16_t* mine_pairs = pairs + warp * kTile * 32;
+  int n_mine = 0;  // warp-uniform
+  for (int r = 0; r < r_end; ++r) {
+    const bool live = row0 + r < col && col < count;
+    const bool survive = live && !(pretest && skippable(row_b[r], mine));
+    const unsigned ballot = __ballot_sync(0xffffffffu, survive);
+    if (survive) {
+      mine_pairs[n_mine + __popc(ballot & ((1u << lane) - 1u))] =
+          static_cast<uint16_t>((r << 8) | t);
     }
-    __syncthreads();
-    if (row < count) {
-      Quad mine;
+    n_mine += __popc(ballot);
+  }
+  if (lane == 0) n_warp[warp] = n_mine;
+  __syncthreads();
+  int n = 0;
+  for (int k = 0; k < kMaskThreads / 32; ++k) n += n_warp[k];
+  for (int e = t; e < n; e += kMaskThreads) {
+    int k = 0, off = e;  // the e-th survivor: warp k's off-th
+    while (off >= n_warp[k]) off -= n_warp[k++];
+    const uint16_t pair = pairs[k * kTile * 32 + off];
+    const int r = pair >> 8;
+    const int c = pair & (kCols - 1);
+    Quad q_r, q_c;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        mine.x[i] = pk[i * P + row];
-        mine.y[i] = pk[(4 + i) * P + row];
-      }
-      const float area = pk[8 * P + row];
-      const int j_end = min(kTile, count - col0);
-      for (int j = (rt == ct) ? t + 1 : 0; j < j_end; ++j) {
-        Quad q;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          q.x[i] = cols[i][j];
-          q.y[i] = cols[4 + i][j];
-        }
-        if (iou_pair(mine, area, q, cols[8][j]) > thresh) word |= 1ull << j;
-      }
+    for (int i = 0; i < 4; ++i) {
+      q_r.x[i] = rows[i][r];
+      q_r.y[i] = rows[4 + i][r];
+      q_c.x[i] = cols[i][c];
+      q_c.y[i] = cols[4 + i][c];
+    }
+    if (iou_pair(q_r, rows[8][r], q_c, cols[8][c]) > thresh) {
+      atomicOr(&words[r][c / kTile], 1ull << (c % kTile));
     }
   }
-  if (row < P) mask[(static_cast<size_t>(b) * P + row) * W + ct] = word;
+  __syncthreads();
+  const int r = t / kColWords;
+  const int w = g * kColWords + t % kColWords;
+  if (row0 + r < P && w < W) {
+    mask[(static_cast<size_t>(b) * P + row0 + r) * W + w] =
+        words[r][t % kColWords];
+  }
 }
 
 __global__ void __launch_bounds__(kResolveThreads)
@@ -136,14 +248,19 @@ nms_resolve_kernel(const unsigned long long* __restrict__ mask,
 }  // namespace
 
 // packed (B, 9, P) fp32, counts (B,) int32, mask (B, P, ceil(P / 64)) 64-bit
-// words. B, P >= 1 and ceil(P / 64), B <= 65535 (checked by the wrapper,
-// ops/kernels/nms_mask.py). Returns the CUDA error code.
+// words. B <= 65535, P >= 1 (checked by the wrapper, ops/kernels/
+// nms_mask.py). Returns the CUDA error code.
 extern "C" int de6d_nms_mask(const void* packed, const void* counts,
                              void* mask, int B, int P, float thresh,
                              void* stream) {
   const int W = (P + kTile - 1) / kTile;
-  const dim3 grid(W, W, B);
-  nms_mask_kernel<<<grid, kTile, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int groups = (P + kCols - 1) / kCols;
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(
+      mask, 0, sizeof(unsigned long long) * static_cast<size_t>(B) * P * W, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(W, groups, B);
+  nms_mask_kernel<<<grid, kMaskThreads, 0, s>>>(
       static_cast<const float*>(packed), static_cast<const int*>(counts),
       static_cast<unsigned long long*>(mask), P, W, thresh);
   return static_cast<int>(cudaGetLastError());

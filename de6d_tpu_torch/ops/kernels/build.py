@@ -25,6 +25,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
@@ -126,8 +128,14 @@ def lib() -> ctypes.CDLL:
             handle.de6d_nms_mask.restype = i
             handle.de6d_nms_resolve.argtypes = [p, p, p, p, i, i, i, p]
             handle.de6d_nms_resolve.restype = i
-            handle.de6d_fps.argtypes = [p, p, p, p, i, i, i, p]
+            handle.de6d_fps.argtypes = [p, p, p, p, i, i, i, i, p]
             handle.de6d_fps.restype = i
+            handle.de6d_fps_dispatch.argtypes = [i, i, i]
+            handle.de6d_fps_dispatch.restype = i
+            handle.de6d_fps_threads.argtypes = [i, i]
+            handle.de6d_fps_threads.restype = i
+            handle.de6d_fps_cluster_rounds.argtypes = [i, i, i, i, p, p]
+            handle.de6d_fps_cluster_rounds.restype = i
             handle.de6d_fps_argmax_rounds.argtypes = [i, i, p, p]
             handle.de6d_fps_argmax_rounds.restype = i
             handle.de6d_matrix_fps.argtypes = [p, p, p, i, i, i, p]
@@ -146,3 +154,14 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would record a kernel launch: the kernels write
+    through ctypes into ``torch.empty`` buffers, so their outputs have no
+    ``grad_fn`` and every gradient below them would be lost silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward yet (it comes with the "
+            "training slice); call it under torch.no_grad() or pass inputs "
+            "that do not require grad")

@@ -1,7 +1,8 @@
 """BEV canvas scatter: key-sorted pillar rows → dense (B, ny, nx, C).
 
 Replaces the TPU kernel ``de6d_tpu/ops/pallas/canvas.py:scatter_canvas``
-(forward; the backward comes with the training slice). The CUDA kernel
+(forward; the backward comes with the training slice, and until then
+the CUDA path raises on a feature tensor that requires grad). The CUDA kernel
 is ``csrc/canvas.cu``: one block per tile of consecutive cells; since
 ``lin`` is ascending, the tile's pillars are one contiguous range found
 by binary search, and every cell of the tile is written exactly once
@@ -55,6 +56,7 @@ def scatter_canvas(feat, lin, ny: int, nx: int):
     if row_bytes % 16:
         raise ValueError("scatter_canvas: C * itemsize must be a multiple "
                          "of 16 bytes")
+    build.refuse_grad("scatter_canvas", feat)
     feat = feat.contiguous()
     lin = lin.contiguous()
     if feat.data_ptr() % 16:

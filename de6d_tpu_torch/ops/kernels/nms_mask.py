@@ -6,9 +6,14 @@ nms_suppression_mask``. The CUDA kernels are ``csrc/nms_mask.cu``. The
 mask is a bit mask: ``(B, P, ceil(P / 64))`` int64 words, bit ``j % 64``
 of word ``(i, j // 64)`` set where ``IoU_bev(i, j) > thresh`` for
 ``i < j < count[b]``, every other bit 0 (the TPU kernel writes an fp32
-(P, P) array and leaves entries below the diagonal unspecified). It is
-bound by fp32 operations: ``FLOPS_PER_IOU`` for each of the
-``count * (count - 1) / 2`` pairs of a sample.
+(P, P) array and leaves entries below the diagonal unspecified).
+
+The kernel first pre-tests each live pair on the boxes' BEV bounds and
+runs the IoU only on the pairs whose bit is not provably 0
+(:func:`skippable_plain` is the rule's plain twin; the argument is in
+``csrc/nms_mask.cu``). It is bound by fp32 operations: ``PRETEST_FLOPS``
+for each of the ``count * (count - 1) / 2`` live pairs of a sample and
+``FLOPS_PER_IOU`` for each surviving pair (:func:`survivors_plain`).
 
 The resolve (``nms_resolve``) is plain XLA in the JAX package (fixpoint
 sweeps); here it is the sequential greedy walk over the bit mask, which
@@ -25,6 +30,17 @@ from . import build
 from .nms_fused import FLOPS_PER_IOU  # noqa: F401  (same IoU, same count)
 
 WORD = 64
+# the pre-test of csrc/nms_mask.cu: edges >= MIN_EDGE and area >=
+# MIN_EDGE**2 on both boxes, thresh >= MIN_THRESH, and bounds separated by
+# more than GAP_ABS + GAP_REL * (largest |coordinate| of the two boxes)
+MIN_EDGE = 1e-2
+MIN_THRESH = 1e-3
+GAP_ABS = 1e-3
+GAP_REL = 1e-4
+# fp32 operations of the pre-test per pair, counted from its source: 4
+# differences and 3 maxima for the gap, the larger S, a product and a sum
+# for delta, the compare
+PRETEST_FLOPS = 11
 # elements of one (B, rows, P) IoU tile of the plain version
 PLAIN_TILE_ELEMS = 1 << 23
 _MAX_GRID = 65535
@@ -77,6 +93,66 @@ def nms_suppression_mask_plain(packed, counts, thresh: float):
         flags = torch.nn.functional.pad(over & region, (r0, 0))
         words.append(pack_bits(flags))
     return torch.cat(words, dim=1)
+
+
+def _bounds(packed):
+    """(B, 9, P) packed corners → per box x0, x1, y0, y1, S (largest
+    |coordinate|) and ``ok`` (edges and area not degenerate), each (B, P),
+    in the kernel's fp32 operations."""
+    x = packed[:, 0:4].float()
+    y = packed[:, 4:8].float()
+    ex = x.roll(-1, dims=1) - x
+    ey = y.roll(-1, dims=1) - y
+    lim = torch.tensor(MIN_EDGE, dtype=torch.float32) ** 2
+    ok = (packed[:, 8] >= lim) & (ex * ex + ey * ey >= lim).all(dim=1)
+    s = torch.maximum(x.abs().amax(dim=1), y.abs().amax(dim=1))
+    return x.amin(dim=1), x.amax(dim=1), y.amin(dim=1), y.amax(dim=1), s, ok
+
+
+def _skippable(rows, cols):
+    """Pair grid of :func:`_bounds` tuples (rows on dim 1, columns on
+    dim 2) → bool where the pre-test proves the bit 0."""
+    rx0, rx1, ry0, ry1, rs, rok = (v[:, :, None] for v in rows)
+    cx0, cx1, cy0, cy1, cs, cok = (v[:, None, :] for v in cols)
+    gap = torch.maximum(torch.maximum(cx0 - rx1, rx0 - cx1),
+                        torch.maximum(cy0 - ry1, ry0 - cy1))
+    delta = GAP_ABS + GAP_REL * torch.maximum(rs, cs)
+    return rok & cok & (gap > delta)
+
+
+def skippable_plain(packed, thresh: float):
+    """Plain twin of the kernel's pre-test: (B, 9, P) packed corners →
+    (B, P, P) bool, True where the pair's IoU is provably not above
+    ``thresh`` (so the kernel skips its IoU). All False when ``thresh <
+    MIN_THRESH``."""
+    b, _, p = packed.shape
+    if not thresh >= MIN_THRESH:
+        return torch.zeros(b, p, p, dtype=torch.bool, device=packed.device)
+    bounds = _bounds(packed)
+    return _skippable(bounds, bounds)
+
+
+def survivors_plain(packed, counts, thresh: float):
+    """(B,) int64: the live pairs ``i < j < count`` the kernel's pre-test
+    leaves for the full IoU (all live pairs when ``thresh < MIN_THRESH``),
+    counted in row chunks."""
+    b, _, p = packed.shape
+    dev = packed.device
+    counts = torch.clamp(counts.to(dev).long(), 0, p)
+    idx = torch.arange(p, device=dev)
+    bounds = _bounds(packed)
+    pretest = thresh >= MIN_THRESH
+    chunk = max(1, min(p, PLAIN_TILE_ELEMS // max(1, b * p)))
+    total = torch.zeros(b, dtype=torch.int64, device=dev)
+    for r0 in range(0, p, chunk):
+        i = idx[r0:r0 + chunk, None]
+        live = (i < idx[None])[None] & (idx[None, None] < counts[:, None,
+                                                                 None])
+        if pretest:
+            rows = tuple(v[:, r0:r0 + chunk] for v in bounds)
+            live &= ~_skippable(rows, bounds)
+        total += live.sum(dim=(1, 2))
+    return total
 
 
 def _check_inputs(what, packed, counts):

@@ -8,7 +8,10 @@ tile of 64 output rows and per kernel offset they gather the neighbour
 rows into shared memory (zeros on a miss), stage that offset's weights
 and accumulate in fp32 registers, with fp32 FMAs for fp32 features and
 tensor-core ``mma.sync`` for bf16; the (Q, K, Cin) gathered tensor is
-never formed. Any Cin and K, Cout <= 128.
+never formed. Any Cin and K, Cout <= 128. Forward only: the CUDA path
+raises on features or weights that require grad (the JAX package trains
+through the plain ``subm_conv_table``; the port's backward comes with
+training).
 """
 
 from __future__ import annotations
@@ -74,6 +77,7 @@ def sparse_conv(features, idx, hit, weights, valid):
     if not (v >= 1 and 1 <= cout <= MAX_COUT and k >= 1 and cin >= 1):
         raise ValueError(f"sparse_conv: V={v}, K={k}, Cin={cin}, Cout={cout} "
                          f"(Cout <= {MAX_COUT})")
+    build.refuse_grad("sparse_conv", features, weights)
     out = torch.empty((b, q, cout), dtype=features.dtype, device=dev)
     if b == 0 or q == 0:
         return out

@@ -22,7 +22,9 @@ from de6d_tpu_torch.ops import iou3d, nms, sampling, sparse
 from de6d_tpu_torch.ops.kernels import (
     canvas, fps, lookup, matrix_fps, nms_fused, nms_mask, sparse_conv,
 )
-from torch_fixtures import canvas_inputs, cuda_device, nms_boxes  # noqa: F401
+from torch_fixtures import (  # noqa: F401
+    adversarial_boxes, canvas_inputs, cuda_device, nms_boxes,
+)
 
 
 @pytest.mark.cuda
@@ -338,3 +340,103 @@ def test_sparse_wrappers_reject_bad_input(cuda_device):  # noqa: F811
         sparse_conv.sparse_conv(f.half(), idx, hit, w.half(), valid)
     with pytest.raises(ValueError):  # valid on another device
         sparse_conv.sparse_conv(f, idx, hit, w, valid.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 4096, 16384])
+@pytest.mark.parametrize("weighted", [False, True], ids=["d-fps", "s-fps"])
+def test_fps_every_cluster_size_equals_plain(cuda_device, weighted, n):  # noqa: F811
+    """Every cluster size the kernel takes for N, and the dispatched one:
+    npoint up to N, an all-invalid sample, fewer valid points than picks
+    and an integer lattice (exact ties) with integer weights."""
+    rng = np.random.RandomState(n + 7)
+    xyz = rng.uniform(-40, 70, (4, n, 3)).astype(np.float32)
+    side = int(round(n ** (1 / 3))) + 1
+    lattice = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                       -1).reshape(-1, 3)[:n]
+    xyz[3] = lattice
+    valid = np.ones((4, n), bool)
+    valid[1] = False
+    valid[2, max(1, n // 3):] = False
+    xyz_t = torch.from_numpy(xyz).to(cuda_device)
+    valid_t = torch.from_numpy(valid).to(cuda_device)
+    w = (torch.from_numpy(np.floor(rng.uniform(0, 4, (4, n))).astype(
+        np.float32)).to(cuda_device) if weighted else None)
+    npoint = min(n, 4096)
+    ref = fps.fps_plain(xyz_t, valid_t, npoint, w)
+    assert (ref[1] == 0).all()
+    before = fps.fps.launches
+    assert torch.equal(fps.fps(xyz_t, valid_t, npoint, weights=w), ref)
+    assert fps.fps.launches == before + 1
+    for c in fps.cluster_sizes(n):
+        got = fps.fps_cluster(xyz_t, valid_t, npoint, w, cluster=c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), c
+    assert fps.fps.launches == before + 1  # forced variants do not count
+
+
+@pytest.mark.cuda
+def test_fps_dispatch_takes_a_cluster_at_the_served_shape(cuda_device):  # noqa: F811
+    """Batch 8 x 16384 runs on clusters; 800 RoI point sets of 512 points
+    and N <= 1024 on one CTA per sample; the floor kernels launch."""
+    assert fps.dispatch(8, 16384, False) >= 2
+    assert fps.dispatch(8, 16384, True) >= 2
+    assert fps.dispatch(800, 512, False) == 1
+    assert fps.dispatch(8, 1024, True) == 1
+    assert fps.cluster_sizes(16384) == (2, 4, 8, 16)
+    c = fps.dispatch(8, 16384, False)
+    out = fps.cluster_rounds(16, 8, c, fps.threads(16384, c), cuda_device)
+    single = fps.argmax_rounds(16, 8, cuda_device)
+    torch.cuda.synchronize()
+    assert out.shape == (8 * c,) and single.shape == (8,)
+    with pytest.raises(ValueError):
+        fps.fps_cluster(torch.zeros(1, 9000, 3, device=cuda_device),
+                        torch.ones(1, 9000, dtype=torch.bool,
+                                   device=cuda_device), 4, cluster=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thresh", [-0.1, 0.0, 0.1, 0.85])
+def test_nms_mask_kernel_on_adversarial_boxes(cuda_device, thresh):  # noqa: F811
+    """Touching, 1e-6 m-apart and parallel-edge pairs, 1e-3 m and 1e4 m
+    boxes, identical, zero-size and mirrored boxes: the whole mask equals
+    the plain version's, with and without the pre-test."""
+    rng = np.random.RandomState(13)
+    boxes = adversarial_boxes(rng, far=(0.0, 5e3), n_random=300)
+    boxes = np.stack([boxes, boxes[rng.permutation(len(boxes))]])
+    packed = iou3d.pack_bev(torch.from_numpy(boxes).to(cuda_device)
+                            ).contiguous()
+    p = packed.shape[-1]
+    counts = torch.tensor([p, p - 5], dtype=torch.int32, device=cuda_device)
+    got = nms_mask.nms_suppression_mask(packed, counts, thresh)
+    torch.cuda.synchronize()
+    ref = nms_mask.nms_suppression_mask_plain(packed, counts, thresh)
+    assert torch.equal(got, ref)
+    live = sum(c * (c - 1) // 2 for c in counts.tolist())
+    survivors = int(nms_mask.survivors_plain(packed, counts, thresh).sum())
+    assert survivors == live if thresh < nms_mask.MIN_THRESH else \
+        survivors < live
+
+
+@pytest.mark.cuda
+def test_grad_guard_on_the_card(cuda_device):  # noqa: F811
+    """scatter_canvas and sparse_conv raise on a requires-grad input under
+    enable_grad and run under no_grad."""
+    feats, lins = canvas_inputs(np.random.RandomState(1), 1, 32, 48, (20,))
+    f = torch.from_numpy(feats).to(cuda_device).requires_grad_(True)
+    lin = torch.from_numpy(lins).to(cuda_device)
+    with torch.enable_grad(), pytest.raises(RuntimeError, match="backward"):
+        canvas.scatter_canvas(f, lin, 6, 8)
+    with torch.no_grad():
+        out = canvas.scatter_canvas(f, lin, 6, 8)
+    assert torch.equal(out, canvas.scatter_canvas_plain(f.detach(), lin, 6, 8))
+    args = list(conv_inputs(np.random.RandomState(2), 2, 40, 30, 27, 8, 16,
+                            torch.float32, cuda_device))
+    for i in (0, 3):  # features, weights
+        grad_args = [a.requires_grad_(j == i) if j in (0, 3) else a
+                     for j, a in enumerate(args)]
+        with torch.enable_grad(), pytest.raises(RuntimeError,
+                                                match="backward"):
+            sparse_conv.sparse_conv(*grad_args)
+        with torch.no_grad():
+            sparse_conv.sparse_conv(*grad_args)

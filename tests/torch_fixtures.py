@@ -133,6 +133,33 @@ def canvas_inputs(rng, bsz, v, g, n_valid, c=64):
     return feats, lins
 
 
+def adversarial_boxes(rng, far=(0.0,), n_random=0):
+    """(P, 7) boxes where a bound pre-test of the BEV IoU could go wrong:
+    pairs that touch or lie 1e-6 m ... 0.1 m apart, with parallel edges,
+    around each offset in ``far``; six 1e-3 m and six 1e4 m boxes; two
+    identical boxes, a zero-size and a mirrored (negative-size) box as the
+    last four rows before ``n_random`` random boxes."""
+    rows = []
+    for gap in (0.0, 1e-6, 1e-4, 1e-3, 2e-3, 1e-2, 0.1):
+        for yaw in (0.0, np.pi / 2, 0.3):
+            for off in far:
+                step = 4.0 + gap
+                rows += [[off, off, 0, 4, 1.6, 1.5, yaw],
+                         [off + step * np.cos(yaw), off + step * np.sin(yaw),
+                          0, 4, 1.6, 1.5, yaw],
+                         [off, off + 1.6 + gap, 0, 4, 1.6, 1.5, 0.0]]
+    for size in (1e-3, 1e4):
+        rows += [[rng.uniform(-3, 3) * size, rng.uniform(-3, 3) * size, 0,
+                  size, size, 1, rng.uniform(-3, 3)] for _ in range(6)]
+    same = [1, 2, 0, 3.9, 1.6, 1.5, 0.7]
+    rows += [same, same, [1, 2, 0, 0, 1.6, 1.5, 0],
+             [1.5, 2, 0, -3.9, 1.6, 1.5, 0.7]]
+    rows += [[rng.uniform(-6, 6), rng.uniform(-6, 6), 0, rng.uniform(0.5, 5),
+              rng.uniform(0.5, 3), 1.5, rng.uniform(-3, 3)]
+             for _ in range(n_random)]
+    return np.asarray(rows, np.float32)
+
+
 def nms_boxes(rng, b, p, spread=12.0, cluster=80):
     """Random rotated boxes with a dense cluster at the front, which
     forces suppression chains across 128-column blocks."""
