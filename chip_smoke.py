@@ -69,13 +69,18 @@ Phases, one status line each; any failure exits non-zero:
                     pointrcnn_jax_ref.npz`` (:func:`check_pointrcnn_parity`).
 
 11. kernels / matrix_fps — the f-fps kernel against its plain version,
-                    identical picks: the served 3DSSD model's real
+                    identical picks at the dispatched cluster size and at
+                    every other one: the served 3DSSD model's real
                     xyz-plus-feature matrices (8 x 4096 -> 512, 8 x 512 ->
-                    256), a ragged mask with fewer valid points than picks
-                    and with none, N = 1, 1000, 2047 (exact ties), 5000,
-                    9000; kernel ms, bytes bound, latency floor, plain ms;
-                    the SA2 matrix against float64; FPS and NMS at 3DSSD's
-                    shapes; what the seeded weights give (votes, NMS).
+                    256), a ragged mask with fewer valid points than
+                    picks and with none, N = 1,
+                    1000, 2047 (exact ties), 4095, 4096 (exact ties planted
+                    across the CTAs' slice boundaries), 5000, 9000, 16384;
+                    kernel ms, bytes bound, the dispatched variant's latency
+                    floor beside the first, single-block kernel's, plain ms;
+                    at SA2 and SA3 every cluster size's ms and floor; the
+                    SA2 matrix against float64; FPS and NMS at 3DSSD's
+                    shapes; what the seeded weights give.
 12. serve / 3dssd — ``StreamingDetector`` with ``configs/kitti_models/
                     3dssd_car.yaml`` in bf16 on the 8 scans of
                     ``bench_assets/scans.npz``, seeded weights: per batch 2
@@ -100,9 +105,16 @@ Phases, one status line each; any failure exits non-zero:
                     memory); kernel ms, plain ms, ``torch.searchsorted`` ms,
                     bytes bound; each stage's active sites.
 17. kernels / sparse_conv — the gather-GEMM kernel against its plain
-                    version at the 12 served layers in bf16 and fp32, and
-                    Cin = 48 / Cout = 40; per-layer ms, plain ms, the bound
-                    from these inputs' hits and the dense bound at the caps.
+                    version: the dispatched launch must be the variant of
+                    ``sparse_conv.plan``, and every variant that takes the
+                    shape (bf16: resident or streamed weights; fp32: simt)
+                    is checked, at the 12 served layers in bf16 and fp32,
+                    Cin = 48 / Cout = 40, Cin = 1 / Cout = 1 / K = 5,
+                    Cout = 128 / K = 27, tiles with no hit and with one,
+                    and a random table; per-layer variant and ms (each
+                    variant's ms at the served layers), plain ms, the bound
+                    from these inputs' hits and the dense bound at the
+                    caps; the batch total beside the earlier kernel's.
 18. serve / second — ``StreamingDetector`` with ``configs/kitti_models/
                     second.yaml`` in bf16, the trained ``bench_assets/
                     second_params.npz``, the 8 scans clipped to SECOND's
@@ -630,13 +642,25 @@ def phase_profile(tag, det, frames, serial_ms):
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     idle = 1 - total / 1e3 / serial_ms
+    # the hand-written kernels' device time per batch, every variant of a
+    # kernel summed (profile names: "...(anonymous namespace)::<name><...")
+    ours = {}
+    for name, us, c in rows:
+        if "(anonymous namespace)::" in name:
+            kernel = name.split("::")[1].split("<")[0].split("(")[0]
+            total_us_count = ours.setdefault(kernel, [0.0, 0.0])
+            total_us_count[0] += us
+            total_us_count[1] += c
     print(f"{tag} profile: {total:.1f} us device time per batch of 8 over "
           f"{n} batches ({len(rows)} kernels); idle {idle:.1%} of the "
-          f"median serial batch", flush=True)
+          f"median serial batch; hand-written kernels "
+          f"{ {k: f'{us:.1f} us x{c:.1f}' for k, (us, c) in ours.items()} }",
+          flush=True)
     for name, us, c in rows[:12]:
         print(f"{tag} profile:   {us:10.1f} us  x{c:5.1f}  {name[:90]}")
     return {"batches": n, "device_us_per_batch": total,
             "idle_share_of_serial_batch": idle,
+            "kernels_device_us_per_batch": ours,
             "top": [list(r) for r in rows[:25]]}
 
 
@@ -702,20 +726,28 @@ def argmax_round_ms():
 _ROUND_MS = {}  # (samples, cluster size, threads) -> ms per empty round
 
 
-def cluster_round_ms(b, n, cluster):
+def rounds_floor_ms(b, cluster, threads):
     """The time of one empty pick round (warp reduce, the CTA's
-    __syncthreads and, for a cluster, the DSMEM messages) of the FPS
-    variant with ``cluster`` CTAs per sample for ``b`` samples of ``n``
-    points: that variant's latency floor per pick."""
+    __syncthreads and, for a cluster, the DSMEM messages of
+    ``csrc/cluster_argmax.cuh``) for ``b`` clusters of ``cluster`` CTAs of
+    ``threads`` threads: the latency floor per pick of an FPS or f-fps
+    variant of that shape."""
     from de6d_tpu_torch.ops.kernels import fps as fk
 
-    threads = fk.threads(n, cluster)
     key = (b, cluster, threads)
     if key not in _ROUND_MS:
         rounds = 2048
         _ROUND_MS[key] = time_ms(lambda: fk.cluster_rounds(
             rounds, b, cluster, threads, "cuda"), 5) / rounds
     return _ROUND_MS[key]
+
+
+def cluster_round_ms(b, n, cluster):
+    """The latency floor per pick of the FPS variant with ``cluster``
+    CTAs per sample for ``b`` samples of ``n`` points."""
+    from de6d_tpu_torch.ops.kernels import fps as fk
+
+    return rounds_floor_ms(b, cluster, fk.threads(n, cluster))
 
 
 def fps_variants_equal(label, xyz, valid, npoint, w, ref):
@@ -1818,12 +1850,15 @@ def check_point_parity(tag, model, points, mask, post_cfg, nc, ref,
     }
 
 
-def check_matrix_fps(cases, report):
-    """cases: {label: (dist matrix (B, N, N), valid (B, N), npoint)};
-    kernel picks must equal the plain loop's. Times the kernel and the
-    plain loop; the bound is the bytes of the rows these picks read; the
-    latency floor is npoint - 1 empty block-wide argmax rounds (the pick
-    loop without its dependent row read)."""
+def check_matrix_fps(cases, report, variant_ms=()):
+    """cases: {label: (dist matrix (B, N, N), valid (B, N), npoint)}; the
+    kernel's picks, at the dispatched cluster size and at every other one,
+    must equal the plain loop's. Times the kernel and the plain loop; the
+    bound is the bytes of the rows these picks read; the latency floor is
+    npoint - 1 empty pick rounds of the dispatched variant's shape (the
+    pick loop without its dependent row read), beside the first,
+    single-block kernel's. Cases in ``variant_ms`` also time every cluster
+    size."""
     import torch
 
     from de6d_tpu_torch.ops.kernels import matrix_fps as mk
@@ -1838,6 +1873,14 @@ def check_matrix_fps(cases, report):
             fail(f"kernels / matrix_fps {label}: picks differ from the "
                  f"plain version, first at (sample, pick) {bad}")
         b, n = valid.shape
+        for c in mk.CLUSTER_SIZES:
+            other = mk.matrix_fps_cluster(dm, valid, npoint, cluster=c)
+            torch.cuda.synchronize()
+            if not torch.equal(other, ref):
+                bad = (other != ref).nonzero()[0].tolist()
+                fail(f"kernels / matrix_fps {label}: cluster {c} picks "
+                     f"differ from the plain version, first at {bad}")
+        cluster = mk.dispatch(b, n)
         nbytes = mk.bytes_moved(got, n)
         lines[label] = {
             "max_abs_err": 0.0,
@@ -1846,16 +1889,33 @@ def check_matrix_fps(cases, report):
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
             "bytes": nbytes,
-            "latency_floor_ms": (npoint - 1) * round_ms,
+            "cluster": cluster,
+            "threads": mk.threads(n, cluster),
+            "latency_floor_ms": (npoint - 1) * rounds_floor_ms(
+                b, cluster, mk.threads(n, cluster)),
+            "latency_floor_single_block_ms": (npoint - 1) * round_ms,
             "shape": f"f-fps ({b}, {n}, {n}) -> {npoint}, "
                      f"{int(valid.sum())} valid",
         }
         ln = lines[label]
-        print(f"kernels / matrix_fps {label}: identical picks, "
-              f"{ln['shape']}: {ln['ms']:.4f} ms, plain "
+        if label in variant_ms:
+            ln["variant_ms"] = {
+                c: time_ms(lambda: mk.matrix_fps_cluster(
+                    dm, valid, npoint, cluster=c), 5)
+                for c in mk.CLUSTER_SIZES}
+            ln["variant_latency_floor_ms"] = {
+                c: (npoint - 1) * rounds_floor_ms(b, c, mk.threads(n, c))
+                for c in mk.CLUSTER_SIZES}
+        print(f"kernels / matrix_fps {label}: identical picks (every "
+              f"cluster size), {ln['shape']}: cluster {cluster} x "
+              f"{ln['threads']} threads {ln['ms']:.4f} ms, plain "
               f"{ln['plain_ms']:.1f} ms, bound {ln['bound_ms']:.5f} ms "
               f"({nbytes} bytes), latency floor "
-              f"{ln['latency_floor_ms']:.4f} ms", flush=True)
+              f"{ln['latency_floor_ms']:.4f} ms (single block "
+              f"{ln['latency_floor_single_block_ms']:.4f})"
+              + (f", by cluster size {ln['variant_ms']}, floors "
+                 f"{ln['variant_latency_floor_ms']}"
+                 if "variant_ms" in ln else ""), flush=True)
     report["matrix_fps_round_ms"] = round_ms
     return lines
 
@@ -1924,6 +1984,17 @@ def phase_ssd3d_kernels(report):
         return sampling.calc_dist_matrix_for_sampling(
             a, None if ties else f), v
 
+    def slice_ties(b, n):
+        """Small integers (exact ties in every CTA's slice) with the seed
+        row's maximum planted on both sides of the slice boundaries of
+        clusters of 16, 8 and 4 at N = 4096."""
+        dm = rng.randint(0, 4, (b, n, n)).astype(np.float32)
+        cols = [255, 256, 511, 512, 1023, 1024]
+        dm[:, 0, cols] = dm[:, cols, 0] = 9.0
+        dm[:, np.arange(n), np.arange(n)] = 0.0
+        v = torch.ones(b, n, dtype=torch.bool, device="cuda")
+        return torch.from_numpy(dm).cuda(), v
+
     cases = {
         "sa2_ffps": (dm2, levels[0][3], int(sa_cfg["NPOINT_LIST"][1][0])),
         "sa3_ffps": (dm3, levels[1][3][:, :hi3].contiguous(),
@@ -1932,11 +2003,17 @@ def phase_ssd3d_kernels(report):
         # picks, no valid point
         "ragged_1000": synthetic(4, 1000, [1000, 700, 100, 0]) + (333,),
         "ties_2047": synthetic(2, 2047, [2047, 1500], ties=True) + (400,),
+        "slice_ties_4096": slice_ties(2, 4096) + (512,),
+        "n4095": synthetic(2, 4095, [4095, 3000]) + (512,),
         "n5000": synthetic(2, 5000, [5000, 4097]) + (128,),
         "n9000": synthetic(1, 9000, [8500]) + (64,),
+        "n16384": synthetic(2, 16384, [16384, 100]) + (64,),
         "n1": synthetic(3, 1, [1, 0, 1]) + (5,),
     }
-    lines = check_matrix_fps(cases, report)
+    lines = check_matrix_fps(cases, report,
+                             variant_ms=("sa2_ffps", "sa3_ffps"))
+    if lines["slice_ties_4096"]["cluster"] < 2:
+        fail("kernels / matrix_fps: 2 x 4096 did not run on a cluster")
     path = [lines["sa2_ffps"], lines["sa3_ffps"]]  # the launches per batch
     report["matrix_fps"] = {
         "name": "matrix_fps",
@@ -1945,9 +2022,11 @@ def phase_ssd3d_kernels(report):
         "replaces": "de6d_tpu/ops/pallas/fps.py:251",
         "max_abs_err": 0.0,
         **{k: sum(ln[k] for ln in path) for k in (
-            "ms", "plain_ms", "bound_ms", "latency_floor_ms")},
+            "ms", "plain_ms", "bound_ms", "latency_floor_ms",
+            "latency_floor_single_block_ms")},
         "bound_by": "bytes",
         "library_ms": None,
+        "dispatched_clusters": [ln["cluster"] for ln in path],
         "matrix_error_over_tolerance": float(err),
         "cases": lines,
     }
@@ -2071,6 +2150,9 @@ BF16_FLOPS = 989e12  # H100 SXM data sheet, dense tensor cores
 # one rounding of an fp32 sum, so an order change can move one bf16 ulp
 # (2^-7 relative)
 CONV_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the 12 served layers with the first tensor-core kernel (one block per 64
+# rows walking the offsets in turn), for comparison in the printout
+EARLIER_CONV_MS = 1.4042
 
 
 def check_lookup(cases):
@@ -2114,11 +2196,14 @@ def check_lookup(cases):
     return lines
 
 
-def check_sparse_conv(cases):
+def check_sparse_conv(cases, variant_ms=()):
     """cases: {label: (features, idx, hit, weights, valid)} → a result line
-    per case: the kernel within ``CONV_TOL`` (absolute + relative to the
-    plain value) of the plain version on the same inputs, timings, the
-    bound from the hits of these inputs, and the dense product's count."""
+    per case: the dispatched kernel, which must launch the variant of
+    ``sparse_conv.plan``, and every other variant that takes the shape,
+    each within ``CONV_TOL`` (absolute + relative to the plain value) of
+    the plain version on the same inputs; timings, the bound from the hits
+    of these inputs, and the dense product's count. Cases in
+    ``variant_ms`` also time every variant."""
     import torch
 
     from de6d_tpu_torch.ops.kernels import sparse_conv as sc
@@ -2126,23 +2211,37 @@ def check_sparse_conv(cases):
     lines = {}
     for label, args in cases.items():
         f, idx, hit, w, valid = args
+        b, q, k = idx.shape
+        cin, cout = w.shape[1:]
         got = sc.sparse_conv(*args)
-        ref = sc.sparse_conv_plain(*args)
+        variant = sc.launched_variant()
+        ref = sc.sparse_conv_plain(*args).float()
         torch.cuda.synchronize()
+        if variant != sc.plan(cin, cout, k, f.dtype).variant:
+            fail(f"kernels / sparse_conv {label}: launched {variant}, the "
+                 f"plan says {sc.plan(cin, cout, k, f.dtype)}")
         tol = CONV_TOL[str(f.dtype).split(".")[-1]]
-        d = (got.float() - ref.float()).abs()
-        excess = float((d - tol * (1 + ref.float().abs())).max())
-        if not excess <= 0:
-            fail(f"kernels / sparse_conv {label}: differs from the plain "
-                 f"version by {float(d.max()):.3g} (tol {tol} abs + rel)")
+        names = [n for n in sc.VARIANTS
+                 if sc.plan(cin, cout, k, f.dtype, n) is not None]
+        err = 0.0
+        for name, out in [(variant, got)] + [
+                (n, sc.sparse_conv_variant(*args, variant=n))
+                for n in names if n != variant]:
+            torch.cuda.synchronize()
+            d = (out.float() - ref).abs()
+            if not float((d - tol * (1 + ref.abs())).max()) <= 0:
+                fail(f"kernels / sparse_conv {label}: variant {name} differs"
+                     f" from the plain version by {float(d.max()):.3g} (tol "
+                     f"{tol} abs + rel)")
+            err = max(err, float(d.max()))
         nbytes, ops = sc.work(*args)
         peak = BF16_FLOPS if f.dtype == torch.bfloat16 else FP32_FLOPS
         t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
-        b, q, k = idx.shape
-        cin, cout = w.shape[1:]
         dense = 2 * b * q * k * cin * cout
         lines[label] = {
-            "max_abs_err": float(d.max()),
+            "max_abs_err": err,
+            "variant": variant,
+            "variants_checked": names,
             "ms": time_ms(lambda: sc.sparse_conv(*args), 10),
             "plain_ms": time_ms(lambda: sc.sparse_conv_plain(*args), 3),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -2158,11 +2257,16 @@ def check_sparse_conv(cases):
                      f"table ({b}, {q}, {k}), W ({k}, {cin}, {cout})",
         }
         ln = lines[label]
-        print(f"kernels / sparse_conv {label}: within {tol} of plain (max "
-              f"|d| {ln['max_abs_err']:.3g}), {ln['shape']}, "
-              f"{ln['hits_per_valid_row']:.2f} hits/row: {ln['ms']:.4f} ms, "
-              f"plain {ln['plain_ms']:.3f} ms, bound {ln['bound_ms']:.5f} ms "
-              f"({ln['bound_by']}), dense at caps "
+        if label in variant_ms:
+            ln["variant_ms"] = {n: time_ms(lambda: sc.sparse_conv_variant(
+                *args, variant=n), 10) for n in names}
+        print(f"kernels / sparse_conv {label}: {variant} (checked "
+              f"{'/'.join(names)}) within {tol} of plain (max |d| "
+              f"{err:.3g}), {ln['shape']}, "
+              f"{ln['hits_per_valid_row']:.2f} hits/row: {ln['ms']:.4f} ms"
+              + (f" {ln['variant_ms']}" if "variant_ms" in ln else "")
+              + f", plain {ln['plain_ms']:.3f} ms, bound "
+              f"{ln['bound_ms']:.5f} ms ({ln['bound_by']}), dense at caps "
               f"{ln['bound_dense_at_caps_ms']:.5f} ms", flush=True)
     return lines
 
@@ -2259,11 +2363,26 @@ def phase_second_kernels(report):
     }
 
     convs = dict(zip(SECOND_CONVS, calls["sparse_conv"]))
-    f3, i3, h3, _, v3 = convs["subm_s3a"]
-    w48 = torch.from_numpy((rng.randn(27, 48, 40) / np.sqrt(27 * 48)).astype(
-        np.float32)).cuda()
-    f48 = torch.from_numpy(rng.randn(*f3.shape[:2], 48).astype(
-        np.float32)).cuda()
+    f3, i3, h3, w3, v3 = convs["subm_s3a"]
+
+    def weights(k, cin, cout):
+        return torch.from_numpy((rng.randn(k, cin, cout) / np.sqrt(
+            k * cin)).astype(np.float32)).cuda()
+
+    def feats(cin):
+        return torch.from_numpy(rng.randn(*f3.shape[:2], cin).astype(
+            np.float32)).cuda()
+
+    w48, f48 = weights(27, 48, 40), feats(48)
+    # the first 128-row tile of every sample without a hit, the second
+    # with one
+    h_edge, i_edge = h3.clone(), i3.clone()
+    h_edge[:, :256] = False
+    h_edge[:, 130, 13] = True
+    i_edge[:, 130, 13] = 0
+    i_rand = torch.from_numpy(rng.randint(0, f3.shape[1], i3.shape).astype(
+        np.int32)).cuda()
+    h_rand = torch.from_numpy(rng.random_sample(i3.shape) < 0.2).cuda()
     cases = dict(convs)
     cases.update({f"{k}_fp32": tuple(
         a.float() if a.is_floating_point() else a for a in convs[k])
@@ -2271,8 +2390,15 @@ def phase_second_kernels(report):
     cases.update({
         "cin48_cout40_fp32": (f48, i3, h3, w48, v3),
         "cin48_cout40_bf16": (f48.bfloat16(), i3, h3, w48.bfloat16(), v3),
+        "cin1_cout1_k5_bf16": (feats(1).bfloat16(), i3[..., :5].contiguous(),
+                               h3[..., :5].contiguous(),
+                               weights(5, 1, 1).bfloat16(), v3),
+        "cin64_cout128_k27_bf16": (f3, i3, h3,
+                                   weights(27, 64, 128).bfloat16(), v3),
+        "no_hit_and_one_hit_tiles_bf16": (f3, i_edge, h_edge, w3, v3),
+        "random_table_bf16": (f3, i_rand, h_rand, w3, v3),
     })
-    lines = check_sparse_conv(cases)
+    lines = check_sparse_conv(cases, variant_ms=SECOND_CONVS)
     path = [lines[k] for k in SECOND_CONVS]
     report["sparse_conv"] = {
         "name": "sparse_conv",
@@ -2286,11 +2412,14 @@ def phase_second_kernels(report):
         "bound_by": "bytes" if all(ln["bound_by"] == "bytes" for ln in path)
         else "operations",
         "library_ms": None,
+        "variants_by_layer": {k: lines[k]["variant"] for k in SECOND_CONVS},
         "cases": lines,
     }
     r = report["sparse_conv"]
     print(f"kernels / sparse_conv: per served batch (12 bf16 layers) "
-          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+          f"{r['ms']:.4f} ms (the earlier mma.sync kernel: "
+          f"{EARLIER_CONV_MS} ms on an H100 80GB HBM3 at 700 W, PERF.md), "
+          f"plain {r['plain_ms']:.3f} ms, bound "
           f"{r['bound_ms']:.5f} ms at the scans' sites, "
           f"{r['bound_dense_at_caps_ms']:.5f} ms dense at the caps; lookup "
           f"per batch (8) {report['lookup']['ms']:.4f} ms, bound "

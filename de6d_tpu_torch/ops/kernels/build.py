@@ -33,7 +33,7 @@ BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("canvas.cu", "nms_fused.cu", "nms_mask.cu", "fps.cu",
            "matrix_fps.cu", "lookup.cu", "sparse_conv.cu")
 # included by the sources; part of the hash
-HEADERS = ("iou_bev.cuh", "block_argmax.cuh")
+HEADERS = ("iou_bev.cuh", "block_argmax.cuh", "cluster_argmax.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
@@ -138,14 +138,22 @@ def lib() -> ctypes.CDLL:
             handle.de6d_fps_cluster_rounds.restype = i
             handle.de6d_fps_argmax_rounds.argtypes = [i, i, p, p]
             handle.de6d_fps_argmax_rounds.restype = i
-            handle.de6d_matrix_fps.argtypes = [p, p, p, i, i, i, p]
+            handle.de6d_matrix_fps.argtypes = [p, p, p, i, i, i, i, p]
             handle.de6d_matrix_fps.restype = i
+            handle.de6d_matrix_fps_dispatch.argtypes = [i, i]
+            handle.de6d_matrix_fps_dispatch.restype = i
+            handle.de6d_matrix_fps_threads.argtypes = [i, i]
+            handle.de6d_matrix_fps_threads.restype = i
             handle.de6d_lookup.argtypes = [p, p, p, p, i, i, i, p]
             handle.de6d_lookup.restype = i
             handle.de6d_sparse_conv.argtypes = [
-                p, p, p, p, p, p, i, i, i, i, i, i, i, p,
+                p, p, p, p, p, p, i, i, i, i, i, i, i, i, p,
             ]
             handle.de6d_sparse_conv.restype = i
+            handle.de6d_sparse_conv_plan.argtypes = [i, i, i, i, i, p]
+            handle.de6d_sparse_conv_plan.restype = i
+            handle.de6d_sparse_conv_last_variant.argtypes = []
+            handle.de6d_sparse_conv_last_variant.restype = i
             _lib = handle
     return _lib
 

@@ -440,3 +440,160 @@ def test_grad_guard_on_the_card(cuda_device):  # noqa: F811
             sparse_conv.sparse_conv(*grad_args)
         with torch.no_grad():
             sparse_conv.sparse_conv(*grad_args)
+
+
+def sorted_key_conv_inputs(rng, b, n_keys, cin, cout, k, dtype, device):
+    """Features over ``n_keys`` sorted voxel keys per sample in a small
+    grid (dense enough that most offsets hit), the submanifold table
+    that ``sparse.subm_neighbor_table`` builds from them (27 offsets) or
+    its first ``k`` offsets, and seeded weights."""
+    grid = (8, 40, 40)
+    keys = np.full((b, n_keys + 37), sparse.INVALID, np.int32)
+    for i in range(b):  # sample i holds n_keys / (i + 1) keys
+        u = np.unique(rng.randint(0, int(np.prod(grid)), 2 * n_keys))
+        keys[i, :n_keys // (i + 1)] = u[:n_keys // (i + 1)]
+    keys_t = torch.from_numpy(keys).to(device)
+    idx, hit = sparse.subm_neighbor_table(keys_t, grid)
+    idx, hit = idx[..., :k].contiguous(), hit[..., :k].contiguous()
+    f = torch.from_numpy(rng.randn(b, keys.shape[1], cin).astype(np.float32))
+    w = torch.from_numpy((rng.randn(k, cin, cout) / np.sqrt(k * cin)).astype(
+        np.float32))
+    return (f.to(device, dtype), idx, hit, w.to(device, dtype),
+            keys_t != sparse.INVALID)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["sorted_keys", "random"])
+@pytest.mark.parametrize("cin,cout,k", [
+    (4, 16, 27), (16, 32, 27), (32, 64, 27), (64, 64, 27), (64, 128, 3),
+    (48, 40, 27), (1, 1, 5), (3, 40, 27), (6, 8, 27), (64, 128, 27),
+    (160, 24, 7),
+])
+def test_sparse_conv_every_variant_equals_plain(cuda_device, table, cin,  # noqa: F811
+                                                cout, k):
+    """Every bf16 variant that takes the shape (resident and streamed
+    weights) within 1e-2 + 1e-2 of the plain version, on a sorted-key
+    table and a random one; the dispatched launch is counted and reports
+    the planned variant."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rng = np.random.RandomState(cin * 131 + cout + k)
+    if table == "random":
+        args = conv_inputs(rng, 3, 3000, 2000, k, cin, cout, torch.bfloat16,
+                           cuda_device)
+    else:
+        args = sorted_key_conv_inputs(rng, 3, 2000, cin, cout, k,
+                                      torch.bfloat16, cuda_device)
+    ref = sparse_conv.sparse_conv_plain(*args).float()
+    ran = []
+    for name in ("resident", "streamed"):
+        if sparse_conv.plan(cin, cout, k, variant=name) is None:
+            continue
+        got = sparse_conv.sparse_conv_variant(*args, variant=name)
+        torch.cuda.synchronize()
+        assert sparse_conv.launched_variant() == name
+        d = (got.float() - ref).abs()
+        assert bool((d <= 1e-2 * (1 + ref.abs())).all()), (name, float(d.max()))
+        assert not got[~args[4]].any()
+        ran.append(name)
+    assert "streamed" in ran
+    before = sparse_conv.sparse_conv.launches
+    got = sparse_conv.sparse_conv(*args)
+    torch.cuda.synchronize()
+    assert sparse_conv.sparse_conv.launches == before + 1
+    assert sparse_conv.launched_variant() == sparse_conv.plan(cin, cout,
+                                                              k).variant
+
+
+@pytest.mark.cuda
+def test_sparse_conv_plan_equals_the_library(cuda_device):  # noqa: F811
+    """The Python mirror of the variant rule gives what the library
+    computes, for every variant, both dtypes and edge shapes."""
+    for cin in (1, 3, 4, 16, 32, 48, 64, 65, 128, 160, 512):
+        for cout in (1, 8, 16, 40, 64, 127, 128):
+            for k in (1, 3, 5, 27, 33, 125):
+                for dtype in (torch.float32, torch.bfloat16):
+                    for variant in (None, "simt", "resident", "streamed"):
+                        assert sparse_conv.library_plan(
+                            cin, cout, k, dtype, variant) == sparse_conv.plan(
+                            cin, cout, k, dtype, variant), (
+                            cin, cout, k, dtype, variant)
+
+
+@pytest.mark.cuda
+def test_sparse_conv_edge_tiles(cuda_device):  # noqa: F811
+    """A tile with no hit, a tile with a single hit, K > 32 (two offset
+    blocks) and Cin over 64 (two channel chunks), both variants."""
+    rng = np.random.RandomState(9)
+    f, idx, hit, w, valid = conv_inputs(rng, 2, 500, 400, 40, 96, 32,
+                                        torch.bfloat16, cuda_device)
+    hit[:, :128] = False  # the first tile: no hit
+    hit[:, 128:256] = False
+    hit[:, 130, 35] = True  # the second: one hit, in the second block
+    ref = sparse_conv.sparse_conv_plain(f, idx, hit, w, valid).float()
+    for name in ("resident", "streamed"):
+        if sparse_conv.plan(96, 32, 40, variant=name) is None:
+            continue
+        got = sparse_conv.sparse_conv_variant(f, idx, hit, w, valid,
+                                              variant=name).float()
+        torch.cuda.synchronize()
+        assert not got[:, :128].any() and not got[:, 131:256].any()
+        d = (got - ref).abs()
+        assert bool((d <= 1e-2 * (1 + ref.abs())).all()), (name, float(d.max()))
+
+
+def tied_matrix(rng, b, n):
+    """A symmetric matrix of small integers: many equal maxima, in every
+    CTA's slice of the columns."""
+    dm = rng.randint(0, 4, (b, n, n)).astype(np.float32)
+    dm = np.maximum(dm, dm.transpose(0, 2, 1))
+    dm[:, np.arange(n), np.arange(n)] = 0.0
+    return dm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,npoint", [(1, 3), (512, 256), (1000, 333),
+                                      (4095, 512), (4096, 512), (4100, 300),
+                                      (16384, 64)])
+@pytest.mark.parametrize("ties", [False, True], ids=["real", "ties"])
+def test_matrix_fps_every_cluster_size_equals_plain(cuda_device, n, npoint,  # noqa: F811
+                                                    ties):
+    """Every cluster size and the dispatched launch: picks identical to
+    the plain loop on a ragged mask (an empty sample, fewer valid points
+    than picks)."""
+    rng = np.random.RandomState(n + 3)
+    b = 3 if n <= 4100 else 2
+    if ties:
+        dm = torch.from_numpy(tied_matrix(rng, b, n)).to(cuda_device)
+    else:
+        xyz = torch.from_numpy(rng.uniform(-40, 70, (b, n, 3)).astype(
+            np.float32)).to(cuda_device)
+        dm = sampling.calc_dist_matrix_for_sampling(xyz)
+    counts = torch.tensor([n, min(n, npoint // 2), 0][:b],
+                          device=cuda_device)
+    valid = torch.arange(n, device=cuda_device)[None] < counts[:, None]
+    ref = matrix_fps.matrix_fps_plain(dm, valid, npoint)
+    before = matrix_fps.matrix_fps.launches
+    assert torch.equal(matrix_fps.matrix_fps(dm, valid, npoint), ref)
+    assert matrix_fps.matrix_fps.launches == before + 1
+    for c in matrix_fps.CLUSTER_SIZES:
+        got = matrix_fps.matrix_fps_cluster(dm, valid, npoint, cluster=c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), c
+    assert matrix_fps.matrix_fps.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_matrix_fps_dispatch(cuda_device):  # noqa: F811
+    """SA2 (8 x 4096) runs on clusters, SA3 (8 x 512) on one CTA per
+    sample; every variant's threads are a floor kernel's block size."""
+    assert matrix_fps.dispatch(8, 4096) >= 2
+    assert matrix_fps.dispatch(8, 512) == 1
+    for n in (1, 512, 4096, 16384):
+        for c in matrix_fps.CLUSTER_SIZES:
+            assert matrix_fps.threads(n, c) in (256, 512, 1024)
+    with pytest.raises(ValueError):
+        matrix_fps.matrix_fps_cluster(
+            torch.zeros(1, 8, 8, device=cuda_device),
+            torch.ones(1, 8, dtype=torch.bool, device=cuda_device), 4,
+            cluster=3)

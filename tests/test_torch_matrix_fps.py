@@ -187,3 +187,71 @@ def test_top_k_by_score_equals_jax_with_ties(npoint):
     none = sampling.sample_top_k_by_score(torch.from_numpy(scores), npoint)
     np.testing.assert_array_equal(none.numpy(), np.asarray(
         jax_sampling.sample_top_k_by_score(jnp.asarray(scores), npoint)))
+
+
+def _tied_matrix(rng, b, n, straddle=(255, 256, 511, 512, 1023, 1024)):
+    """Small integers (many exact ties in every 256-column slice) with
+    the seed row's maximum planted on both sides of the slice boundaries
+    that clusters of 16, 8 and 4 CTAs cut at N ~ 4096: the first pick
+    must be the lowest of them."""
+    dm = rng.integers(0, 4, (b, n, n), dtype=np.uint8).astype(np.float32)
+    cols = [c for c in straddle if c < n]
+    dm[:, 0, cols] = 9.0
+    dm[:, cols, 0] = 9.0
+    dm[:, np.arange(n), np.arange(n)] = 0.0
+    return dm, (cols[0] if cols else None)
+
+
+@pytest.mark.parametrize("n,npoint", [(4095, 64), (4100, 48)])
+@pytest.mark.parametrize("ties", [False, True], ids=["xyz", "ties"])
+def test_matrix_fps_plain_equals_pallas_at_cluster_shapes(n, npoint, ties):
+    """N just below and above a multiple of every cluster's slice: the
+    port's plain loop against the JAX jnp loop and the Pallas kernel in
+    interpret mode, with a ragged mask and (``ties``) exact maxima that
+    straddle the slice boundaries."""
+    rng = np.random.default_rng(n)
+    b = 2
+    if ties:
+        dm, first = _tied_matrix(rng, b, n)
+    else:
+        xyz = (rng.standard_normal((b, n, 3)) * 20).astype(np.float32)
+        dm = np.array(jax_sampling.calc_dist_matrix_for_sampling(
+            jnp.asarray(xyz)))
+        first = None
+    valid = np.ones((b, n), bool)
+    valid[1, n // 3:] = False
+    ref, pal = _jax_picks(dm, valid, npoint)
+    np.testing.assert_array_equal(ref, pal)
+    got = mk.matrix_fps_plain(torch.from_numpy(dm), torch.from_numpy(valid),
+                              npoint)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    if first is not None:
+        assert (ref[:, 1] == first).all()
+
+
+def test_matrix_fps_plain_equals_jax_at_n16384():
+    """The largest N the kernel takes, against the JAX jnp loop (the
+    Pallas kernel pads the batch to 8 samples: 8.6 GB at this N, too
+    large for a CPU test), with planted ties across slice boundaries."""
+    rng = np.random.default_rng(16384)
+    dm, first = _tied_matrix(rng, 1, 16384,
+                             straddle=(1023, 1024, 2047, 2048, 8191, 8192))
+    valid = np.ones((1, 16384), bool)
+    valid[0, 12000:] = False
+    npoint = 12
+    ref = np.asarray(jax_sampling._matrix_farthest_point_sample_jnp(
+        jnp.asarray(dm), npoint, jnp.asarray(valid)))
+    got = mk.matrix_fps_plain(torch.from_numpy(dm), torch.from_numpy(valid),
+                              npoint)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert ref[0, 1] == first
+
+
+def test_matrix_fps_cluster_entry_refuses_cpu_tensors():
+    """The forced-variant entry is for the card only: a CPU tensor is
+    refused, and the cluster sizes are those the kernel takes."""
+    assert mk.CLUSTER_SIZES == (1, 2, 4, 8, 16)
+    with pytest.raises(ValueError):
+        mk.matrix_fps_cluster(torch.zeros(1, 8, 8),
+                              torch.ones(1, 8, dtype=torch.bool), 4,
+                              cluster=2)
