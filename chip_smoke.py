@@ -13,9 +13,14 @@ Phases, one status line each; any failure exits non-zero:
                     backpropagate (:func:`check_grad_guard`).
 2. kernels        — canvas and NMS against their plain PyTorch versions
                     on the card at PointPillars' shapes (canvas bit-exact
-                    in bf16 and fp32; NMS keep flags identical on the
-                    realistic candidates of the first served batch and on
-                    a SCORE_THRESH 0 worst case), with timings and bounds.
+                    in bf16 and fp32; NMS keep flags identical on the realistic
+                    candidates of the first served batch and on a
+                    SCORE_THRESH 0 worst case, the kernel's corners
+                    bit-equal to ``iou3d.pack_bev``), with timings, the
+                    pre-test's survivor share and both bounds (on the
+                    survivors, on every pair the walk tests). Every NMS
+                    case of the later phases (Det6D, 3DSSD, IA-SSD,
+                    SECOND) is checked and reported the same way.
 3. serve          — ``StreamingDetector`` with ``configs/kitti_models/
                     pointpillar.yaml`` in bf16, the trained
                     ``bench_assets/pointpillar_params.npz`` and the 8 real
@@ -89,21 +94,28 @@ Phases, one status line each; any failure exits non-zero:
                     ``de6d_tpu_torch/testdata/ssd3d_jax_ref.npz``
                     (:func:`check_point_parity`: every sampling call's picks,
                     candidates, detections).
-14. serve / iassd — the same with ``configs/kitti_models/IA-SSD.yaml``, a
+14. serve / iassd — the same with ``configs/kitti_models/IA-SSD.yaml``
+                    (first the NMS on its candidates), a
                     shorter window: 2 FPS launches, no f-fps launch (the
                     shipped config samples with D-FPS and ctr_aware), 1
                     fused-NMS launch.
 15. parity / iassd — IA-SSD against ``de6d_tpu_torch/testdata/
                     iassd_jax_ref.npz``.
 
-16. kernels / lookup — the key-lookup kernel against its plain version
-                    (hit and idx identical everywhere) at the 8 tables the
-                    served SECOND model builds per batch (recorded from one
-                    bf16 forward of the 8 scans), an empty table,
-                    all-INVALID queries, queries outside the keys, tables
-                    of 40,000 keys (shared memory) and 120,000 (global
-                    memory); kernel ms, plain ms, ``torch.searchsorted`` ms,
-                    bytes bound; each stage's active sites.
+16. kernels / lookup — the neighbour-table kernel against
+                    ``neighbor_table_plain`` (hit and idx identical
+                    everywhere) at the 8 tables the served SECOND model
+                    builds per batch (recorded from one bf16 forward of
+                    the 8 scans), sites on every grid face (submanifold,
+                    strided, the (3, 1, 1) z-conv), INVALID rows inside,
+                    an empty sample; the standalone lookup kernel against
+                    its plain version on the same tables' neighbour keys,
+                    an empty table, all-INVALID queries, queries outside
+                    the keys, tables of 40,000 and 120,000 keys; for both,
+                    kernel ms, plain ms, the library yardstick (key
+                    generation + ``torch.searchsorted``; ``searchsorted``)
+                    and the bytes bound; each stage's active sites; the
+                    fused NMS on SECOND's candidates.
 17. kernels / sparse_conv — the gather-GEMM kernel against its plain
                     version: the dispatched launch must be the variant of
                     ``sparse_conv.plan``, and every variant that takes the
@@ -118,8 +130,9 @@ Phases, one status line each; any failure exits non-zero:
 18. serve / second — ``StreamingDetector`` with ``configs/kitti_models/
                     second.yaml`` in bf16, the trained ``bench_assets/
                     second_params.npz``, the 8 scans clipped to SECOND's
-                    range: per batch 8 lookup and 12 sparse-conv launches,
-                    the fused NMS.
+                    range: per batch 8 neighbour-table launches, no
+                    standalone lookup, 12 sparse-conv launches, the fused
+                    NMS.
 19. parity / second — SECOND in fp32 (TF32 off) on 2 scans against
                     ``de6d_tpu_torch/testdata/second_jax_ref.npz``
                     (:func:`check_second_parity`: stage keys, candidates,
@@ -204,6 +217,33 @@ def time_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20, replays=5):
+    """Device time of one call of ``fn``: ``iters`` calls captured in a
+    CUDA graph and replayed, so the host's launch overhead, which
+    ``time_ms`` also sees when the kernel is short, is gone."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # attributes and allocations outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def spec_from_cfg(cfg):
@@ -298,36 +338,56 @@ def load_second_scans():
 # ---------------------------------------------------------------------
 
 def nms_iou_count(boxes, counts, keep, thresh, post_k):
-    """IoUs the NMS kernel evaluates on this input: per live column, the
-    kept boxes tested up to the first suppressor, plus the live pairs of
-    each diagonal tile. Replays the kernel's walk on the host."""
+    """Pairs the NMS walk needs on this input, and of those the pairs the
+    kernels' bound pre-test leaves for the full IoU: per live column, the
+    kept boxes up to the first suppressor, plus the live pairs of each
+    diagonal tile. Replays the walk on the host."""
     import torch
 
     from de6d_tpu_torch.ops import iou3d
+    from de6d_tpu_torch.ops.kernels import nms_pretest as npt
     from de6d_tpu_torch.ops.kernels.nms_fused import BLK
 
-    total = 0
-    packed = iou3d.pack_bev(boxes)
+    total = survivors = 0
+    packed = iou3d.pack_bev(boxes[..., :7])
+    box_b = npt.bounds(packed)
+    pretest = thresh >= npt.MIN_THRESH
     for b in range(boxes.shape[0]):
         cnt = int(counts[b])
         kept = []
         for col0 in range(0, boxes.shape[1], BLK):
             if not (col0 < cnt and len(kept) < post_k):
                 break
-            cols = packed[b, :, col0:min(col0 + BLK, cnt)]
-            n_live = cols.shape[1]
+            col1 = min(col0 + BLK, cnt)
+            cols = packed[b, :, col0:col1]
+            col_b = tuple(v[b:b + 1, col0:col1] for v in box_b)
+            alive = torch.arange(col0, col1, device=boxes.device)
             if kept:
                 idx = torch.tensor(kept, device=boxes.device)
-                over = iou3d.pairwise_iou_packed(packed[b][:, idx], cols) > thresh
+                over = iou3d.pairwise_iou_packed(packed[b][:, idx],
+                                                 cols) > thresh
                 hit = over.any(dim=0)
                 first = torch.where(hit, over.int().argmax(dim=0) + 1,
                                     len(kept))
                 total += int(first.sum())
-                n_live = int((~hit).sum())
+                tested = (torch.arange(len(kept), device=boxes.device)[:, None]
+                          < first[None])
+                if pretest:
+                    tested &= ~npt.skippable_pairs(
+                        tuple(v[b:b + 1, idx] for v in box_b), col_b)[0]
+                survivors += int(tested.sum())
+                alive = alive[~hit]
+            n_live = len(alive)
             total += n_live * (n_live - 1) // 2
+            pairs = torch.ones(n_live, n_live, dtype=torch.bool,
+                               device=boxes.device).triu(1)
+            if pretest and n_live:
+                ab = tuple(v[b:b + 1, alive] for v in box_b)
+                pairs &= ~npt.skippable_pairs(ab, ab)[0]
+            survivors += int(pairs.sum())
             kb = keep[b, col0:col0 + BLK].nonzero().flatten() + col0
             kept.extend(kb.tolist())
-    return total
+    return total, survivors
 
 
 def check_canvas(feat, lin, ny, nx, report):
@@ -377,15 +437,25 @@ def check_canvas(feat, lin, ny, nx, report):
 
 def check_nms(cases, thresh, post_k):
     """cases: {label: (boxes (B, P, 7+), counts (B,))} → a result line per
-    case (keep flags identical to the plain version, timings, bound)."""
+    case: keep flags identical to the plain version's, the kernel's
+    corners bit-equal to ``iou3d.pack_bev``'s, timings (by events, and the
+    device's alone in a CUDA graph), the pre-test's survivor share and
+    both bounds."""
     import torch
 
     from de6d_tpu_torch.ops import iou3d
-    from de6d_tpu_torch.ops.kernels import nms_fused
+    from de6d_tpu_torch.ops.kernels import nms_fused, nms_pretest
     from de6d_tpu_torch.ops.nms import _compact
 
     lines = {}
     for label, (boxes, counts) in cases.items():
+        packed = iou3d.pack_bev(boxes[..., :7]).contiguous()
+        corners = nms_fused.pack_bev(boxes)
+        torch.cuda.synchronize()
+        if not torch.equal(corners.view(torch.int32),
+                           packed.view(torch.int32)):
+            fail(f"nms {label}: the kernel's corners differ from "
+                 "iou3d.pack_bev")
         got = nms_fused.nms_keep_batched(boxes, counts, thresh, post_k)
         ref = nms_fused.nms_keep_batched_plain(boxes, counts, thresh, post_k)
         torch.cuda.synchronize()
@@ -394,33 +464,46 @@ def check_nms(cases, thresh, post_k):
         if not (torch.equal(gc, rc) and torch.equal(gs, rs)):
             fail(f"nms {label}: selections differ from the plain version")
         err = float((got.int() - ref.int()).abs().max())
-        ious = nms_iou_count(boxes, counts, ref, thresh, post_k)
+        ious, survivors = nms_iou_count(boxes, counts, ref, thresh, post_k)
         b, p = boxes.shape[:2]
-        nbytes = 9 * 4 * int(counts.clamp(max=p).sum()) + b * p + b * 4
-        flops = ious * nms_fused.FLOPS_PER_IOU
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-        packed = iou3d.pack_bev(boxes).contiguous()
+        nbytes = 7 * 4 * int(counts.clamp(max=p).sum()) + b * p + b * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = (ious * nms_pretest.PRETEST_FLOPS
+                 + survivors * nms_fused.FLOPS_PER_IOU) / FP32_FLOPS
+        t_all = ious * nms_fused.FLOPS_PER_IOU / FP32_FLOPS
         lines[label] = {
             "max_abs_err": err,
             "ms": time_ms(lambda: nms_fused.nms_keep_batched(
                 boxes, counts, thresh, post_k), 20),
-            "kernel_ms": time_ms(lambda: nms_fused.nms_keep_packed(
-                packed, counts, thresh, post_k), 20),
+            "device_ms": graph_ms(lambda: nms_fused.nms_keep_batched(
+                boxes, counts, thresh, post_k)),
+            "pack_bev_ms": time_ms(lambda: iou3d.pack_bev(boxes[..., :7]),
+                                   20),
             "plain_ms": time_ms(lambda: nms_fused.nms_keep_batched_plain(
                 boxes, counts, thresh, post_k), 2, warmup=1),
-            "bound_ms": bound_ms,
-            "bound_by": ("operations" if flops / FP32_FLOPS
-                         > nbytes / HBM_BYTES_PER_S else "bytes"),
+            # what the function needs: the pre-test on every pair the walk
+            # tests, the IoU on the pairs it does not decide
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bound_all_pairs_ms": max(t_all, t_bytes) * 1e3,
             "ious": ious,
+            "survivors": survivors,
+            "survivor_share": survivors / ious if ious else None,
+            "corners_bit_equal": True,
             "kept": gc.tolist(),
             "shape": f"boxes ({b}, {p}, {boxes.shape[2]}), live "
                      f"{counts.tolist()}, post_k {post_k}",
         }
-        print(f"kernels: nms {label}: identical selections, "
-              f"{lines[label]['ms']:.4f} ms (kernel alone "
-              f"{lines[label]['kernel_ms']:.4f} ms), plain "
-              f"{lines[label]['plain_ms']:.2f} ms, bound "
-              f"{bound_ms:.5f} ms, {ious} IoUs", flush=True)
+        ln = lines[label]
+        share = ln["survivor_share"]
+        print(f"kernels: nms {label}: identical selections, corners "
+              f"bit-equal to pack_bev, {ln['ms']:.4f} ms (device "
+              f"{ln['device_ms']:.4f} ms in a graph; pack_bev alone "
+              f"{ln['pack_bev_ms']:.4f} ms), plain {ln['plain_ms']:.2f} ms, "
+              f"bound {ln['bound_ms']:.5f} ms (all pairs "
+              f"{ln['bound_all_pairs_ms']:.5f}), {ious} pairs walked, "
+              f"{survivors} survive the pre-test ("
+              f"{'-' if share is None else f'{share:.4%}'})", flush=True)
     return lines
 
 
@@ -474,12 +557,37 @@ def phase_kernels(dev, report):
         "route": "cuda",
         "source": "de6d_tpu_torch/csrc/nms_fused.cu",
         "replaces": "de6d_tpu/ops/pallas/nms_fused.py:205",
-        **{k: main[k] for k in ("max_abs_err", "ms", "kernel_ms", "plain_ms",
-                                "bound_ms", "bound_by")},
+        **{k: main[k] for k in ("max_abs_err", "ms", "device_ms",
+                                "plain_ms", "bound_ms",
+                                "bound_by", "bound_all_pairs_ms",
+                                "survivor_share")},
         "library_ms": None,
         "cases": lines,
     }
     return model, mc
+
+
+def phase_nms_case(label, model, mc, pts, mask, report):
+    """The fused NMS on the candidates of one bf16 forward of ``model`` on
+    the 8 scans (the shape and post_k its post-processing launches)."""
+    import torch
+
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        select_candidates,
+    )
+    from de6d_tpu_torch.ops.nms import NEG_INF
+
+    post_cfg = mc["POST_PROCESSING"]
+    with torch.no_grad():
+        out = model({"points": torch.from_numpy(pts).cuda(),
+                     "points_mask": torch.from_numpy(mask).cuda()})
+        boxes, scores, _ = select_candidates(out, post_cfg)
+    counts = (scores > NEG_INF / 2).sum(-1).to(torch.int32)
+    nms_cfg = post_cfg["NMS_CONFIG"]
+    report["nms"]["cases"].update(check_nms(
+        {label: (boxes[..., :7].contiguous(), counts)},
+        float(nms_cfg["NMS_THRESH"]),
+        min(int(nms_cfg["NMS_POST_MAXSIZE"]), boxes.shape[1])))
 
 
 def check_grad_guard(report):
@@ -2115,27 +2223,27 @@ def second_stage_keys(out):
 
 @contextlib.contextmanager
 def recorded_sparse_calls():
-    """Within the block every lookup and sparse-conv call of
+    """Within the block every neighbour-table and sparse-conv call of
     ``de6d_tpu_torch.ops.sparse`` is recorded with its inputs, in call
     order, and then run as usual."""
     from de6d_tpu_torch.ops import sparse as sp
 
-    calls = {"lookup": [], "sparse_conv": []}
-    orig = (sp.lookup, sp.sparse_conv)
+    calls = {"neighbor_table": [], "sparse_conv": []}
+    orig = (sp.neighbor_table, sp.sparse_conv)
 
-    def lookup(table, queries):
-        calls["lookup"].append((table, queries))
-        return orig[0](table, queries)
+    def table(*args, **kwargs):
+        calls["neighbor_table"].append((args, kwargs))
+        return orig[0](*args, **kwargs)
 
     def conv(*args):
         calls["sparse_conv"].append(args)
         return orig[1](*args)
 
-    sp.lookup, sp.sparse_conv = lookup, conv
+    sp.neighbor_table, sp.sparse_conv = table, conv
     try:
         yield calls
     finally:
-        sp.lookup, sp.sparse_conv = orig
+        sp.neighbor_table, sp.sparse_conv = orig
 
 
 # the backbone's calls in order: a stage's submanifold table, then the
@@ -2178,6 +2286,7 @@ def check_lookup(cases):
         lines[label] = {
             "max_abs_err": 0.0,
             "ms": time_ms(lambda: lk.lookup(table, queries), 20),
+            "device_ms": graph_ms(lambda: lk.lookup(table, queries)),
             "plain_ms": time_ms(lambda: lk.lookup_plain(table, queries), 5),
             "library_ms": time_ms(lambda: torch.searchsorted(
                 table, queries, out_int32=True), 5),
@@ -2189,11 +2298,96 @@ def check_lookup(cases):
         }
         ln = lines[label]
         print(f"kernels / lookup {label}: hit and idx identical, "
-              f"{ln['shape']}, {ln['hits']} hits: {ln['ms']:.4f} ms, plain "
+              f"{ln['shape']}, {ln['hits']} hits: {ln['ms']:.4f} ms (device "
+              f"{ln['device_ms']:.4f}), plain "
               f"{ln['plain_ms']:.4f} ms, searchsorted {ln['library_ms']:.4f}"
               f" ms, bound {ln['bound_ms']:.5f} ms ({nbytes} bytes)",
               flush=True)
     return lines
+
+
+def check_neighbor_tables(cases):
+    """cases: {label: (args, kwargs) of ``neighbor_table``} → a result line
+    per case: ``idx`` and ``hit`` equal to ``neighbor_table_plain``'s
+    everywhere (misses, out-of-grid neighbours, INVALID rows); ms, the
+    plain version's (the composed path it replaces: torch key generation
+    and ``lookup_plain``), the library yardstick (the same key generation
+    and one ``torch.searchsorted``), the bytes bound."""
+    import torch
+
+    from de6d_tpu_torch.ops.kernels import lookup as lk
+
+    lines = {}
+    for label, (args, kwargs) in cases.items():
+        idx, hit = lk.neighbor_table(*args, **kwargs)
+        ridx, rhit = lk.neighbor_table_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        if not (torch.equal(hit, rhit) and torch.equal(idx, ridx)):
+            bad = (hit != rhit) | (idx != ridx)
+            fail(f"kernels / neighbor_table {label}: differs from the plain "
+                 f"version at (sample, row, offset) "
+                 f"{bad.nonzero()[0].tolist()}")
+        table, ask = args[0], args[1]
+        b, q, k = idx.shape
+        nbytes = lk.neighbor_bytes(table, ask, k)
+
+        def library():
+            nbr = lk.neighbor_keys_plain(ask, *args[2:], **kwargs)
+            return torch.searchsorted(table, nbr.reshape(b, -1),
+                                      out_int32=True)
+
+        lines[label] = {
+            "max_abs_err": 0.0,
+            "ms": time_ms(lambda: lk.neighbor_table(*args, **kwargs), 20),
+            "device_ms": graph_ms(lambda: lk.neighbor_table(*args, **kwargs)),
+            "plain_ms": time_ms(lambda: lk.neighbor_table_plain(
+                *args, **kwargs), 5),
+            "library_ms": time_ms(library, 5),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "bytes": nbytes,
+            "hits": int(hit.sum()),
+            "invalid_queries": int((lk.neighbor_keys_plain(
+                ask, *args[2:], **kwargs) == lk.INVALID).sum()),
+            "shape": f"tables {tuple(table.shape)}, asking {tuple(ask.shape)}"
+                     f", K {k}",
+        }
+        ln = lines[label]
+        print(f"kernels / neighbor_table {label}: hit and idx identical, "
+              f"{ln['shape']}, {ln['hits']} hits, {ln['invalid_queries']} "
+              f"INVALID queries: {ln['ms']:.4f} ms (device "
+              f"{ln['device_ms']:.4f}), plain "
+              f"{ln['plain_ms']:.4f} ms, keys + searchsorted "
+              f"{ln['library_ms']:.4f} ms, bound {ln['bound_ms']:.5f} ms",
+              flush=True)
+    return lines
+
+
+def face_sites(grid, v, n, seed):
+    """(8, v) sorted keys of ``grid``: a site on every face, edge and
+    corner, the rest random cells near them, INVALID after ``n``; sample 0
+    has no site."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.ops import sparse
+
+    nz, ny, nx = grid
+    rng = np.random.RandomState(seed)
+    face = {(z * ny + y) * nx + x for z in (0, nz // 2, nz - 1)
+            for y in (0, ny // 2, ny - 1) for x in (0, nx // 2, nx - 1)}
+    keys = np.full((8, v), sparse.INVALID, np.int32)
+    for b in range(1, 8):
+        cells = set(face)
+        while len(cells) < n:
+            c = rng.randint(0, (nz, ny, nx))
+            p = np.clip(c + rng.randint(-1, 2, (20, 3)), 0,
+                        np.array(grid) - 1)
+            cells.update(((p[:, 0] * ny + p[:, 1]) * nx + p[:, 2]).tolist())
+        rest = np.array(sorted(cells - face), np.int64)
+        keys[b, :n] = np.sort(np.concatenate(
+            [sorted(face), rng.choice(rest, n - len(face), replace=False)]))
+    return torch.from_numpy(keys).cuda()
 
 
 def check_sparse_conv(cases, variant_ms=()):
@@ -2272,15 +2466,21 @@ def check_sparse_conv(cases, variant_ms=()):
 
 
 def phase_second_kernels(report):
-    """``lookup`` and ``sparse_conv`` at the served SECOND model's shapes
-    and inputs (recorded from one bf16 forward of the 8 scans), and the
-    edge cases: an empty table, all-INVALID queries, queries outside the
-    keys, tables of 40,000 (shared memory) and 120,000 (global memory)
-    keys; fp32 layers, Cin = 48 and Cout = 40."""
+    """``neighbor_table``, ``lookup`` and ``sparse_conv`` at the served
+    SECOND model's shapes and inputs (recorded from one bf16 forward of
+    the 8 scans), and the edge cases: sites on every grid face, INVALID
+    rows inside, an empty sample, an empty table, all-INVALID queries,
+    queries outside the keys, tables of 40,000 and 120,000 keys; fp32
+    layers, Cin = 48 and Cout = 40; the fused NMS on SECOND's candidates."""
     import numpy as np
     import torch
 
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        select_candidates,
+    )
     from de6d_tpu_torch.ops import sparse
+    from de6d_tpu_torch.ops.kernels import lookup as lk
+    from de6d_tpu_torch.ops.nms import CASCADE_K0, NEG_INF
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -2289,10 +2489,10 @@ def phase_second_kernels(report):
     with torch.no_grad(), recorded_sparse_calls() as calls:
         out = model({"points": torch.from_numpy(pts).cuda(),
                      "points_mask": torch.from_numpy(mask).cuda()})
-    if (len(calls["lookup"]), len(calls["sparse_conv"])) != (8, 12):
-        fail(f"kernels / second: {len(calls['lookup'])} lookups and "
-             f"{len(calls['sparse_conv'])} convs in one forward, expected "
-             "8 and 12")
+    if (len(calls["neighbor_table"]), len(calls["sparse_conv"])) != (8, 12):
+        fail(f"kernels / second: {len(calls['neighbor_table'])} neighbour "
+             f"tables and {len(calls['sparse_conv'])} convs in one forward, "
+             "expected 8 and 12")
     keys = second_stage_keys(out)
     sites = [(k != sparse.INVALID).sum(-1).tolist() for k in keys]
     # how many active outputs each strided layer finds before its cap
@@ -2312,8 +2512,50 @@ def phase_second_kernels(report):
     print(f"kernels / second: active sites per stage (x_conv1..4, z-conv) "
           f"{sites}; strided outputs before the caps {uncapped}", flush=True)
 
-    look = dict(zip(SECOND_LOOKUPS, calls["lookup"]))
-    t1, q1 = look["subm_s1"]
+    tables = dict(zip(SECOND_LOOKUPS, calls["neighbor_table"]))
+    (t1, _, g1, *_), _ = tables["subm_s1"]
+    drop = torch.from_numpy(np.random.RandomState(1).rand(*t1.shape)
+                            < 0.3).cuda()
+    face1 = face_sites(g1, t1.shape[1], 12000, 2)
+    face_z = face_sites((5, 200, 176), 4000, 3000, 3)
+    empty_sample = t1.clone()
+    empty_sample[0] = sparse.INVALID
+    nbr_cases = dict(tables)
+    nbr_cases.update({
+        "faces_subm": ((face1, face1, g1, g1, (3, 3, 3)), {}),
+        "faces_down_s2": ((face1, face_sites((21, 800, 704), 16000, 9000,
+                                             4), g1, (21, 800, 704),
+                           (3, 3, 3), (2, 2, 2), (1, 1, 1), False), {}),
+        "faces_down_z": ((face_z, face_sites((2, 200, 176), 4000, 2000, 5),
+                          (5, 200, 176), (2, 200, 176), (3, 1, 1),
+                          (2, 1, 1), (0, 0, 0), False), {}),
+        "invalid_rows": ((t1, torch.where(drop, sparse.INVALID, t1), g1, g1,
+                          (3, 3, 3)), {}),
+        "empty_sample": ((empty_sample, empty_sample, g1, g1, (3, 3, 3)), {}),
+    })
+    lines = check_neighbor_tables(nbr_cases)
+    if lines["empty_sample"]["hits"] >= lines["subm_s1"]["hits"]:
+        fail("kernels / neighbor_table: the empty sample found neighbours")
+    path = [lines[k] for k in SECOND_LOOKUPS]
+    report["neighbor_table"] = {
+        "name": "neighbor_table",
+        "route": "cuda",
+        "source": "de6d_tpu_torch/csrc/lookup.cu",
+        "replaces": "de6d_tpu/ops/pallas/lookup.py:80",
+        "max_abs_err": 0.0,
+        # per served batch: the 8 launches
+        **{k: sum(ln[k] for ln in path) for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
+        "bound_by": "bytes",
+        "stage1_subm": {k: lines["subm_s1"][k] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
+        "cases": lines,
+    }
+
+    # the standalone lookup on the same tables' neighbour keys
+    look = {k: (a[0], lk.neighbor_keys_plain(a[1], *a[2:], **kw).reshape(
+        a[1].shape[0], -1).contiguous()) for k, (a, kw) in tables.items()}
+    q1 = look["subm_s1"][1]
     rng = np.random.RandomState(0)
 
     def synthetic(v, q):
@@ -2338,10 +2580,10 @@ def phase_second_kernels(report):
         "empty_table": (torch.full_like(t1, sparse.INVALID), q1),
         "invalid_queries": (t1, torch.full_like(q1, sparse.INVALID)),
         "outside_the_keys": (t1, outside.contiguous()),
-        # 40,000 keys (160 KB) fit the 224 KB that csrc/lookup.cu stages
-        # in shared memory; 120,000 (480 KB) take its global-memory search
-        "v40000_shared": synthetic(40000, 27 * 40000 // 8),
-        "v120000_global": synthetic(120000, 27 * 120000 // 8),
+        # windows of random queries outgrow shared memory: the
+        # device-memory search
+        "v40000": synthetic(40000, 27 * 40000 // 8),
+        "v120000": synthetic(120000, 27 * 120000 // 8),
     })
     lines = check_lookup({k: (t.contiguous(), q.contiguous())
                           for k, (t, q) in cases.items()})
@@ -2355,12 +2597,34 @@ def phase_second_kernels(report):
         "source": "de6d_tpu_torch/csrc/lookup.cu",
         "replaces": "de6d_tpu/ops/pallas/lookup.py:80",
         "max_abs_err": 0.0,
-        # per served batch: the 8 launches
+        # the 8 served tables' neighbour keys (no launch on the served
+        # path since the neighbour table generates its keys)
         **{k: sum(ln[k] for ln in path) for k in (
-            "ms", "plain_ms", "library_ms", "bound_ms")},
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
         "bound_by": "bytes",
+        "stage1": {k: lines["subm_s1"][k] for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")},
         "cases": lines,
     }
+    n, lo = report["neighbor_table"], report["lookup"]
+    print(f"kernels / lookup: per served batch (8 tables) neighbor_table "
+          f"{n['ms']:.4f} ms (device {n['device_ms']:.4f} ms; composed "
+          f"plain path {n['plain_ms']:.4f} ms, "
+          f"keys + searchsorted {n['library_ms']:.4f} ms, bound "
+          f"{n['bound_ms']:.5f} ms); lookup on the same keys "
+          f"{lo['ms']:.4f} ms (device {lo['device_ms']:.4f} ms; "
+          f"searchsorted {lo['library_ms']:.4f} ms, "
+          f"bound {lo['bound_ms']:.5f} ms)", flush=True)
+
+    # the fused NMS on SECOND's candidates, the cascade's 1024 prefix
+    post_cfg = mc["POST_PROCESSING"]
+    boxes, scores, _ = select_candidates(out, post_cfg)
+    counts = (scores > NEG_INF / 2).sum(-1).to(torch.int32)
+    nms_cfg = post_cfg["NMS_CONFIG"]
+    report["nms"]["cases"].update(check_nms(
+        {"second_prefix": (boxes[:, :CASCADE_K0].contiguous(),
+                           counts.clamp(max=CASCADE_K0))},
+        float(nms_cfg["NMS_THRESH"]), int(nms_cfg["NMS_POST_MAXSIZE"])))
 
     convs = dict(zip(SECOND_CONVS, calls["sparse_conv"]))
     f3, i3, h3, w3, v3 = convs["subm_s3a"]
@@ -2421,10 +2685,9 @@ def phase_second_kernels(report):
           f"{EARLIER_CONV_MS} ms on an H100 80GB HBM3 at 700 W, PERF.md), "
           f"plain {r['plain_ms']:.3f} ms, bound "
           f"{r['bound_ms']:.5f} ms at the scans' sites, "
-          f"{r['bound_dense_at_caps_ms']:.5f} ms dense at the caps; lookup "
-          f"per batch (8) {report['lookup']['ms']:.4f} ms, bound "
-          f"{report['lookup']['bound_ms']:.5f} ms", flush=True)
-    del calls, cases, look, convs
+          f"{r['bound_dense_at_caps_ms']:.5f} ms dense at the caps",
+          flush=True)
+    del calls, cases, look, convs, tables, nbr_cases
     return model, mc, nc
 
 
@@ -2621,6 +2884,7 @@ def main():
                        report)
 
     model, mc, nc = build_model("bfloat16", "cuda", IASSD_CFG, IASSD_SEED)
+    phase_nms_case("iassd", model, mc, pts, mask, report)
     report["serve_iassd"] = phase_serve(
         "serve / iassd", model, mc, nc, pts, mask,
         {"matrix_fps": ffps, "fps": fps.fps, "nms": nms}, 7, profile,
@@ -2633,9 +2897,10 @@ def main():
     pts, mask = load_second_scans()
     report["serve_second"] = phase_serve(
         "serve / second", model, mc, nc, pts, mask,
-        {"lookup": lookup.lookup, "sparse_conv": sparse_conv.sparse_conv,
-         "nms": nms}, 7, profile,
-        per_batch={"lookup": 8, "sparse_conv": 12}, serve_s=2.0)
+        {"neighbor_table": lookup.neighbor_table, "lookup": lookup.lookup,
+         "sparse_conv": sparse_conv.sparse_conv, "nms": nms}, 7, profile,
+        per_batch={"neighbor_table": 8, "lookup": 0, "sparse_conv": 12},
+        serve_s=2.0)
     del model
     phase_second_parity(report)
 
@@ -2654,7 +2919,7 @@ def main():
                "second": report["serve_second"]["launches"]}
     kernels = []
     for key in ("canvas", "nms", "nms_mask", "fps", "matrix_fps", "lookup",
-                "sparse_conv"):
+                "neighbor_table", "sparse_conv"):
         k = {f: report[key][f] for f in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "func_attr.cuh"
+
 namespace de6d {
 
 using ull = unsigned long long;
@@ -183,17 +185,18 @@ __device__ __forceinline__ ull exchange(Slots& s, ull m, int seq,
 
 // Host side: the launch configuration of B clusters of C CTAs of T
 // threads with `dyn` bytes of dynamic shared memory (a plain launch for
-// C = 1); sets the kernel's attributes and reports their error in *err.
+// C = 1); sets the kernel's attributes (once per device, func_attr.cuh)
+// and reports their error in *err.
 template <typename Kernel>
 inline cudaLaunchConfig_t launch_config(Kernel kernel, int B, int C, int T,
                                         int dyn, cudaStream_t stream,
                                         cudaLaunchAttribute* attr,
                                         cudaError_t* err) {
-  *err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  *err = max_dynamic_smem(kernel, dyn);
   if (*err == cudaSuccess && C > 8) {
-    *err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    *err = cached_func_attribute(
+        reinterpret_cast<const void*>(kernel),
+        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * C, 1, 1);

@@ -31,33 +31,8 @@
 //   * the IoU is iou_bev.cuh:iou_pair, unchanged (no FMA), so every bit
 //     equals the plain PyTorch version's.
 //
-// The pre-test skips a pair only when its bit is provably 0. Boxes r, c
-// (corners as packed, which are the inputs of both the IoU and the test)
-// with axis-aligned bounds separated along x or y by gap > delta =
-// kGapAbs + kGapRel * S, S the largest |coordinate| of the two boxes:
-//   * iou_bev.cuh:green_pass clips each edge of one box to the other box
-//     with four Liang-Barsky constraints f(t) = f0 + t fd >= 0, f = (the
-//     other box's edge) x (point - its start) - eps_b. Exactly, every point
-//     of an edge lies at least gap from the other box, so it violates one
-//     of the two constraints at that box's extreme corner (a right angle)
-//     by at least gap / sqrt(2) (distance), and the constraints' allowed
-//     t-intervals are disjoint. Computed, f0 and fd carry a few ulps of
-//     |edge| * |p0 - a0| <= |edge| * 2.9 S, which moves a crossing by at
-//     most ~4e-7 * 2.9 S in distance; eps_b = 1e-5 only tightens (moves a
-//     line inward by 1e-5 / |edge|); the |fd| < 1e-8 branch treats a
-//     near-parallel line as satisfied at most 2e-8 / |edge| <= 2e-6 m
-//     beyond it. delta = 1e-3 m + 1e-4 S is far above all three, so every
-//     clip interval is empty: t1 <= t0, and after the clamps q1 == q0;
-//   * an empty span contributes 0.5 * (q0x * q0y - q0y * q0x) = 0 exactly
-//     (products commute), so the overlap is exactly 0 and, with both areas
-//     positive, the IoU is 0, which is not > thresh for thresh >= 0.
-// A pair takes the full IoU whatever its bounds when either box has an
-// edge shorter than kMinEdge or a packed area below kMinEdge^2 (degenerate
-// or mirrored boxes: exactly where the IoU misbehaves), when a corner is
-// not finite (every comparison with NaN fails), and for every pair when
-// thresh < kMinThresh. ops/kernels/nms_mask.py:skippable_plain is the
-// rule's plain twin, held against the plain IoU and the JAX package's on
-// the CPU.
+// The pre-test and the argument that it skips only bits that are 0 are
+// in nms_pretest.cuh, shared with nms_fused.cu.
 //
 // nms_resolve_kernel is not a port of a TPU kernel (the JAX package
 // resolves the recurrence with XLA sweeps); it is the reference
@@ -70,12 +45,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "func_attr.cuh"
 #include "iou_bev.cuh"
+#include "nms_pretest.cuh"
 
 namespace {
 
+using de6d::Bounds;
 using de6d::iou_pair;
+using de6d::kMinThresh;
 using de6d::Quad;
+using de6d::skippable;
 
 constexpr int kTile = 64;      // rows per block, bits per word
 constexpr int kColWords = 4;   // words (64-column tiles) per block
@@ -83,47 +63,17 @@ constexpr int kCols = kTile * kColWords;
 constexpr int kMaskThreads = kCols;  // thread t owns column t
 constexpr int kRows = 9;
 constexpr int kResolveThreads = 256;
-// the pre-test (see the head of this file); ops/kernels/nms_mask.py holds
-// the same constants
-constexpr float kMinEdge = 1e-2f;
-constexpr float kMinThresh = 1e-3f;
-constexpr float kGapAbs = 1e-3f;
-constexpr float kGapRel = 1e-4f;
-
-struct Bounds {
-  float x0, x1, y0, y1, s;
-  bool ok;
-};
 
 // BEV bounds of packed box k of a (9, n) shared-memory block.
 template <int N>
-__device__ __forceinline__ Bounds box_bounds(const float (*v)[N], int k) {
-  Bounds b;
-  b.x0 = b.x1 = v[0][k];
-  b.y0 = b.y1 = v[4][k];
-  b.s = fmaxf(fabsf(v[0][k]), fabsf(v[4][k]));
-  bool ok = v[8][k] >= kMinEdge * kMinEdge;
+__device__ __forceinline__ Bounds box_bounds_at(const float (*v)[N], int k) {
+  Quad q;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
-    const float x = v[e][k], y = v[4 + e][k];
-    b.x0 = fminf(b.x0, x);
-    b.x1 = fmaxf(b.x1, x);
-    b.y0 = fminf(b.y0, y);
-    b.y1 = fmaxf(b.y1, y);
-    b.s = fmaxf(b.s, fmaxf(fabsf(x), fabsf(y)));
-    const float ex = v[(e + 1) % 4][k] - x;
-    const float ey = v[4 + (e + 1) % 4][k] - y;
-    ok = ok && (ex * ex + ey * ey >= kMinEdge * kMinEdge);
+    q.x[e] = v[e][k];
+    q.y[e] = v[4 + e][k];
   }
-  b.ok = ok;
-  return b;
-}
-
-__device__ __forceinline__ bool skippable(const Bounds& r, const Bounds& c) {
-  const float gap = fmaxf(fmaxf(c.x0 - r.x1, r.x0 - c.x1),
-                          fmaxf(c.y0 - r.y1, r.y0 - c.y1));
-  const float delta = kGapAbs + kGapRel * fmaxf(r.s, c.s);
-  return r.ok && c.ok && gap > delta;
+  return de6d::box_bounds(q, v[8][k]);
 }
 
 __global__ void __launch_bounds__(kMaskThreads, 3)
@@ -156,8 +106,8 @@ nms_mask_kernel(const float* __restrict__ packed,
   }
   words[t / kColWords][t % kColWords] = 0ull;
   __syncthreads();
-  if (t < kTile) row_b[t] = box_bounds<kTile>(rows, t);
-  const Bounds mine = box_bounds<kCols>(cols, t);
+  if (t < kTile) row_b[t] = box_bounds_at<kTile>(rows, t);
+  const Bounds mine = box_bounds_at<kCols>(cols, t);
   const bool pretest = thresh >= kMinThresh;
   __syncthreads();
 
@@ -274,8 +224,7 @@ extern "C" int de6d_nms_resolve(const void* mask, const void* counts,
                                 void* stream) {
   const int W = (P + kTile - 1) / kTile;
   const int dyn = static_cast<int>(sizeof(unsigned long long)) * W;
-  cudaError_t err = cudaFuncSetAttribute(
-      nms_resolve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  cudaError_t err = de6d::max_dynamic_smem(nms_resolve_kernel, dyn);
   if (err != cudaSuccess) return static_cast<int>(err);
   nms_resolve_kernel<<<B, kResolveThreads, dyn,
                        static_cast<cudaStream_t>(stream)>>>(

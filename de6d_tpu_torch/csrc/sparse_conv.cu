@@ -83,6 +83,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "func_attr.cuh"
+
 namespace {
 
 constexpr int kRows = 64;         // output rows per block
@@ -587,13 +589,14 @@ cudaError_t launch_gather(const Plan& p, const void* feat, const void* idx,
                           void* out, int B, int V, int Q, int K, int Cin,
                           int Cout, bool vec_w, cudaStream_t s) {
   auto kernel = sparse_conv_gather_kernel<RESIDENT, PIECE, NT>;
-  // the attribute and the occupancy query, once per shared-memory size
+  // the attribute once per device (func_attr.cuh), the occupancy query
+  // once per shared-memory size
+  cudaError_t err = de6d::max_dynamic_smem(kernel, p.smem);
+  if (err != cudaSuccess) return err;
   static int cached_smem = -1, sms = 0, per_sm = 0;
   if (cached_smem != p.smem) {
     int dev = 0;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    err = cudaGetDevice(&dev);
     if (err == cudaSuccess) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     }

@@ -33,7 +33,8 @@ BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("canvas.cu", "nms_fused.cu", "nms_mask.cu", "fps.cu",
            "matrix_fps.cu", "lookup.cu", "sparse_conv.cu")
 # included by the sources; part of the hash
-HEADERS = ("iou_bev.cuh", "block_argmax.cuh", "cluster_argmax.cuh")
+HEADERS = ("iou_bev.cuh", "nms_pretest.cuh", "block_argmax.cuh",
+           "cluster_argmax.cuh", "func_attr.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
@@ -114,6 +115,8 @@ def build() -> Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library with every entry point's C signature."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
@@ -121,9 +124,11 @@ def lib() -> ctypes.CDLL:
             handle.de6d_scatter_canvas.argtypes = [p, p, p, i, i, i, i, p]
             handle.de6d_scatter_canvas.restype = i
             handle.de6d_nms_keep_batched.argtypes = [
-                p, p, p, i, i, f, i, i, p,
+                p, i, p, p, p, i, i, f, i, i, p,
             ]
             handle.de6d_nms_keep_batched.restype = i
+            handle.de6d_nms_pack_bev.argtypes = [p, i, p, i, i, p]
+            handle.de6d_nms_pack_bev.restype = i
             handle.de6d_nms_mask.argtypes = [p, p, p, i, i, f, p]
             handle.de6d_nms_mask.restype = i
             handle.de6d_nms_resolve.argtypes = [p, p, p, p, i, i, i, p]
@@ -146,6 +151,10 @@ def lib() -> ctypes.CDLL:
             handle.de6d_matrix_fps_threads.restype = i
             handle.de6d_lookup.argtypes = [p, p, p, p, i, i, i, p]
             handle.de6d_lookup.restype = i
+            handle.de6d_neighbor_table.argtypes = [
+                p, p, p, p, i, i, i, ctypes.POINTER(i), p,
+            ]
+            handle.de6d_neighbor_table.restype = i
             handle.de6d_sparse_conv.argtypes = [
                 p, p, p, p, p, p, i, i, i, i, i, i, i, i, p,
             ]

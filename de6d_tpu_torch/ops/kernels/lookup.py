@@ -1,19 +1,69 @@
-"""Sorted-table key lookup, one launch per table for the whole batch.
+"""Sorted-table key lookup, and the neighbour table of a sparse conv with
+its keys generated in the kernel; one launch per table for the batch.
 
 Replaces the TPU kernel ``de6d_tpu/ops/pallas/lookup.py:lookup_pallas``.
-The CUDA kernel is ``csrc/lookup.cu``: a block stages its sample's key
-table in shared memory (a global-memory search where the table does not
-fit) and each thread binary-searches its queries. Bound by bytes: each
-query read once, (idx, hit) written once.
+The CUDA kernels are ``csrc/lookup.cu``: a block takes a run of queries
+(4096 consecutive queries for :func:`lookup`, 128 asking rows times the
+kernel's offsets for :func:`neighbor_table`), stages the window of the
+table between the lower bounds of its least and greatest query in shared
+memory (a device-memory search where it does not fit), and each query
+binary-searches that window. Both are bound by bytes: each input read
+once, each output written once.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import itertools
 
 import torch
 
 from . import build
 
 INVALID = 2**31 - 1  # int32 max: the invalid-key sentinel
+# the kernels' limits (csrc/lookup.cu: idx * 2 + hit fits an int32)
+MAX_OFFSETS = 32
+MAX_TABLE = 2**30
+
+
+def _floordiv(a, b: int):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def coords_to_keys(coords, grid, valid=None):
+    """(..., 3) zyx int coords + grid (nz, ny, nx) → (...) int32 linear
+    keys; out-of-range or invalid sites → INVALID."""
+    nz, ny, nx = (int(g) for g in grid)
+    z, y, x = coords[..., 0], coords[..., 1], coords[..., 2]
+    ok = (z >= 0) & (z < nz) & (y >= 0) & (y < ny) & (x >= 0) & (x < nx)
+    if valid is not None:
+        ok = ok & valid
+    key = ((z * ny + y) * nx + x).to(torch.int32)
+    return torch.where(ok, key, INVALID)
+
+
+def keys_to_coords(keys, grid):
+    """(...) keys → (..., 3) int32 zyx coords, -1 for INVALID."""
+    _, ny, nx = (int(g) for g in grid)
+    z = _floordiv(keys, ny * nx)
+    rem = keys - z * (ny * nx)
+    y = _floordiv(rem, nx)
+    x = rem - y * nx
+    coords = torch.stack([z, y, x], dim=-1).to(torch.int32)
+    return torch.where((keys != INVALID)[..., None], coords, -1)
+
+
+def kernel_offsets(kernel, device, centered=True):
+    """Kernel size (kz, ky, kx) → (K, 3) int32 offsets in z-major order,
+    centered for a submanifold conv, from 0 for a strided one."""
+    ranges = [range(k) for k in kernel]
+    offs = torch.tensor(list(itertools.product(*ranges)), dtype=torch.int32,
+                        device=device).reshape(-1, 3)
+    if centered:
+        offs = offs - torch.tensor([k // 2 for k in kernel],
+                                   dtype=torch.int32, device=device)
+    return offs
 
 
 def lookup_plain(keys_sorted, query_keys):
@@ -38,6 +88,22 @@ def bytes_moved(v: int, query_keys) -> int:
     return b * q * (4 + 4 + 1) + b * v * 4
 
 
+def _check_tables(what, keys_sorted, query_keys):
+    """True for CUDA tensors (the kernel), False for CPU ones (the plain
+    version); raises for anything else."""
+    ts, qs = keys_sorted.shape, query_keys.shape
+    if len(ts) != 2 or len(qs) != 2 or ts[0] != qs[0]:
+        raise ValueError(f"{what}: tables {tuple(ts)}, queries {tuple(qs)}")
+    if keys_sorted.dtype != torch.int32 or query_keys.dtype != torch.int32:
+        raise TypeError(f"{what}: keys must be int32")
+    if keys_sorted.is_cuda and query_keys.device == keys_sorted.device:
+        return True
+    if keys_sorted.is_cpu and query_keys.is_cpu:
+        return False
+    raise ValueError(f"{what}: unsupported devices {keys_sorted.device}, "
+                     f"{query_keys.device}")
+
+
 def lookup(keys_sorted, query_keys):
     """(B, V) int32 key tables, ascending with an ``INVALID`` tail, and
     (B, Q) int32 queries → (idx (B, Q) int32, hit (B, Q) bool): ``hit``
@@ -47,36 +113,138 @@ def lookup(keys_sorted, query_keys):
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
-    if keys_sorted.dim() != 2 or query_keys.dim() != 2 or (
-            keys_sorted.shape[0] != query_keys.shape[0]):
-        raise ValueError(f"lookup: tables {tuple(keys_sorted.shape)}, "
-                         f"queries {tuple(query_keys.shape)}")
-    if keys_sorted.dtype != torch.int32 or query_keys.dtype != torch.int32:
-        raise TypeError("lookup: keys must be int32")
+    on_card = _check_tables("lookup", keys_sorted, query_keys)
     b, v = keys_sorted.shape
     q = query_keys.shape[1]
-    dev = keys_sorted.device
     if v == 0:
-        return (torch.zeros((b, q), dtype=torch.int32, device=dev),
-                torch.zeros((b, q), dtype=torch.bool, device=dev))
-    if dev.type == "cpu" and query_keys.device.type == "cpu":
+        return (query_keys.new_zeros((b, q)),
+                torch.zeros((b, q), dtype=torch.bool,
+                            device=keys_sorted.device))
+    if not on_card:
         return lookup_plain(keys_sorted, query_keys)
-    if dev.type != "cuda" or query_keys.device != dev:
-        raise ValueError(f"lookup: unsupported devices {dev}, "
-                         f"{query_keys.device}")
+    if v > MAX_TABLE:
+        raise ValueError(f"lookup: table of {v} keys")
+    dev = keys_sorted.device
     idx = torch.empty((b, q), dtype=torch.int32, device=dev)
     hit = torch.empty((b, q), dtype=torch.bool, device=dev)
-    if b == 0 or q == 0:
-        return idx, hit
-    keys_sorted = keys_sorted.contiguous()
-    query_keys = query_keys.contiguous()
-    err = build.lib().de6d_lookup(
-        keys_sorted.data_ptr(), query_keys.data_ptr(), idx.data_ptr(),
-        hit.data_ptr(), b, v, q, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.check(err, "lookup")
-    lookup.launches += 1
+    if b and q:
+        keys_sorted = keys_sorted.contiguous()
+        query_keys = query_keys.contiguous()
+        build.check(build.lib().de6d_lookup(
+            keys_sorted.data_ptr(), query_keys.data_ptr(), idx.data_ptr(),
+            hit.data_ptr(), b, v, q,
+            torch.cuda.current_stream(dev).cuda_stream), "lookup")
+        lookup.launches += 1
     return idx, hit
 
 
 lookup.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _geometry(grid, ask_grid, kernel, stride, padding, centered):
+    """(K, the kernel's 14 geometry ints as a C array) for hashable
+    tuples: neighbour k of a site at ask coords c is at c * stride -
+    padding' + (k's z-major offset from 0), padding' = padding + kernel //
+    2 for a centered kernel. Raises for what the kernel does not take."""
+    kz, ky, kx = (int(k) for k in kernel)
+    nz, ny, nx = (int(g) for g in grid)
+    if kz * ky * kx > MAX_OFFSETS or min(kz, ky, kx) < 1:
+        raise ValueError(f"neighbor_table: kernel {kernel} has more than "
+                         f"{MAX_OFFSETS} offsets")
+    if nz * ny * nx >= INVALID:
+        raise ValueError(f"neighbor_table: grid {grid} too large for int32 "
+                         "keys")
+    pad = [int(p) + (int(k) // 2 if centered else 0)
+           for p, k in zip(padding, kernel)]
+    geom = (ctypes.c_int * 14)(nz, ny, nx, int(ask_grid[1]),
+                               int(ask_grid[2]), kz, ky, kx,
+                               *(int(s) for s in stride), *pad)
+    return kz * ky * kx, geom
+
+
+def neighbor_keys_plain(ask_keys, grid, ask_grid, kernel, stride=(1, 1, 1),
+                        padding=(0, 0, 0), centered=True):
+    """(B, Q) asking keys → (B, Q, K) int32 neighbour keys in ``grid``:
+    the asking sites' coords times ``stride`` minus ``padding`` plus each
+    z-major kernel offset, INVALID outside the grid or for an INVALID
+    asking row."""
+    dev = ask_keys.device
+    coords = keys_to_coords(ask_keys, ask_grid)
+    st = torch.tensor([int(s) for s in stride], dtype=torch.int32,
+                      device=dev)
+    pad = torch.tensor([int(p) for p in padding], dtype=torch.int32,
+                       device=dev)
+    nbr = (coords * st - pad)[:, :, None, :] + kernel_offsets(
+        kernel, dev, centered)[None, None]
+    return coords_to_keys(nbr, grid, (ask_keys != INVALID)[..., None])
+
+
+def neighbor_table_plain(keys_sorted, ask_keys, grid, ask_grid, kernel,
+                         stride=(1, 1, 1), padding=(0, 0, 0), centered=True):
+    """Plain PyTorch version of :func:`neighbor_table`: the neighbour keys
+    (:func:`neighbor_keys_plain`) and :func:`lookup_plain`."""
+    nbr_keys = neighbor_keys_plain(ask_keys, grid, ask_grid, kernel, stride,
+                                   padding, centered)
+    b, q, k = nbr_keys.shape
+    if keys_sorted.shape[1] == 0:
+        return (torch.zeros((b, q, k), dtype=torch.int32,
+                            device=ask_keys.device),
+                torch.zeros((b, q, k), dtype=torch.bool,
+                            device=ask_keys.device))
+    idx, hit = lookup_plain(keys_sorted, nbr_keys.reshape(b, q * k))
+    return idx.reshape(b, q, k), hit.reshape(b, q, k)
+
+
+def neighbor_bytes(keys_sorted, ask_keys, k: int) -> int:
+    """Bytes :func:`neighbor_table` must move: each table read once, the
+    asking keys read once unless they are the table itself (a submanifold
+    conv), (idx, hit) written once per (row, offset)."""
+    b, v = keys_sorted.shape
+    q = ask_keys.shape[1]
+    same = (ask_keys.data_ptr() == keys_sorted.data_ptr()
+            and ask_keys.shape == keys_sorted.shape)
+    return b * v * 4 + (0 if same else b * q * 4) + b * q * k * (4 + 1)
+
+
+def neighbor_table(keys_sorted, ask_keys, grid, ask_grid, kernel,
+                   stride=(1, 1, 1), padding=(0, 0, 0), centered=True):
+    """Neighbour table of a sparse conv: for each asking site (B, Q) int32
+    keys in ``ask_grid`` (INVALID rows allowed anywhere) and each of the
+    K = kz * ky * kx kernel offsets in z-major order, the site's neighbour
+    at ``ask_coords * stride - padding + offset`` (offsets centered on 0
+    when ``centered``) looked up in the (B, V) ascending tables of
+    ``grid`` → (idx (B, Q, K) int32, hit (B, Q, K) bool), exactly as
+    :func:`lookup` of those neighbour keys (INVALID outside the grid).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which generates the neighbour keys itself.
+    """
+    if not _check_tables("neighbor_table", keys_sorted, ask_keys):
+        return neighbor_table_plain(keys_sorted, ask_keys, grid, ask_grid,
+                                    kernel, stride, padding, centered)
+    b, v = keys_sorted.shape
+    if v > MAX_TABLE:
+        raise ValueError(f"neighbor_table: table of {v} keys")
+    k, geom = _geometry(tuple(grid), tuple(ask_grid), tuple(kernel),
+                        tuple(stride), tuple(padding), bool(centered))
+    q = ask_keys.shape[1]
+    dev = keys_sorted.device
+    if v == 0:  # no table: no hit, idx 0
+        return (torch.zeros((b, q, k), dtype=torch.int32, device=dev),
+                torch.zeros((b, q, k), dtype=torch.bool, device=dev))
+    idx = torch.empty((b, q, k), dtype=torch.int32, device=dev)
+    hit = torch.empty((b, q, k), dtype=torch.bool, device=dev)
+    if b and q:
+        keys_sorted = keys_sorted.contiguous()
+        ask_keys = ask_keys.contiguous()
+        build.check(build.lib().de6d_neighbor_table(
+            keys_sorted.data_ptr(), ask_keys.data_ptr(), idx.data_ptr(),
+            hit.data_ptr(), b, v, q, geom,
+            torch.cuda.current_stream(dev).cuda_stream),
+            "neighbor_table")
+        neighbor_table.launches += 1
+    return idx, hit
+
+
+neighbor_table.launches = 0

@@ -10,9 +10,10 @@ of word ``(i, j // 64)`` set where ``IoU_bev(i, j) > thresh`` for
 
 The kernel first pre-tests each live pair on the boxes' BEV bounds and
 runs the IoU only on the pairs whose bit is not provably 0
-(:func:`skippable_plain` is the rule's plain twin; the argument is in
-``csrc/nms_mask.cu``). It is bound by fp32 operations: ``PRETEST_FLOPS``
-for each of the ``count * (count - 1) / 2`` live pairs of a sample and
+(``nms_pretest.skippable_plain`` is the rule's plain twin; the argument
+is in ``csrc/nms_pretest.cuh``). It is bound by fp32 operations:
+``PRETEST_FLOPS`` for each of the ``count * (count - 1) / 2`` live pairs
+of a sample and
 ``FLOPS_PER_IOU`` for each surviving pair (:func:`survivors_plain`).
 
 The resolve (``nms_resolve``) is plain XLA in the JAX package (fixpoint
@@ -28,19 +29,12 @@ import torch
 from .. import iou3d
 from . import build
 from .nms_fused import FLOPS_PER_IOU  # noqa: F401  (same IoU, same count)
+from .nms_pretest import (  # noqa: F401  (the pre-test's plain twin)
+    GAP_ABS, GAP_REL, MIN_EDGE, MIN_THRESH, PRETEST_FLOPS, bounds,
+    skippable_pairs, skippable_plain,
+)
 
 WORD = 64
-# the pre-test of csrc/nms_mask.cu: edges >= MIN_EDGE and area >=
-# MIN_EDGE**2 on both boxes, thresh >= MIN_THRESH, and bounds separated by
-# more than GAP_ABS + GAP_REL * (largest |coordinate| of the two boxes)
-MIN_EDGE = 1e-2
-MIN_THRESH = 1e-3
-GAP_ABS = 1e-3
-GAP_REL = 1e-4
-# fp32 operations of the pre-test per pair, counted from its source: 4
-# differences and 3 maxima for the gap, the larger S, a product and a sum
-# for delta, the compare
-PRETEST_FLOPS = 11
 # elements of one (B, rows, P) IoU tile of the plain version
 PLAIN_TILE_ELEMS = 1 << 23
 _MAX_GRID = 65535
@@ -95,43 +89,6 @@ def nms_suppression_mask_plain(packed, counts, thresh: float):
     return torch.cat(words, dim=1)
 
 
-def _bounds(packed):
-    """(B, 9, P) packed corners → per box x0, x1, y0, y1, S (largest
-    |coordinate|) and ``ok`` (edges and area not degenerate), each (B, P),
-    in the kernel's fp32 operations."""
-    x = packed[:, 0:4].float()
-    y = packed[:, 4:8].float()
-    ex = x.roll(-1, dims=1) - x
-    ey = y.roll(-1, dims=1) - y
-    lim = torch.tensor(MIN_EDGE, dtype=torch.float32) ** 2
-    ok = (packed[:, 8] >= lim) & (ex * ex + ey * ey >= lim).all(dim=1)
-    s = torch.maximum(x.abs().amax(dim=1), y.abs().amax(dim=1))
-    return x.amin(dim=1), x.amax(dim=1), y.amin(dim=1), y.amax(dim=1), s, ok
-
-
-def _skippable(rows, cols):
-    """Pair grid of :func:`_bounds` tuples (rows on dim 1, columns on
-    dim 2) → bool where the pre-test proves the bit 0."""
-    rx0, rx1, ry0, ry1, rs, rok = (v[:, :, None] for v in rows)
-    cx0, cx1, cy0, cy1, cs, cok = (v[:, None, :] for v in cols)
-    gap = torch.maximum(torch.maximum(cx0 - rx1, rx0 - cx1),
-                        torch.maximum(cy0 - ry1, ry0 - cy1))
-    delta = GAP_ABS + GAP_REL * torch.maximum(rs, cs)
-    return rok & cok & (gap > delta)
-
-
-def skippable_plain(packed, thresh: float):
-    """Plain twin of the kernel's pre-test: (B, 9, P) packed corners →
-    (B, P, P) bool, True where the pair's IoU is provably not above
-    ``thresh`` (so the kernel skips its IoU). All False when ``thresh <
-    MIN_THRESH``."""
-    b, _, p = packed.shape
-    if not thresh >= MIN_THRESH:
-        return torch.zeros(b, p, p, dtype=torch.bool, device=packed.device)
-    bounds = _bounds(packed)
-    return _skippable(bounds, bounds)
-
-
 def survivors_plain(packed, counts, thresh: float):
     """(B,) int64: the live pairs ``i < j < count`` the kernel's pre-test
     leaves for the full IoU (all live pairs when ``thresh < MIN_THRESH``),
@@ -140,7 +97,7 @@ def survivors_plain(packed, counts, thresh: float):
     dev = packed.device
     counts = torch.clamp(counts.to(dev).long(), 0, p)
     idx = torch.arange(p, device=dev)
-    bounds = _bounds(packed)
+    box_b = bounds(packed)
     pretest = thresh >= MIN_THRESH
     chunk = max(1, min(p, PLAIN_TILE_ELEMS // max(1, b * p)))
     total = torch.zeros(b, dtype=torch.int64, device=dev)
@@ -149,8 +106,8 @@ def survivors_plain(packed, counts, thresh: float):
         live = (i < idx[None])[None] & (idx[None, None] < counts[:, None,
                                                                  None])
         if pretest:
-            rows = tuple(v[:, r0:r0 + chunk] for v in bounds)
-            live &= ~_skippable(rows, bounds)
+            rows = tuple(v[:, r0:r0 + chunk] for v in box_b)
+            live &= ~skippable_pairs(rows, box_b)
         total += live.sum(dim=(1, 2))
     return total
 

@@ -6,45 +6,20 @@ capacity V: ``keys`` are z-major linear coordinates sorted ascending per
 sample, ``INVALID`` (int32 max) for empty slots. Neighbour lookup is a
 search in the sorted table (``ops/kernels/lookup.py``); every
 convolution, submanifold or strided, is a gather-GEMM from a neighbour
-table (``ops/kernels/sparse_conv.py``). Every function returns what the
-JAX function returns, vmapped over B.
+table (``ops/kernels/sparse_conv.py``); both tables come from one
+neighbour-table launch that generates the neighbour keys itself. Every
+function returns what the JAX function returns, vmapped over B.
 """
 
 from __future__ import annotations
 
-import itertools
-
 import torch
 
-from .kernels.lookup import INVALID, lookup  # noqa: F401  (the JAX API)
+from .kernels.lookup import (  # noqa: F401  (the JAX API)
+    INVALID, _floordiv, coords_to_keys, keys_to_coords, lookup,
+    neighbor_table,
+)
 from .kernels.sparse_conv import sparse_conv
-
-
-def _floordiv(a, b: int):
-    return torch.div(a, b, rounding_mode="floor")
-
-
-def coords_to_keys(coords, grid, valid=None):
-    """(..., 3) zyx int coords + grid (nz, ny, nx) → (...) int32 linear
-    keys; out-of-range or invalid sites → INVALID."""
-    nz, ny, nx = (int(g) for g in grid)
-    z, y, x = coords[..., 0], coords[..., 1], coords[..., 2]
-    ok = (z >= 0) & (z < nz) & (y >= 0) & (y < ny) & (x >= 0) & (x < nx)
-    if valid is not None:
-        ok = ok & valid
-    key = ((z * ny + y) * nx + x).to(torch.int32)
-    return torch.where(ok, key, INVALID)
-
-
-def keys_to_coords(keys, grid):
-    """(...) keys → (..., 3) int32 zyx coords, -1 for INVALID."""
-    _, ny, nx = (int(g) for g in grid)
-    z = _floordiv(keys, ny * nx)
-    rem = keys - z * (ny * nx)
-    y = _floordiv(rem, nx)
-    x = rem - y * nx
-    coords = torch.stack([z, y, x], dim=-1).to(torch.int32)
-    return torch.where((keys != INVALID)[..., None], coords, -1)
 
 
 def sort_sparse(features, keys):
@@ -56,37 +31,14 @@ def sort_sparse(features, keys):
     return feats, torch.gather(keys, 1, order)
 
 
-def _kernel_offsets(kernel, device, centered=True):
-    """Kernel size (kz, ky, kx) → (K, 3) int32 offsets in z-major order,
-    centered for a submanifold conv, from 0 for a strided one."""
-    ranges = [range(k) for k in kernel]
-    offs = torch.tensor(list(itertools.product(*ranges)), dtype=torch.int32,
-                        device=device).reshape(-1, 3)
-    if centered:
-        offs = offs - torch.tensor([k // 2 for k in kernel],
-                                   dtype=torch.int32, device=device)
-    return offs
-
-
-def _table(keys_sorted, nbr, grid, nbr_valid):
-    """Neighbour coords (B, Q, K, 3) → (idx, hit) (B, Q, K) in the
-    sorted tables ``keys_sorted``, one lookup for the batch."""
-    b, q, k, _ = nbr.shape
-    nbr_keys = coords_to_keys(nbr, grid, nbr_valid[..., None])
-    idx, hit = lookup(keys_sorted, nbr_keys.reshape(b, q * k))
-    return idx.reshape(b, q, k), hit.reshape(b, q, k)
-
-
 def subm_neighbor_table(keys_sorted, grid, kernel=(3, 3, 3), valid=None):
     """(idx (B, V, K), hit (B, V, K)) neighbour table of a submanifold
-    conv; it depends only on the key set, so a stage builds it once."""
-    if valid is None:
-        valid = keys_sorted != INVALID
-    coords = keys_to_coords(keys_sorted, grid)
-    offsets = _kernel_offsets(kernel, keys_sorted.device)
-    nbr = coords[:, :, None, :] + offsets[None, None]
-    idx, hit = _table(keys_sorted, nbr, grid, valid)
-    return idx, hit & valid[..., None]
+    conv; it depends only on the key set, so a stage builds it once.
+    ``hit`` holds only on ``valid`` rows (every non-INVALID key by
+    default)."""
+    ask = keys_sorted if valid is None else torch.where(
+        valid, keys_sorted, INVALID)
+    return neighbor_table(keys_sorted, ask, grid, grid, kernel)
 
 
 # The JAX package's name for the table-driven (submanifold) conv:
@@ -135,14 +87,8 @@ def strided_neighbor_table(keys_sorted, out_keys_sorted, grid, out_grid,
                            kernel, stride, padding):
     """(idx (B, Q, K), hit (B, Q, K)): for each output site of a strided
     conv and kernel offset, its input row."""
-    out_coords = keys_to_coords(out_keys_sorted, out_grid)
-    out_valid = out_keys_sorted != INVALID
-    base = out_coords * torch.tensor(stride, dtype=torch.int32,
-                                     device=out_coords.device) - torch.tensor(
-        padding, dtype=torch.int32, device=out_coords.device)
-    offs = _kernel_offsets(kernel, out_coords.device, centered=False)
-    nbr = base[:, :, None, :] + offs[None, None]
-    return _table(keys_sorted, nbr, grid, out_valid)
+    return neighbor_table(keys_sorted, out_keys_sorted, grid, out_grid,
+                          kernel, stride, padding, centered=False)
 
 
 def strided_conv(features, keys_sorted, grid, weights, kernel, stride,

@@ -24,6 +24,7 @@ from de6d_tpu_torch.ops.kernels import (
 )
 from torch_fixtures import (  # noqa: F401
     adversarial_boxes, canvas_inputs, cuda_device, nms_boxes,
+    sparse_site_keys,
 )
 
 
@@ -43,23 +44,49 @@ def test_canvas_kernel_equals_plain(cuda_device, dtype):  # noqa: F811
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p,post_k,spread", [(1024, 500, 40.0),
-                                             (4096, 500, 80.0),
-                                             (512, 512, 12.0),
-                                             (256, 256, 20.0)])  # Det6D
-def test_nms_kernel_equals_plain(cuda_device, p, post_k, spread):  # noqa: F811
+@pytest.mark.parametrize("p,post_k,spread,thresh", [
+    (1024, 500, 40.0, 0.01),   # PointPillars' and SECOND's prefix
+    (4096, 500, 80.0, 0.01),
+    (4096, 4096, 80.0, 0.01),  # no truncation
+    (512, 512, 12.0, 0.85),
+    (256, 256, 20.0, 0.01),    # Det6D, 3DSSD, IA-SSD
+    (256, 256, 4.0, 1e-3),     # everything overlaps
+    (384, 100, 20.0, 0.0),     # below the pre-test's floor
+])
+def test_nms_kernel_equals_plain(cuda_device, p, post_k, spread,  # noqa: F811
+                                 thresh):
+    """Keep flags identical to the plain version, ragged counts with 0."""
     rng = np.random.RandomState(4)
     boxes = torch.from_numpy(nms_boxes(rng, 8, p, spread=spread)).to(
         cuda_device)
     counts = torch.tensor([p, p // 2, 3, 0, p, 129, 128, p - 1],
                           dtype=torch.int32, device=cuda_device)
     before = nms_fused.nms_keep_batched.launches
-    got = nms_fused.nms_keep_batched(boxes, counts, 0.01, post_k=post_k)
+    got = nms_fused.nms_keep_batched(boxes, counts, thresh, post_k=post_k)
     torch.cuda.synchronize()
     assert nms_fused.nms_keep_batched.launches == before + 1
-    ref = nms_fused.nms_keep_batched_plain(boxes, counts, 0.01, post_k)
+    ref = nms_fused.nms_keep_batched_plain(boxes, counts, thresh, post_k)
     assert torch.equal(got, ref)
     assert got[:, :p // 2].any(), "test needs keeps"
+    assert not got[3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [7, 9])
+def test_nms_corners_equal_pack_bev(cuda_device, width):  # noqa: F811
+    """The corners the NMS kernel builds equal ``iou3d.pack_bev``'s bit
+    for bit: random, adversarial and far-off boxes, yaw up to +-100."""
+    rng = np.random.RandomState(width)
+    boxes = np.concatenate([
+        nms_boxes(rng, 1, 1000, spread=80.0)[0],
+        adversarial_boxes(rng, far=(0.0, 70.0, 1e3), n_random=20)], axis=0)
+    boxes[::7, 6] = rng.uniform(-100, 100, len(boxes[::7]))
+    extra = rng.randn(len(boxes), width - 7).astype(np.float32)
+    t = torch.from_numpy(np.concatenate([boxes, extra], 1)[None]).to(
+        cuda_device).repeat(2, 1, 1)
+    got = nms_fused.pack_bev(t)
+    want = iou3d.pack_bev(t[..., :7]).contiguous()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -264,22 +291,115 @@ def lookup_inputs(rng, b, v, q, fill):
     (4000, 12000, 4000),      # full table, the z-conv's queries
     (16000, 5000, 0),         # empty table
     (40000, 100000, 40000),   # beyond the TPU kernel's 16384 cap
-    (120000, 200000, 90000),  # searched in global memory
+    (120000, 200000, 90000),  # windows beyond shared memory
     (1, 10, 1),
+    (16000, 432000, -12500),  # sorted runs: a submanifold table's keys
 ])
 def test_lookup_kernel_equals_plain(cuda_device, v, q, fill):  # noqa: F811
-    tables, queries = lookup_inputs(np.random.RandomState(v), 3, v, q, fill)
-    t = torch.from_numpy(tables).to(cuda_device)
-    qk = torch.from_numpy(queries).to(cuda_device)
+    if fill < 0:  # the neighbour keys of a submanifold table
+        grid = (41, 1600, 1408)
+        tables = sparse_site_keys(np.random.RandomState(v), grid, v,
+                                  (-fill, -fill // 2, 0))
+        t = torch.from_numpy(tables).to(cuda_device)
+        coords = lookup.keys_to_coords(t, grid)
+        nbr = coords[:, :, None] + lookup.kernel_offsets(
+            (3, 3, 3), cuda_device)[None, None]
+        qk = lookup.coords_to_keys(nbr, grid, (t != sparse.INVALID)[
+            ..., None]).reshape(3, -1)
+    else:
+        tables, queries = lookup_inputs(np.random.RandomState(v), 3, v, q,
+                                        fill)
+        t = torch.from_numpy(tables).to(cuda_device)
+        qk = torch.from_numpy(queries).to(cuda_device)
     before = lookup.lookup.launches
     idx, hit = lookup.lookup(t, qk)
     torch.cuda.synchronize()
     assert lookup.lookup.launches == before + 1
     ridx, rhit = lookup.lookup_plain(t, qk)
     assert torch.equal(hit, rhit) and torch.equal(idx, ridx)
-    assert bool(hit.any()) == (fill > 0)
+    assert bool(hit.any()) == (fill != 0)
     cidx, chit = lookup.lookup(t.cpu(), qk.cpu())
     assert torch.equal(chit, hit.cpu()) and torch.equal(cidx, idx.cpu())
+
+
+NBR_CASES = {
+    # (grid, V, counts, ask: "self" or (ask grid, counts), kernel, stride,
+    #  padding, centered)
+    "subm_s1": ((41, 1600, 1408), 16000, (12500, 16000, 0), "self",
+                (3, 3, 3), (1, 1, 1), (0, 0, 0), True),
+    "subm_s4": ((5, 200, 176), 4000, (4000, 2500, 1), "self", (3, 3, 3),
+                (1, 1, 1), (0, 0, 0), True),
+    "down_s2": ((41, 1600, 1408), 16000, (12500, 900, 0),
+                ((21, 800, 704), (16000, 700, 30)), (3, 3, 3), (2, 2, 2),
+                (1, 1, 1), False),
+    "down_s4": ((11, 400, 352), 8000, (8000, 5000, 0),
+                ((5, 200, 176), (4000, 4000, 9)), (3, 3, 3), (2, 2, 2),
+                (0, 1, 1), False),
+    "down_z": ((5, 200, 176), 4000, (4000, 3000, 0),
+               ((2, 200, 176), (4000, 1000, 0)), (3, 1, 1), (2, 1, 1),
+               (0, 0, 0), False),
+    # a table whose windows outgrow shared memory, and a 1 x 1 x 5 kernel
+    "v40000_k5": ((41, 1600, 1408), 40000, (40000, 20000, 0), "self",
+                  (1, 1, 5), (1, 1, 1), (0, 0, 0), True),
+    "tiny_grid": ((3, 4, 5), 60, (60, 17, 0), "self", (3, 3, 3), (1, 1, 1),
+                  (0, 0, 0), True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sorted", "invalid_rows", "shuffled"])
+@pytest.mark.parametrize("case", sorted(NBR_CASES))
+def test_neighbor_table_kernel_equals_plain(cuda_device, case, order):  # noqa: F811
+    """``idx`` and ``hit`` identical to ``neighbor_table_plain`` everywhere
+    (misses, out-of-grid neighbours and INVALID rows included): sites on
+    every grid face, INVALID tails, a sample without sites; asking rows
+    sorted (the served order), with INVALID rows inside, or shuffled."""
+    grid, v, counts, ask, kernel, stride, padding, centered = \
+        NBR_CASES[case]
+    rng = np.random.RandomState(len(case))
+    keys = torch.from_numpy(sparse_site_keys(rng, grid, v, counts)).to(
+        cuda_device)
+    if ask == "self":
+        ask_grid, ask_keys = grid, keys.clone()
+    else:
+        ask_grid, ask_counts = ask
+        ask_keys = torch.from_numpy(sparse_site_keys(
+            rng, ask_grid, max(ask_counts), ask_counts)).to(cuda_device)
+    if order == "invalid_rows":
+        drop = torch.from_numpy(rng.rand(*ask_keys.shape) < 0.3).to(
+            cuda_device)
+        ask_keys = torch.where(drop, sparse.INVALID, ask_keys)
+    elif order == "shuffled":
+        ask_keys = ask_keys[:, torch.randperm(ask_keys.shape[1],
+                                              device=cuda_device)]
+    ask_keys = ask_keys.contiguous()
+    before = lookup.neighbor_table.launches
+    idx, hit = lookup.neighbor_table(keys, ask_keys, grid, ask_grid, kernel,
+                                     stride, padding, centered)
+    torch.cuda.synchronize()
+    assert lookup.neighbor_table.launches == before + 1
+    ridx, rhit = lookup.neighbor_table_plain(keys, ask_keys, grid, ask_grid,
+                                             kernel, stride, padding,
+                                             centered)
+    assert torch.equal(hit, rhit) and torch.equal(idx, ridx)
+    assert bool(hit.any())
+
+
+@pytest.mark.cuda
+def test_neighbor_table_without_table_launches_nothing(cuda_device):  # noqa: F811
+    """A (B, 0) table on the card gives the plain version's all-miss
+    answer with no launch and no plain path run there."""
+    grid = (41, 1600, 1408)
+    keys = torch.zeros((2, 0), dtype=torch.int32, device=cuda_device)
+    ask_keys = torch.from_numpy(sparse_site_keys(
+        np.random.RandomState(0), grid, 300, (300, 7))).to(cuda_device)
+    before = lookup.neighbor_table.launches
+    idx, hit = lookup.neighbor_table(keys, ask_keys, grid, grid, (3, 3, 3))
+    assert lookup.neighbor_table.launches == before
+    ridx, rhit = lookup.neighbor_table_plain(keys.cpu(), ask_keys.cpu(),
+                                             grid, grid, (3, 3, 3))
+    assert idx.is_cuda and hit.is_cuda
+    assert torch.equal(idx.cpu(), ridx) and torch.equal(hit.cpu(), rhit)
 
 
 def conv_inputs(rng, b, v, q, k, cin, cout, dtype, device):

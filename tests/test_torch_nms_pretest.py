@@ -1,10 +1,13 @@
-"""The suppression-mask kernel's bound pre-test (``csrc/nms_mask.cu``) by
-its plain twin ``ops/kernels/nms_mask.py:skippable_plain``: a pair it
+"""The NMS kernels' bound pre-test (``csrc/nms_pretest.cuh``, shared by
+``csrc/nms_mask.cu`` and ``csrc/nms_fused.cu``) by its plain twin
+``ops/kernels/nms_pretest.py:skippable_plain``: a pair it
 skips must have a bit of 0, so its overlap must be exactly 0 in the
 port's plain IoU (the kernel's arithmetic) and its IoU not above
 ``thresh`` in the JAX package's ``iou3d.boxes_iou_bev`` too, on boxes
 that touch, lie 1e-6 m apart, have parallel edges, sit at the pre-test's
-own margin, or measure 1e-2 m to 1e4 m far from the origin."""
+own margin, or measure 1e-2 m to 1e4 m far from the origin. The fused
+NMS's plain version with the pre-test applied to its kept-vs-column and
+diagonal pairs keeps the same boxes as without it."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +18,7 @@ from hypothesis import strategies as st
 
 from de6d_tpu.ops import iou3d as jax_iou3d
 from de6d_tpu_torch.ops import iou3d
+from de6d_tpu_torch.ops.kernels import nms_fused
 from de6d_tpu_torch.ops.kernels import nms_mask as nm
 from torch_fixtures import adversarial_boxes, nms_boxes
 
@@ -148,3 +152,33 @@ def test_survivors_count_the_unskipped_live_pairs(p, counts):
     want = (live & ~skip).sum(dim=(1, 2))
     assert torch.equal(nm.survivors_plain(packed, c, 0.1), want)
     assert int(want.sum()) < int(live.sum()), "test needs skipped pairs"
+
+
+@pytest.mark.parametrize("thresh", (1e-3, 0.01, 0.1, 0.85))
+@pytest.mark.parametrize("boxes", ["adversarial", "clustered"])
+def test_fused_nms_flags_are_the_same_with_the_pretest(boxes, thresh):
+    """``nms_keep_batched_plain`` with the pre-test skipping pairs (as the
+    kernel does for kept-vs-column and diagonal pairs) keeps exactly the
+    boxes it keeps without it, at every served threshold and around it."""
+    rng = np.random.RandomState(int(thresh * 1000))
+    if boxes == "adversarial":
+        adv = adversarial_boxes(rng, far=(0.0, 70.0), n_random=40)
+        p = -(-len(adv) // nms_fused.BLK) * nms_fused.BLK
+        t = np.concatenate([adv, nms_boxes(rng, 1, p - len(adv))[0]])[None]
+        counts = torch.tensor([len(adv)], dtype=torch.int32)
+    else:
+        # one sample: its (1, 128, 128) pair tiles stay below PyTorch's
+        # intra-op grain, so the loop runs no thread pool (under parallel
+        # test workers a pool's barriers cost ~0.5 s a column block)
+        t = nms_boxes(rng, 1, 384, spread=25.0)
+        counts = torch.tensor([300], dtype=torch.int32)
+    t = torch.from_numpy(t)
+    packed = iou3d.pack_bev(t)
+    assert bool(nm.skippable_plain(packed, thresh).any()), \
+        "test needs skipped pairs"
+    for post_k in (t.shape[1], 100):
+        want = nms_fused.nms_keep_batched_plain(t, counts, thresh, post_k)
+        got = nms_fused.nms_keep_batched_plain(t, counts, thresh, post_k,
+                                               pretest=True)
+        assert torch.equal(got, want)
+        assert want.any()

@@ -174,6 +174,32 @@ def nms_boxes(rng, b, p, spread=12.0, cluster=80):
     return boxes
 
 
+def sparse_site_keys(rng, grid, v, counts, faces=True):
+    """(B, V) int32 sorted unique site keys of ``grid`` (zyx), ``counts[b]``
+    of them in sample b and INVALID (int32 max) after: clusters of cells
+    around random centres, so that most kernel offsets find a neighbour,
+    and with ``faces`` a site on every face, edge and corner of the grid,
+    whose neighbours fall outside it."""
+    nz, ny, nx = grid
+    face = sorted({(z * ny + y) * nx + x for z in (0, nz // 2, nz - 1)
+                   for y in (0, ny // 2, ny - 1)
+                   for x in (0, nx // 2, nx - 1)}) if faces else []
+    keys = np.full((len(counts), v), 2**31 - 1, np.int32)
+    for b, n in enumerate(counts):
+        cells = set()
+        while len(cells) < min(2 * n, nz * ny * nx):
+            c = rng.randint(0, (nz, ny, nx))
+            for _ in range(30):
+                p = np.clip(c + rng.randint(-2, 3, 3), 0,
+                            np.array(grid) - 1)
+                cells.add(int((p[0] * ny + p[1]) * nx + p[2]))
+        rest = np.array(sorted(cells - set(face)), np.int64)
+        pick = np.concatenate([face[:n], rng.choice(
+            rest, n - min(n, len(face)), replace=False)])
+        keys[b, :n] = np.sort(pick)
+    return keys
+
+
 def run_jax_point_detector(jmodel, variables, post_cfg, num_class, pts, mask):
     """A single-stage point detector of the JAX package (3DSSD,
     3DSSD-SASA, IA-SSD) on (B, N, 4) points → what
