@@ -138,6 +138,23 @@ Phases, one status line each; any failure exits non-zero:
                     (:func:`check_second_parity`: stage keys, candidates,
                     detections).
 
+20. kernels / pv_rcnn — from one bf16 forward of the served PV-RCNN model
+                    (``configs/kitti_models/pv_rcnn.yaml``, weights drawn
+                    from a numpy seed) on the 8 scans clipped to its
+                    range: the FPS kernel at its keypoint shape (8 x 16384
+                    -> 2048) and the mask and resolve kernels on its 8 x
+                    1024 proposals and 8 x 100 final candidates, each
+                    against its plain version as in phases 5 and 8.
+21. serve / pv_rcnn — ``StreamingDetector`` with that model in bf16: per
+                    batch 1 FPS launch, 2 mask launches, 2 resolves, 8
+                    neighbour tables, 12 sparse convs, and no fused NMS,
+                    canvas, standalone lookup or f-fps.
+22. parity / pv_rcnn — PV-RCNN in fp32 (TF32 off) on 2 scans against
+                    ``de6d_tpu_torch/testdata/pvrcnn_jax_ref.npz``
+                    (:func:`check_pvrcnn_parity`: keypoint picks,
+                    proposals, RoIs, ``rcnn_cls`` / ``rcnn_reg``,
+                    detections).
+
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -174,6 +191,9 @@ SSD3D_SEED = IASSD_SEED = 2026  # no trained weights in the repository
 SECOND_CFG = ROOT / "configs/kitti_models/second.yaml"
 SECOND_PARAMS = ROOT / "bench_assets/second_params.npz"
 SECOND_REF = ROOT / "de6d_tpu_torch/testdata/second_jax_ref.npz"
+PVRCNN_CFG = ROOT / "configs/kitti_models/pv_rcnn.yaml"
+PVRCNN_REF = ROOT / "de6d_tpu_torch/testdata/pvrcnn_jax_ref.npz"
+PVRCNN_SEED = 2026  # no trained PV-RCNN weights in the repository
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # H100 SXM fp32 outside the tensor cores, an FMA counted as two; the
@@ -331,6 +351,10 @@ def load_ssd3d_scans():
 
 def load_second_scans():
     return load_clipped_scans(SECOND_CFG, SCANS)
+
+
+def load_pvrcnn_scans():
+    return load_clipped_scans(PVRCNN_CFG, SCANS)
 
 
 # ---------------------------------------------------------------------
@@ -1476,6 +1500,51 @@ def close_to(tag, name, got, want, tol, where=""):
     return d
 
 
+def pair_roi_lists(tag, b, roi_idx, ref_idx, rois, ref_rois, tie_gap, near,
+                   tol, source):
+    """One sample's RoI list (the ``source`` row each RoI came from, its
+    boxes) against the reference's. It may part from the reference's only
+    at a near-tie: at the first differing slot the two rows' reference
+    scores (``tie_gap(port row, reference row)``) within ``near``, or
+    RuntimeError. A list that holds the same set of rows in another
+    order, or that parts only onto twin rows (every slot still holds the
+    reference's box within ``tol``), counts as the reference's list.
+    Returns (port slots, reference slots) of the RoIs to compare, whether
+    the list counts as the reference's, and the parting (or None)."""
+    import numpy as np
+
+    same = roi_idx == ref_idx
+    # a swap of two tied candidates leaves the set of RoIs as it was;
+    # twin rows (same coordinates and features) give the same box in
+    # every slot: either way the list counts as the reference's
+    same_set = np.array_equal(np.sort(roi_idx), np.sort(ref_idx))
+    twins = bool((np.abs(rois - ref_rois) <= tol).all())
+    parting = None
+    if not same.all():
+        j = int(np.argmin(same))
+        p, r = int(roi_idx[j]), int(ref_idx[j])
+        gap = tie_gap(p, r)
+        parting = {"sample": b, "slot": j, "port": p, "ref": r,
+                   "score_gap": gap, "allowed": near, "same_set": same_set,
+                   "same_boxes": twins}
+        print(f"{tag}: sample {b} parts from the reference at RoI {j} "
+              f"(port {source} {p}, reference {source} {r}); score gap "
+              f"{gap:.3g} vs {near:.3g}; same set of RoIs: {same_set}, "
+              f"same box in every slot: {twins}", flush=True)
+        if gap > near:
+            raise RuntimeError(f"{tag}: RoI {j} of sample {b} is no "
+                               "near-tie")
+    if twins and not same_set:  # slot by slot
+        gi = ri = np.arange(len(ref_idx))
+    else:  # RoIs from the same row, reference slot → port slot
+        slot = {int(p): j for j, p in enumerate(roi_idx)}
+        pairs = [(slot[int(p)], j) for j, p in enumerate(ref_idx)
+                 if int(p) in slot]
+        gi = np.array([g for g, _ in pairs], np.int64)
+        ri = np.array([r for _, r in pairs], np.int64)
+    return gi, ri, same_set or twins, parting
+
+
 def check_pointrcnn_parity(out, post, ref, tol=PARITY_TOL):
     """PointRCNN against the JAX reference ``ref`` (the fixture's arrays).
 
@@ -1557,43 +1626,15 @@ def check_pointrcnn_parity(out, post, ref, tol=PARITY_TOL):
         diffs[k] = 0.0
     for b in range(roi_idx.shape[0]):
         c = int(ref["roi_count"][b])
-        same = roi_idx[b, :c] == ref["roi_idx"][b, :c]
         if int(roi_cnt[b]) != c:
             raise RuntimeError(f"parity / pointrcnn: {roi_cnt[b]} RoIs in "
                                f"sample {b}, reference {c}")
-        # a swap of two tied candidates leaves the set of RoIs as it was;
-        # twin points (same coordinates and features) give the same box
-        # in every slot: either way the list counts as the reference's
-        same_set = np.array_equal(np.sort(roi_idx[b, :c]),
-                                  np.sort(ref["roi_idx"][b, :c]))
-        twins = bool((np.abs(got["rois"][b, :c] - ref["rois"][b, :c])
-                      <= tol).all())
-        whole = same_set or twins
-        if not same.all():
-            j = int(np.argmin(same))
-            p, r = int(roi_idx[b, j]), int(ref["roi_idx"][b, j])
-            gap = tie_gap(b, p, r)
-            partings.append({"sample": b, "slot": j, "port": p, "ref": r,
-                             "score_gap": gap, "allowed": near,
-                             "same_set": same_set, "same_boxes": twins})
-            print(f"parity / pointrcnn: sample {b} parts from the "
-                  f"reference at RoI {j} (port point {p}, reference point "
-                  f"{r}); score gap {gap:.3g} vs {near:.3g}; same set of "
-                  f"RoIs: {same_set}, same box in every slot: {twins}",
-                  flush=True)
-            if gap > near:
-                raise RuntimeError(
-                    f"parity / pointrcnn: RoI {j} of sample {b} is no "
-                    "near-tie")
-        if twins and not same_set:  # slot by slot
-            gi = ri = np.arange(c)
-        else:  # RoIs from the same point, reference slot → port slot
-            slot = {int(p): j for j, p in enumerate(roi_idx[b, :c])}
-            pairs = [(slot[int(p)], j)
-                     for j, p in enumerate(ref["roi_idx"][b, :c])
-                     if int(p) in slot]
-            gi = np.array([g for g, _ in pairs], np.int64)
-            ri = np.array([r for _, r in pairs], np.int64)
+        gi, ri, whole, parting = pair_roi_lists(
+            "parity / pointrcnn", b, roi_idx[b, :c], ref["roi_idx"][b, :c],
+            got["rois"][b, :c], ref["rois"][b, :c],
+            lambda p, r: tie_gap(b, p, r), near, tol, "point")
+        if parting is not None:
+            partings.append(parting)
         where = f" of sample {b}"
         diffs["rois"] = max(diffs["rois"], close(
             "rois", got["rois"][b, gi], ref["rois"][b, ri], where))
@@ -2817,6 +2858,349 @@ def check_second_parity(out, post, ref, post_cfg, tol=PARITY_TOL):
             "candidates_swapped": swapped, "max_abs_diff": diffs}
 
 
+# ---------------------------------------------------------------------
+# PV-RCNN: FPS and suppression-mask kernels at its shapes, serve, parity
+# ---------------------------------------------------------------------
+
+def pvrcnn_proposals(out, roi_cfg):
+    """The proposal layer's candidates, the NMS input: the top
+    ``NMS_PRE_MAXSIZE`` anchors by score (no score gate), their decoded
+    boxes and the anchor scores (B, A)."""
+    import torch
+
+    from de6d_tpu_torch.ops.nms import stable_top_k
+
+    scores = torch.sigmoid(out["rpn_cls_preds"]).amax(dim=-1)
+    pre = min(int(roi_cfg["NMS_PRE_MAXSIZE"]), scores.shape[1])
+    _, order = stable_top_k(scores, pre)
+    boxes = out["rpn_box_preds"]
+    cand = torch.gather(boxes, 1, order[..., None].expand(
+        -1, -1, boxes.shape[-1])).contiguous()
+    return cand, order, scores
+
+
+def phase_pvrcnn_kernels(report):
+    """FPS at PV-RCNN's keypoint shape (8 x 16384 -> 2048 on the clipped
+    scans) and the mask and resolve kernels on its 8 x 1024 proposals and
+    8 x 100 final candidates, from one bf16 forward of the served model."""
+    import torch
+
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        select_candidates,
+    )
+    from de6d_tpu_torch.ops.nms import NEG_INF
+
+    model, mc, nc = build_model("bfloat16", "cuda", PVRCNN_CFG, PVRCNN_SEED)
+    pts, mask = load_pvrcnn_scans()
+    points = torch.from_numpy(pts).cuda()
+    valid = torch.from_numpy(mask).cuda()
+    with torch.no_grad():
+        out = model({"points": points, "points_mask": valid})
+    n_kp = int(mc["PFE"]["NUM_KEYPOINTS"])
+    lines = check_fps({"pvrcnn_keypoints": (
+        points[..., :3].contiguous(), valid, n_kp, None)}, report,
+        variant_ms=("pvrcnn_keypoints",))
+    report["fps"]["cases"].update(lines)
+    report["fps"]["pvrcnn_ms_per_batch"] = lines["pvrcnn_keypoints"]["ms"]
+
+    roi_cfg = mc["ROI_HEAD"]["NMS_CONFIG"]["TEST"]
+    num_rois = int(roi_cfg["NMS_POST_MAXSIZE"])
+    cand, _, _ = pvrcnn_proposals(out, roi_cfg)
+    b, pre = cand.shape[:2]
+    all_live = torch.full((b,), pre, dtype=torch.int32, device="cuda")
+    post_cfg = mc["POST_PROCESSING"]
+    nms_cfg = post_cfg["NMS_CONFIG"]
+    fin_boxes, fin_scores, _ = select_candidates(out, post_cfg)
+    fin_counts = (fin_scores > NEG_INF / 2).sum(-1).to(torch.int32)
+    lines = check_nms_mask({
+        "pvrcnn_proposals": (cand, all_live, float(roi_cfg["NMS_THRESH"]),
+                             num_rois),
+        "pvrcnn_final": (fin_boxes.contiguous(), fin_counts,
+                         float(nms_cfg["NMS_THRESH"]),
+                         min(int(nms_cfg["NMS_POST_MAXSIZE"]),
+                             fin_boxes.shape[1])),
+    })
+    report["nms_mask"]["cases"].update(lines)
+    report["nms_mask"]["pvrcnn_ms_per_batch"] = sum(
+        ln["ms"] + ln["resolve_ms"] for ln in lines.values())
+    report["pvrcnn_rois"] = {"shape": list(out["rois"].shape),
+                             "valid": out["roi_valid"].sum(-1).tolist()}
+    fl, ml = report["fps"]["cases"]["pvrcnn_keypoints"], lines
+    print(f"kernels / pv_rcnn: FPS {fl['shape']} {fl['ms']:.4f} ms (bound "
+          f"{fl['bound_ms']:.5f}, latency floor "
+          f"{fl['latency_floor_ms']:.4f}), mask + resolve on the {b} x {pre} "
+          f"proposals {ml['pvrcnn_proposals']['ms']:.4f} + "
+          f"{ml['pvrcnn_proposals']['resolve_ms']:.4f} ms, on the {b} x "
+          f"{fin_boxes.shape[1]} final candidates "
+          f"{ml['pvrcnn_final']['ms']:.4f} + "
+          f"{ml['pvrcnn_final']['resolve_ms']:.4f} ms; RoIs per scan "
+          f"{report['pvrcnn_rois']['valid']}", flush=True)
+    return model, mc, nc
+
+
+def grid_sphere_rois(kp, kp_valid, rois, ref_rois, grid_size, radii):
+    """(R,) bool: the RoIs whose grouping can part from the reference's.
+    ``kp`` (K, 3) keypoints (identical to the reference's), ``rois`` and
+    ``ref_rois`` (R, 7) the port's and the reference's RoIs from the same
+    anchors. A keypoint joins the group of a grid point when its fp32
+    ``d²`` lies below ``r²``; a grid point of the port's RoI lies within
+    ``shift`` of the reference's (the grid displacement between the two
+    RoIs plus two ulps of the coordinates, for a cos or sin that rounds
+    otherwise in the reference), and ``d²`` is ``|c|² + |p|² - 2c·p``, a
+    few ulps of ``|c|² + |p|²`` off the exact value. A RoI is returned
+    when a valid keypoint's exact ``d²`` to one of its grid points lies
+    within that band of a radius's square."""
+    import torch
+
+    from de6d_tpu_torch.models.roi_heads.pvrcnn_head import roi_grid_points
+
+    g = roi_grid_points(rois[None, :, :7], grid_size)[0].double()
+    g_ref = roi_grid_points(ref_rois[None, :, :7], grid_size)[0].double()
+    shift = ((g - g_ref).norm(dim=-1).amax(dim=-1)
+             + 2.0 ** -22 * g.abs().amax(dim=(-1, -2)))[:, None, None]
+    p = kp.double()
+    on = torch.zeros(g.shape[0], dtype=torch.bool, device=g.device)
+    for r0 in range(0, g.shape[0], 10):  # RoIs in chunks: (10, G³, K)
+        gc = g[r0:r0 + 10]
+        d2 = ((gc[:, :, None, :] - p[None, None]) ** 2).sum(-1)
+        slack = 8 * 2.0 ** -24 * ((gc * gc).sum(-1)[..., None]
+                                  + (p * p).sum(-1))
+        sh = shift[r0:r0 + 10]
+        for r in radii:
+            lo = torch.clamp(r - sh, min=0.0) ** 2 - slack
+            hi = (r + sh) ** 2 + slack
+            near = (d2 >= lo) & (d2 <= hi) & kp_valid[None, None]
+            on[r0:r0 + 10] |= near.flatten(1).any(dim=1)
+    return on
+
+
+def check_pvrcnn_parity(out, post, ref, model_cfg, tol=PARITY_TOL):
+    """PV-RCNN against the JAX reference ``ref`` (the fixture's arrays).
+
+    1. Keypoints (d-fps on the raw points, no learned input): identical
+       picks. Keypoint scores within ``tol``.
+    2. Proposals: the port's anchor scores at the reference's stored
+       window of its best anchors within ``tol`` (largest difference
+       ``delta``). The top ``NMS_PRE_MAXSIZE`` order may hold another
+       anchor than the reference's only at a near-tie: the two anchors'
+       reference scores within ``2 * delta`` (both must lie in the
+       stored window). The decoded boxes of anchors in both lists within
+       ``tol``.
+    3. RoIs, by the anchor each came from: counts equal; a list may part
+       from the reference's only at a near-tie (:func:`pair_roi_lists`).
+    4. RoIs from the same anchor: boxes within ``tol``; ``rcnn_cls`` and
+       ``rcnn_reg`` within ``tol``, and in the slots past the count (zero
+       boxes, pooled and scored as in JAX) too — except a RoI with a
+       keypoint on a grouping sphere of one of its grid points
+       (:func:`grid_sphere_rois`), whose pooled groups may differ; those
+       are counted and reported.
+    5. Detections of a sample whose RoI list counts as the reference's
+       and none of whose RoIs on a sphere moved: counts and labels equal,
+       boxes and scores within ``tol``, slot by slot, or as a set
+       (:func:`match_detections`) where the list parted at a tie (tied
+       detections may then trade places). Other samples' detections are
+       reported as not compared.
+    "Within ``tol``" is absolute for values below 1 and relative above.
+    Returns a report; raises RuntimeError where a check fails."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.ops.nms import stable_top_k
+
+    tag = "parity / pv_rcnn"
+
+    def close(name, got, want, where=""):
+        return close_to(tag, name, got, want, tol, where)
+
+    diffs = {}
+    if not np.array_equal(out["keypoint_idx"].cpu().numpy(),
+                          ref["keypoint_idx"]):
+        raise RuntimeError(f"{tag}: keypoint picks (d-fps) differ from the "
+                           "reference")
+    diffs["point_cls_scores"] = close(
+        "keypoint scores", out["point_cls_scores"].cpu().numpy(),
+        ref["point_cls_scores"])
+
+    roi_cfg = model_cfg["ROI_HEAD"]["NMS_CONFIG"]["TEST"]
+    cand, order_t, scores_t = pvrcnn_proposals(out, roi_cfg)
+    scores = scores_t.cpu().numpy()
+    win_order = ref["prop_order"].astype(np.int64)  # (B, window)
+    win_scores = ref["prop_scores"]
+    delta = diffs["anchor_scores"] = close(
+        "anchor scores", np.take_along_axis(scores, win_order, axis=1),
+        win_scores)
+    near = 2 * delta + 1e-7
+    stored = [dict(zip(o.tolist(), s.tolist()))
+              for o, s in zip(win_order, win_scores)]
+
+    def tie_gap(b, p, r):
+        if p not in stored[b] or r not in stored[b]:
+            raise RuntimeError(
+                f"{tag}: anchor {p if p not in stored[b] else r} of sample "
+                f"{b} lies outside the reference's stored window of "
+                f"{win_order.shape[1]} anchors")
+        return abs(stored[b][p] - stored[b][r])
+
+    order = order_t.cpu().numpy()
+    pre = order.shape[1]
+    swapped = 0
+    for b, k in zip(*np.nonzero(order != win_order[:, :pre])):
+        swapped += 1
+        if tie_gap(b, int(order[b, k]), int(win_order[b, k])) > near:
+            raise RuntimeError(f"{tag}: proposal candidate {k} of sample {b} "
+                               "differs from the reference and is no "
+                               "near-tie")
+    cand = cand.cpu().numpy()
+    diffs["proposal_boxes"] = 0.0
+    for b in range(order.shape[0]):
+        slot = {int(a): j for j, a in enumerate(order[b])}
+        pairs = [(slot[int(a)], j) for j, a in enumerate(win_order[b, :pre])
+                 if int(a) in slot]
+        gi = np.array([g for g, _ in pairs], np.int64)
+        ri = np.array([r for _, r in pairs], np.int64)
+        diffs["proposal_boxes"] = max(diffs["proposal_boxes"], close(
+            "proposal boxes", cand[b, gi], ref["prop_boxes"][b, ri],
+            f" of sample {b}"))
+
+    roi_idx = out["roi_point_idx"].cpu().numpy()
+    roi_cnt = out["roi_valid"].sum(-1).cpu().numpy()
+    got = {k: v.cpu().numpy() for k, v in post.items()}
+    for k in ("rois", "rcnn_cls", "rcnn_reg"):
+        got[k] = out[k].cpu().numpy()
+    pool = model_cfg["ROI_HEAD"]["ROI_GRID_POOL"]
+    radii = [float(r) for r in pool["POOL_RADIUS"]]
+    partings, on_spheres, skipped = [], [], []
+    for k in ("rois", "rcnn_cls", "rcnn_reg", "pred_boxes", "pred_scores"):
+        diffs[k] = 0.0
+    for b in range(roi_idx.shape[0]):
+        c = int(ref["roi_count"][b])
+        if int(roi_cnt[b]) != c:
+            raise RuntimeError(f"{tag}: {roi_cnt[b]} RoIs in sample {b}, "
+                               f"reference {c}")
+        gi, ri, whole, parting = pair_roi_lists(
+            tag, b, roi_idx[b, :c], ref["roi_idx"][b, :c],
+            got["rois"][b, :c], ref["rois"][b, :c],
+            lambda p, r: tie_gap(b, p, r), near, tol, "anchor")
+        if parting is not None:
+            partings.append(parting)
+        # the slots past the count hold zero boxes in both
+        rest = np.arange(c, roi_idx.shape[1])
+        gi, ri = np.concatenate([gi, rest]), np.concatenate([ri, rest])
+        where = f" of sample {b}"
+        diffs["rois"] = max(diffs["rois"], close(
+            "rois", got["rois"][b, gi], ref["rois"][b, ri], where))
+        ref_rois = torch.as_tensor(ref["rois"][b, ri],
+                                   device=out["rois"].device)
+        on = grid_sphere_rois(
+            out["point_coords"][b], out["point_valid"][b],
+            out["rois"][b, torch.as_tensor(gi, device=ref_rois.device)],
+            ref_rois, int(pool["GRID_SIZE"]), radii).cpu().numpy()
+
+        def rel(k):
+            want = ref[k][b, ri].astype(np.float64)
+            d = np.abs(got[k][b, gi] - want) / np.maximum(1.0, np.abs(want))
+            return d.reshape(len(gi), -1).max(axis=1)
+
+        moved = on & ((rel("rcnn_cls") > tol) | (rel("rcnn_reg") > tol))
+        on_spheres.append({"sample": b, "rois": int(on.sum()),
+                           "moved": int(moved.sum())})
+        for k in ("rcnn_cls", "rcnn_reg"):
+            diffs[k] = max(diffs[k], close(
+                k, got[k][b, gi[~on]], ref[k][b, ri[~on]], where))
+        if not whole or moved.any():
+            skipped.append(b)
+            continue
+        n = int(ref["pred_count"][b])
+        if int(got["pred_count"][b]) != n:
+            raise RuntimeError(f"{tag}: counts {got['pred_count']} vs "
+                               f"{ref['pred_count']}")
+        # RoIs in another order (tied anchors) reach the final NMS in
+        # another order too: then tied detections may trade places
+        take = (np.arange(n) if parting is None else match_detections(
+            tag, {k: got[k][b, :n] for k in ("pred_boxes", "pred_scores",
+                                             "pred_labels")},
+            {k: ref[k][b, :n] for k in ("pred_boxes", "pred_scores",
+                                        "pred_labels")}, tol, where))
+        if not np.array_equal(got["pred_labels"][b, take],
+                              ref["pred_labels"][b, :n]):
+            raise RuntimeError(f"{tag}: labels{where} differ")
+        for k in ("pred_boxes", "pred_scores"):
+            diffs[k] = max(diffs[k], close(k, got[k][b, take],
+                                           ref[k][b, :n], where))
+    return {"counts": got["pred_count"].tolist(),
+            "roi_counts": roi_cnt.tolist(), "max_abs_diff": diffs,
+            "candidates_swapped": swapped, "partings": partings,
+            "rois_on_a_sphere": on_spheres,
+            "detections_not_compared": skipped}
+
+
+def match_detections(tag, got, ref, tol, where=""):
+    """One sample's detections (``pred_boxes``, ``pred_scores``,
+    ``pred_labels``) against the reference's as a set: for each reference
+    detection in turn, the first unmatched port detection with its label,
+    its score within ``tol`` and its box within ``tol`` (relative above
+    1). Returns the port rows in reference order; RuntimeError where a
+    reference detection has no match."""
+    import numpy as np
+
+    def within(a, want):
+        want = np.asarray(want, np.float64)
+        return (np.abs(np.asarray(a, np.float64) - want)
+                <= tol * np.maximum(1.0, np.abs(want)))
+
+    free = np.ones(len(got["pred_scores"]), bool)
+    take = []
+    for j in range(len(ref["pred_scores"])):
+        ok = (free & (got["pred_labels"] == ref["pred_labels"][j])
+              & within(got["pred_scores"], ref["pred_scores"][j])
+              & within(got["pred_boxes"], ref["pred_boxes"][j]).all(-1))
+        if not ok.any():
+            raise RuntimeError(f"{tag}: detection {j}{where} has no match "
+                               "among the port's")
+        i = int(np.argmax(ok))
+        free[i] = False
+        take.append(i)
+    return np.array(take, np.int64)
+
+
+def phase_pvrcnn_parity(report):
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        post_processing,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, mc, nc = build_model("float32", "cuda", PVRCNN_CFG, PVRCNN_SEED)
+    pts, mask = load_pvrcnn_scans()
+    with torch.no_grad():
+        out = model({"points": torch.from_numpy(pts[:2]).cuda(),
+                     "points_mask": torch.from_numpy(mask[:2]).cuda()})
+        post = post_processing(out, mc["POST_PROCESSING"], nc)
+        try:
+            res = check_pvrcnn_parity(out, post, dict(np.load(PVRCNN_REF)),
+                                      mc)
+        except RuntimeError as e:
+            fail(str(e))
+    report["parity_pv_rcnn"] = res
+    d = res["max_abs_diff"]
+    print(f"parity / pv_rcnn: fp32 (TF32 off) on 2 scans matches the JAX "
+          f"reference: keypoint picks identical, "
+          f"{res['candidates_swapped']} proposal candidates swapped at "
+          f"near-ties, {len(res['partings'])} RoI lists parted, RoIs with a "
+          f"keypoint on a grouping sphere {res['rois_on_a_sphere']}, "
+          f"detections not compared for samples "
+          f"{res['detections_not_compared']}, RoIs {res['roi_counts']}, "
+          f"detections {res['counts']}, max |d| keypoint score "
+          f"{d['point_cls_scores']:.3g}, anchor score "
+          f"{d['anchor_scores']:.3g}, RoI {d['rois']:.3g}, rcnn_cls "
+          f"{d['rcnn_cls']:.3g}, rcnn_reg {d['rcnn_reg']:.3g}, box "
+          f"{d['pred_boxes']:.3g}, score {d['pred_scores']:.3g} (tol "
+          f"{PARITY_TOL})", flush=True)
+
+
 def main():
     import torch
 
@@ -2904,6 +3288,22 @@ def main():
     del model
     phase_second_parity(report)
 
+    model, mc, nc = phase_pvrcnn_kernels(report)
+    pts, mask = load_pvrcnn_scans()
+    report["serve_pv_rcnn"] = phase_serve(
+        "serve / pv_rcnn", model, mc, nc, pts, mask,
+        {"fps": fps.fps, "nms_mask": nms_mask.nms_suppression_mask,
+         "nms_resolve": nms_mask.nms_resolve,
+         "neighbor_table": lookup.neighbor_table,
+         "sparse_conv": sparse_conv.sparse_conv, "nms": nms,
+         "canvas": canvas.scatter_canvas, "lookup": lookup.lookup,
+         "matrix_fps": matrix_fps.matrix_fps}, 7, profile,
+        per_batch={"fps": 1, "nms_mask": 2, "nms_resolve": 2,
+                   "neighbor_table": 8, "sparse_conv": 12, "nms": 0,
+                   "canvas": 0, "lookup": 0, "matrix_fps": 0})
+    del model
+    phase_pvrcnn_parity(report)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -2916,7 +3316,8 @@ def main():
                "pointrcnn": report["serve_pointrcnn"]["launches"],
                "3dssd": report["serve_3dssd"]["launches"],
                "iassd": report["serve_iassd"]["launches"],
-               "second": report["serve_second"]["launches"]}
+               "second": report["serve_second"]["launches"],
+               "pv_rcnn": report["serve_pv_rcnn"]["launches"]}
     kernels = []
     for key in ("canvas", "nms", "nms_mask", "fps", "matrix_fps", "lookup",
                 "neighbor_table", "sparse_conv"):

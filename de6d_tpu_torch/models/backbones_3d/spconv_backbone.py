@@ -135,6 +135,9 @@ class _VoxelBackboneBase(nn.Module):
                 cin = channels
             return names
 
+        # channels of multi_scale_3d_features, for PV-RCNN's set abstraction
+        self.multi_scale_channels = {f"x_conv{s + 1}": nf[s + 1]
+                                     for s in range(4)}
         self.conv_input = subm(input_channels, nf[0])
         self.stages = [stage(nf[0], nf[1], 1), stage(nf[2], nf[2], 2),
                        stage(nf[3], nf[3], 2), stage(nf[4], nf[4], 2)]

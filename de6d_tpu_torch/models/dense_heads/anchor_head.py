@@ -2,6 +2,11 @@
 ``de6d_tpu/models/dense_heads/anchor_head.py:AnchorHeadSingle`` and
 ``decode_boxes_with_dir``). The target assigner and losses come with the
 training slice.
+
+Alone, the head hands ``post_processing`` a lazy decode (the candidates'
+rows only). With ``predict_boxes_when_training`` (set when a RoI head
+follows), it decodes every anchor into ``batch_box_preds`` and writes no
+lazy dict, as the JAX head does: the proposal layer reads those boxes.
 """
 
 from __future__ import annotations
@@ -40,10 +45,12 @@ def decode_boxes_with_dir(coder, dir_cfg, box_preds, dir_preds, anchors):
 @DENSE_HEADS.register
 class AnchorHeadSingle(nn.Module):
     def __init__(self, model_cfg, input_channels, num_class, class_names,
-                 grid_size, point_cloud_range):
+                 grid_size, point_cloud_range,
+                 predict_boxes_when_training=False):
         super().__init__()
         self.model_cfg = model_cfg
         self.num_class = num_class
+        self.predict_boxes_when_training = predict_boxes_when_training
         tgt_cfg = model_cfg["TARGET_ASSIGNER_CONFIG"]
         self.box_coder = box_coder_utils.build_box_coder(
             tgt_cfg["BOX_CODER"], **dict(tgt_cfg.get("BOX_CODER_CONFIG", {}))
@@ -90,6 +97,15 @@ class AnchorHeadSingle(nn.Module):
         dir_cell = head(self.conv_dir) if self.use_dir else None
         batch_dict["batch_cls_preds"] = cls_cell.reshape(b, -1, self.num_class)
         batch_dict["cls_preds_normalized"] = False
+        if self.predict_boxes_when_training:
+            # a RoI head follows: every anchor decoded, (B, A, 7)
+            code = self.box_coder.code_size
+            dir_preds = (None if dir_cell is None
+                         else dir_cell.reshape(b, -1, self.num_dir_bins))
+            batch_dict["batch_box_preds"] = decode_boxes_with_dir(
+                self.box_coder, self.dir_cfg(), box_cell.reshape(b, -1, code),
+                dir_preds, self.anchors[None])
+            return batch_dict
         # post_processing decodes only the top-`pre` candidates; the full
         # (B, A, 7) decode of every anchor is never built
         batch_dict["lazy_box_decode"] = {

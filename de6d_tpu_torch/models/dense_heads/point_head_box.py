@@ -1,11 +1,14 @@
-"""Per-point class and box head, inference only (counterpart of
-``de6d_tpu/models/dense_heads/point_head_box.py``: ``PointHeadBox`` in
-eval, PointRCNN's first stage).
+"""Per-point heads, inference only (counterpart of
+``de6d_tpu/models/dense_heads/point_head_box.py``: ``PointHeadBox``,
+PointRCNN's first stage, and ``PointHeadSimple``, PV-RCNN's keypoint
+segmentation, in eval).
 
-Two fp32 FC stacks on the backbone's point features give class logits
-and box codes; the codes are decoded at the points with the head's box
-coder (per-class mean sizes picked by the first argmax of the logits).
-The targets and losses come with the training slice.
+``PointHeadBox``: two fp32 FC stacks on the backbone's point features
+give class logits and box codes; the codes are decoded at the points
+with the head's box coder (per-class mean sizes picked by the first
+argmax of the logits). ``PointHeadSimple``: one fp32 FC stack gives the
+keypoints' foreground logits and scores. The targets and losses come
+with the training slice.
 """
 
 from __future__ import annotations
@@ -49,4 +52,27 @@ class PointHeadBox(nn.Module):
         batch_dict["batch_box_preds"] = boxes
         batch_dict["point_box_preds"] = boxes
         batch_dict["cls_preds_normalized"] = False
+        return batch_dict
+
+
+@POINT_HEADS.register
+class PointHeadSimple(nn.Module):
+    """Keypoint foreground scores. Like the JAX head it reads
+    ``point_features_before_fusion`` wherever the batch has it (a PFE ran),
+    else ``point_features``; the flax child is ``FCStack_0``."""
+
+    def __init__(self, model_cfg, input_channels, num_class, **kwargs):
+        super().__init__()
+        self.model_cfg = model_cfg
+        self.FCStack_0 = FCStack(input_channels, model_cfg["CLS_FC"],
+                                 num_class,
+                                 use_bn=model_cfg.get("USE_BN", True))
+
+    def forward(self, batch_dict):
+        feats = batch_dict.get("point_features_before_fusion")
+        if feats is None:
+            feats = batch_dict["point_features"]
+        cls_preds = self.FCStack_0(feats)  # (B, N, ncls) fp32
+        batch_dict["point_cls_preds"] = cls_preds
+        batch_dict["point_cls_scores"] = torch.sigmoid(cls_preds).amax(dim=-1)
         return batch_dict

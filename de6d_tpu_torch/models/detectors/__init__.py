@@ -2,6 +2,7 @@ from . import det6d  # noqa: F401  (registers Det6D, SSD3D)
 from . import ia_ssd  # noqa: F401  (registers IASSD)
 from . import point_rcnn  # noqa: F401  (registers PointRCNN)
 from . import pointpillar  # noqa: F401  (registers PointPillar)
+from . import pv_rcnn  # noqa: F401  (registers PVRCNN)
 from . import second_net  # noqa: F401  (registers SECONDNet)
 from .detector3d_template import DatasetSpec, post_processing
 

@@ -18,7 +18,7 @@ from torch import nn
 from ...ops import nms as nms_ops
 from ...ops import voxelize as voxelize_ops
 from ...registry import (
-    BACKBONES_2D, BACKBONES_3D, DENSE_HEADS, MAP_TO_BEV, POINT_HEADS,
+    BACKBONES_2D, BACKBONES_3D, DENSE_HEADS, MAP_TO_BEV, PFE, POINT_HEADS,
     ROI_HEADS, VFE,
 )
 from ..dense_heads.anchor_head import decode_boxes_with_dir
@@ -47,9 +47,12 @@ class DatasetSpec:
 
 
 class Detector3DTemplate(nn.Module):
-    """VFE → BACKBONE_3D → MAP_TO_BEV → BACKBONE_2D → DENSE_HEAD →
+    """VFE → BACKBONE_3D → MAP_TO_BEV → PFE → BACKBONE_2D → DENSE_HEAD →
     POINT_HEAD → ROI_HEAD, each present slot reading and writing the
-    shared batch dict (PFE is not ported yet and raises)."""
+    shared batch dict. With a ROI_HEAD the dense head decodes every
+    anchor (``predict_boxes_when_training``, as the JAX template sets
+    it); the point and RoI heads read the PFE's keypoint features where
+    there is a PFE, else the 3D backbone's points."""
 
     def __init__(self, model_cfg, num_class, dataset):
         super().__init__()
@@ -58,9 +61,6 @@ class Detector3DTemplate(nn.Module):
         self.spec = dataset
         spec = dataset
         cfg = model_cfg
-        unported = [s for s in ("PFE",) if s in cfg]
-        if unported:
-            raise NotImplementedError(f"module slots not ported yet: {unported}")
         self.module_names = []
         if "VFE" in cfg:
             self.vfe = VFE.get(cfg["VFE"]["NAME"])(
@@ -88,6 +88,18 @@ class Detector3DTemplate(nn.Module):
                 model_cfg=cfg["MAP_TO_BEV"], grid_size=spec.grid_size
             )
             self.module_names.append("map_to_bev")
+        if "PFE" in cfg:
+            self.pfe = PFE.get(cfg["PFE"]["NAME"])(
+                model_cfg=cfg["PFE"],
+                voxel_size=spec.voxel_size,
+                point_cloud_range=spec.point_cloud_range,
+                num_bev_features=(self.map_to_bev.num_bev_features
+                                  if "MAP_TO_BEV" in cfg else 0),
+                num_rawpoint_features=spec.point_feature_dim - 3,
+                multi_scale_channels=getattr(
+                    self.backbone_3d, "multi_scale_channels", None),
+            )
+            self.module_names.append("pfe")
         if "BACKBONE_2D" in cfg:
             self.backbone_2d = BACKBONES_2D.get(cfg["BACKBONE_2D"]["NAME"])(
                 model_cfg=cfg["BACKBONE_2D"],
@@ -105,13 +117,19 @@ class Detector3DTemplate(nn.Module):
                 class_names=tuple(spec.class_names),
                 grid_size=spec.grid_size,
                 point_cloud_range=tuple(spec.point_cloud_range),
+                predict_boxes_when_training="ROI_HEAD" in cfg,
             )
             self.module_names.append("dense_head")
+        if "PFE" in cfg:  # the keypoints' widths before and after fusion
+            point_in = self.pfe.num_point_features_before_fusion
+            point_out = self.pfe.num_point_features
+        elif "POINT_HEAD" in cfg or "ROI_HEAD" in cfg:
+            point_in = point_out = self.backbone_3d.num_point_features
         if "POINT_HEAD" in cfg:
             head_cfg = cfg["POINT_HEAD"]
             self.point_head = POINT_HEADS.get(head_cfg["NAME"])(
                 model_cfg=head_cfg,
-                input_channels=self.backbone_3d.num_point_features,
+                input_channels=point_in,
                 num_class=1 if head_cfg.get("CLASS_AGNOSTIC", False)
                 else num_class,
             )
@@ -120,7 +138,7 @@ class Detector3DTemplate(nn.Module):
             head_cfg = cfg["ROI_HEAD"]
             self.roi_head = ROI_HEADS.get(head_cfg["NAME"])(
                 model_cfg=head_cfg,
-                input_channels=self.backbone_3d.num_point_features,
+                input_channels=point_out,
                 num_class=1 if head_cfg.get("CLASS_AGNOSTIC", False)
                 else num_class,
             )

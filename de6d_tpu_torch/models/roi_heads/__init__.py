@@ -1,1 +1,2 @@
 from . import pointrcnn_head  # noqa: F401  (registers PointRCNNHead)
+from . import pvrcnn_head  # noqa: F401  (registers PVRCNNHead)

@@ -717,3 +717,87 @@ def test_matrix_fps_dispatch(cuda_device):  # noqa: F811
             torch.zeros(1, 8, 8, device=cuda_device),
             torch.ones(1, 8, dtype=torch.bool, device=cuda_device), 4,
             cluster=3)
+
+
+@pytest.mark.cuda
+def test_fps_kernel_at_pvrcnn_keypoints(cuda_device):  # noqa: F811
+    """PV-RCNN's keypoints: 8 x 16384 -> 2048 d-fps, clustered points,
+    ragged valid counts (one sample below 2048 valid points, one empty);
+    one launch, the plain loop's picks."""
+    rng = np.random.RandomState(2048)
+    b, n = 8, 16384
+    xyz = rng.uniform(-40, 70, (b, n, 3)).astype(np.float32)
+    xyz[:, : n // 2] = xyz[:, :1] + rng.normal(0, 0.5, (b, n // 2, 3))
+    valid = np.ones((b, n), bool)
+    valid[1, 1500:] = False
+    valid[2] = False
+    valid[3, 12000:] = False
+    xyz_t = torch.from_numpy(xyz).to(cuda_device)
+    valid_t = torch.from_numpy(valid).to(cuda_device)
+    before = fps.fps.launches
+    got = fps.fps(xyz_t, valid_t, 2048)
+    torch.cuda.synchronize()
+    assert fps.fps.launches == before + 1
+    assert torch.equal(got, fps.fps_plain(xyz_t, valid_t, 2048))
+    assert (got[2] == 0).all() and got[0].unique().numel() == 2048
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,thresh,post,spread", [
+    (1024, 0.7, 100, 40.0),  # PV-RCNN's proposals: 8 x 1024 -> 100 RoIs
+    (100, 0.1, 100, 12.0),   # its final NMS over the 100 RoIs
+])
+def test_nms_mask_kernel_at_pvrcnn_shapes(cuda_device, p, thresh, post,  # noqa: F811
+                                          spread):
+    """Batch 8, every candidate live but in one ragged sample; the whole
+    bit mask and the resolve's selections equal the plain versions'."""
+    rng = np.random.RandomState(p + 1)
+    boxes = torch.from_numpy(nms_boxes(rng, 8, p, spread=spread)).to(
+        cuda_device)
+    counts = torch.full((8,), p, dtype=torch.int32, device=cuda_device)
+    counts[5] = p // 3
+    packed = iou3d.pack_bev(boxes).contiguous()
+    before = (nms_mask.nms_suppression_mask.launches,
+              nms_mask.nms_resolve.launches)
+    got = nms_mask.nms_suppression_mask(packed, counts, thresh)
+    sel, nsel = nms_mask.nms_resolve(got, counts, post)
+    torch.cuda.synchronize()
+    assert (nms_mask.nms_suppression_mask.launches,
+            nms_mask.nms_resolve.launches) == (before[0] + 1, before[1] + 1)
+    ref = nms_mask.nms_suppression_mask_plain(packed, counts, thresh)
+    assert torch.equal(got, ref) and bool((got != 0).any())
+    rsel, rnsel = nms_mask.nms_resolve_plain(ref, counts, post)
+    assert torch.equal(sel, rsel) and torch.equal(nsel, rnsel)
+
+
+@pytest.mark.cuda
+def test_full_decode_anchor_head_on_the_card_equals_cpu(cuda_device):  # noqa: F811
+    """PV-RCNN's anchor head decodes every anchor (a RoI head follows): on
+    the card its (B, A, 7) boxes equal the CPU's within 1e-4 (exp and sqrt
+    may round otherwise), and it writes no lazy decode. Inputs and
+    weights are small multiples of powers of two, so the 1x1 convolutions
+    are exact in any order and no yaw sits on a direction-bin edge in one
+    run and off it in the other."""
+    from de6d_tpu_torch.config import cfg_from_yaml_file
+    from de6d_tpu_torch.models.dense_heads.anchor_head import (
+        AnchorHeadSingle,
+    )
+
+    cfg = cfg_from_yaml_file("configs/kitti_models/pv_rcnn.yaml")
+    head = AnchorHeadSingle(dict(cfg.MODEL.DENSE_HEAD), 64, 3,
+                            ("Car", "Pedestrian", "Cyclist"),
+                            (1408, 1600, 40), (0, -40, -3, 70.4, 40, 1),
+                            predict_boxes_when_training=True).eval()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in head.parameters():
+            p.copy_(torch.randint(-2, 3, p.shape, generator=gen) / 64.0)
+    x = torch.randint(-2, 3, (2, 200, 176, 64), generator=gen).float()
+    with torch.no_grad():
+        want = head({"spatial_features_2d": x})
+        got = head.to(cuda_device)({"spatial_features_2d": x.to(cuda_device)})
+    assert "lazy_box_decode" not in got
+    assert tuple(got["batch_box_preds"].shape) == (2, 211200, 7)
+    assert torch.equal(got["batch_cls_preds"].cpu(), want["batch_cls_preds"])
+    torch.testing.assert_close(got["batch_box_preds"].cpu(),
+                               want["batch_box_preds"], rtol=1e-4, atol=1e-4)
