@@ -54,6 +54,8 @@ class Detector3DTemplate(nn.Module):
     it); the point and RoI heads read the PFE's keypoint features where
     there is a PFE, else the 3D backbone's points."""
 
+    TRAINABLE = False  # a detector whose training branch is ported
+
     def __init__(self, model_cfg, num_class, dataset):
         super().__init__()
         self.model_cfg = model_cfg
@@ -162,12 +164,27 @@ class Detector3DTemplate(nn.Module):
         batch_dict["_points_per_voxel_cap"] = spec.max_points_per_voxel
         return batch_dict
 
-    @torch.no_grad()
     def forward(self, batch_dict):
-        batch_dict = self.maybe_voxelize(dict(batch_dict))
-        for name in self.module_names:
-            batch_dict = getattr(self, name)(batch_dict)
+        """Eval mode: inference, without autograd. Train mode
+        (``model.train()``): autograd on, ``gt_boxes`` (B, M, 8) read by
+        the dense head, which writes its predictions and targets for
+        :meth:`get_training_loss` (PointPillars only so far)."""
+        if self.training and not self.TRAINABLE:
+            raise NotImplementedError(
+                f"{type(self).__name__}: training is not ported yet (the "
+                "port trains PointPillars only)")
+        with torch.set_grad_enabled(self.training):
+            batch_dict = self.maybe_voxelize(dict(batch_dict))
+            for name in self.module_names:
+                batch_dict = getattr(self, name)(batch_dict)
         return batch_dict
+
+    def get_training_loss(self, batch_dict):
+        """(loss, dict of scalar terms) from a train-mode forward's output.
+        Only PointPillars' is ported (``TRAINABLE``)."""
+        raise NotImplementedError(
+            f"{type(self).__name__}: training is not ported yet (the port "
+            "trains PointPillars only)")
 
 
 def rank_candidates(batch_dict, post_cfg):

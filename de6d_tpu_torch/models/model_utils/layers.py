@@ -34,12 +34,18 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` in eval mode (running statistics):
-    ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias`` in fp32, cast
-    to the compute dtype. Eval only: the training slice adds the batch
-    statistics."""
+    """flax ``nn.BatchNorm(momentum=0.99, epsilon=1e-3)``:
+    ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias`` in fp32 (or
+    wider: flax promotes to at least fp32), cast to the compute dtype. In
+    eval mode ``mean`` / ``var`` are the running statistics. In train mode
+    (``self.training``) they are the batch's, over every position of every
+    axis but the channel one, padding included, as flax computes them:
+    ``var = max(0, E[x²] - E[x]²)`` (biased, flax's fast variance); the
+    running statistics then move to ``momentum * running + (1 - momentum)
+    * batch`` with that same biased variance."""
 
     FLAX_KIND = "BatchNorm"
+    MOMENTUM = 0.99  # every flax BatchNorm of the JAX package
 
     def __init__(self, num_features, eps=1e-3, dtype=torch.float32):
         super().__init__()
@@ -53,9 +59,21 @@ class BatchNorm(nn.Module):
     def forward(self, x, channel_dim: int = -1):
         shape = [1] * x.ndim
         shape[channel_dim] = -1
-        mean = self.running_mean.reshape(shape)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - mean) * mul.reshape(shape)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # as flax
+        if self.training:
+            axes = [d for d in range(x.ndim) if d != channel_dim % x.ndim]
+            mean = xf.mean(dim=axes)
+            var = torch.clamp(
+                (xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(
+                    m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape)
         y = y + self.bias.reshape(shape)
         return y.to(self.dtype)
 

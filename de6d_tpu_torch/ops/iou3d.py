@@ -1,5 +1,6 @@
 """Rotated BEV overlap and IoU (counterpart of ``de6d_tpu/ops/iou3d.py``:
-``_pairwise_green_pass``, ``boxes_overlap_bev``, ``boxes_iou_bev``).
+``_pairwise_green_pass``, ``boxes_overlap_bev``, ``boxes_iou_bev``), and
+the target assigner's axis-aligned ``boxes3d_nearest_bev_iou``.
 
 Sort-free exact method: by Green's theorem the boundary of A∩B is A's
 edges clipped into B plus B's edges clipped into A, and the shoelace
@@ -15,8 +16,12 @@ NMS kernel's IoU equals :func:`pairwise_iou_packed` bit for bit.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
+from .ball_query import _fma
 from .geometry import boxes_to_corners_bev
 
 EPS = 1e-8
@@ -107,3 +112,47 @@ def boxes_overlap_bev(boxes_a, boxes_b):
 def boxes_iou_bev(boxes_a, boxes_b):
     """(N, 7+) × (M, 7+) → (N, M) rotated BEV IoU."""
     return pairwise_iou_packed(pack_bev(boxes_a), pack_bev(boxes_b))
+
+
+# Jitted XLA on the CPU, whose labels the assigner must reproduce, rounds
+# otherwise than the JAX code reads: it multiplies by the fp32 reciprocal
+# where the code divides by pi, and contracts ``yaw * (1/pi) + 0.5``,
+# ``yaw - k * pi`` and ``area_a + dx_b * dy_b`` into FMAs (computed here
+# in float64 and rounded once). A last-bit difference would move the
+# forced matches (exact equality) and the threshold tests.
+_PI32 = float(np.float32(math.pi))
+_INV_PI32 = float(np.float32(1.0) / np.float32(math.pi))
+
+
+def _nearest_aabb(boxes):
+    """(N, 7+) → (N, 4) [x, y, dx, dy] of the box snapped to its nearest
+    axis-aligned orientation (dx, dy swapped beyond 45 degrees)."""
+    yaw = boxes[:, 6]
+    k = torch.floor(_fma(yaw, torch.full_like(yaw, _INV_PI32),
+                         torch.full_like(yaw, 0.5)))
+    rot = torch.abs(_fma(-k, torch.full_like(k, _PI32), yaw))
+    swap = rot > (math.pi / 4)
+    dx = torch.where(swap, boxes[:, 4], boxes[:, 3])
+    dy = torch.where(swap, boxes[:, 3], boxes[:, 4])
+    return torch.stack([boxes[:, 0], boxes[:, 1], dx, dy], dim=-1)
+
+
+def boxes3d_nearest_bev_iou(boxes_a, boxes_b):
+    """(N, 7+) × (M, 7+) → (N, M) axis-aligned BEV IoU after snapping each
+    box to its nearest axis-aligned orientation (the anchor target
+    assigner's IoU); bit-equal to the jitted JAX function."""
+    a = _nearest_aabb(boxes_a.float())
+    b = _nearest_aabb(boxes_b.float())
+    a_min = a[:, 0:2] - a[:, 2:4] / 2
+    a_max = a[:, 0:2] + a[:, 2:4] / 2
+    b_min = b[:, 0:2] - b[:, 2:4] / 2
+    b_max = b[:, 0:2] + b[:, 2:4] / 2
+    lt = torch.maximum(a_min[:, None], b_min[None])
+    rb = torch.minimum(a_max[:, None], b_max[None])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    shape = inter.shape
+    area_a = (a[:, 2] * a[:, 3])[:, None].expand(shape)
+    union = _fma(b[None, :, 2].expand(shape), b[None, :, 3].expand(shape),
+                 area_a) - inter
+    return inter / torch.clamp(union, min=EPS)

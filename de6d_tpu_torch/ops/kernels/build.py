@@ -123,6 +123,8 @@ def lib() -> ctypes.CDLL:
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             handle.de6d_scatter_canvas.argtypes = [p, p, p, i, i, i, i, p]
             handle.de6d_scatter_canvas.restype = i
+            handle.de6d_scatter_canvas_grad.argtypes = [p, p, p, i, i, i, i, p]
+            handle.de6d_scatter_canvas_grad.restype = i
             handle.de6d_nms_keep_batched.argtypes = [
                 p, i, p, p, p, i, i, f, i, i, p,
             ]
@@ -179,6 +181,6 @@ def refuse_grad(what: str, *tensors) -> None:
     ``grad_fn`` and every gradient below them would be lost silently."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{what}: the CUDA kernel has no backward yet (it comes with the "
-            "training slice); call it under torch.no_grad() or pass inputs "
-            "that do not require grad")
+            f"{what}: the CUDA kernel has no backward yet (it comes with "
+            "that model's training slice); call it under torch.no_grad() or "
+            "pass inputs that do not require grad")

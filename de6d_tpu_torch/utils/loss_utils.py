@@ -1,0 +1,60 @@
+"""Loss functions of the anchor head (counterpart of
+``de6d_tpu/utils/loss_utils.py``: ``sigmoid_bce_with_logits``,
+``sigmoid_focal_loss``, ``smooth_l1_loss``, ``softmax_cross_entropy``).
+
+Every function returns per-element losses; the caller weights and sums
+them, so the normalisation is the JAX package's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def sigmoid_bce_with_logits(logits, targets):
+    """Numerically stable sigmoid binary cross-entropy."""
+    return (torch.clamp(logits, min=0) - logits * targets
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def sigmoid_focal_loss(logits, targets, weights=None, alpha=0.25, gamma=2.0):
+    """Per-element focal loss; ``weights`` with one dimension fewer than
+    the logits broadcast over the class axis."""
+    p = torch.sigmoid(logits)
+    alpha_w = targets * alpha + (1.0 - targets) * (1.0 - alpha)
+    pt = targets * (1.0 - p) + (1.0 - targets) * p
+    focal_w = alpha_w * torch.pow(pt, gamma)
+    loss = focal_w * sigmoid_bce_with_logits(logits, targets)
+    if weights is not None:
+        if weights.ndim == loss.ndim - 1:
+            weights = weights[..., None]
+        loss = loss * weights
+    return loss
+
+
+def smooth_l1_loss(pred, target, weights=None, beta: float = 1.0 / 9.0,
+                   code_weights=None):
+    """Per-code smooth-L1; NaN targets are replaced by the predictions
+    (zero loss)."""
+    target = torch.where(torch.isnan(target), pred, target)
+    diff = pred - target
+    if code_weights is not None:
+        diff = diff * torch.as_tensor(code_weights, dtype=diff.dtype,
+                                      device=diff.device)
+    n = torch.abs(diff)
+    if beta < 1e-5:
+        loss = n
+    else:
+        loss = torch.where(n < beta, 0.5 * n * n / beta, n - 0.5 * beta)
+    if weights is not None:
+        loss = loss * weights[..., None]
+    return loss
+
+
+def softmax_cross_entropy(logits, one_hot_targets, weights=None):
+    """Cross-entropy over the last axis with per-anchor weights."""
+    loss = -torch.sum(one_hot_targets * torch.log_softmax(logits, dim=-1),
+                      dim=-1)
+    if weights is not None:
+        loss = loss * weights
+    return loss

@@ -18,6 +18,14 @@ Layout mapping, by the layer's ``FLAX_KIND``:
   * BatchNorm: params scale/bias and batch_stats mean/var → weight, bias,
     running_mean, running_var.
 
+``flax_params_to_torch`` maps a params-only flat dict (``params/...``
+keys: a flax gradient tree, or Adam's ``mu`` / ``nu``, which have the
+params' shape) by the same converters onto the model's parameters (BN
+scale and bias, no statistics); ``flax_train_state_to_torch`` carries a
+whole JAX train state (params, batch_stats, Adam's moments and count)
+into the port's model and ``train.optimization.ChainOptimizer``. The
+converters are linear, so a gradient or a moment maps like its weight.
+
 ``seeded_flax`` draws such a flat dict from a numpy seed for a model the
 repository holds no trained weights for; the same seed gives the same
 arrays wherever it runs, and the dict unflattens into the JAX model's
@@ -67,10 +75,14 @@ def flax_path(torch_name: str) -> str:
     return re.sub(r"\.(\d+)(?=\.|$)", r"_\1", torch_name).replace(".", "/")
 
 
-def flax_to_torch(flat: dict, model: torch.nn.Module) -> OrderedDict:
-    """Map flat flax variables onto ``model``'s state dict. Every flax key
-    must be consumed and every shape must match, else ``ValueError``."""
-    target = model.state_dict()
+def flax_to_torch(flat: dict, model: torch.nn.Module,
+                  params_only: bool = False) -> OrderedDict:
+    """Map flat flax variables onto ``model``'s state dict (with
+    ``params_only``, the ``params/...`` keys onto ``named_parameters()``).
+    Every flax key must be consumed and every shape must match, else
+    ``ValueError``."""
+    target = (dict(model.named_parameters()) if params_only
+              else model.state_dict())
     out = OrderedDict()
     used = set()
     for name, module in model.named_modules():
@@ -79,6 +91,8 @@ def flax_to_torch(flat: dict, model: torch.nn.Module) -> OrderedDict:
             continue
         for attr, key, conv in _flax_entries(kind, flax_path(name)):
             tname = f"{name}.{attr}" if name else attr
+            if params_only and not key.startswith("params"):
+                continue
             if tname not in target:
                 if key in flat:
                     raise ValueError(f"{key} has no torch slot ({tname})")
@@ -103,6 +117,26 @@ def flax_to_torch(flat: dict, model: torch.nn.Module) -> OrderedDict:
     if missing:
         raise ValueError(f"torch state not covered by flax keys: {missing[:8]}")
     return out
+
+
+def flax_params_to_torch(flat: dict, model: torch.nn.Module) -> OrderedDict:
+    """A params-shaped flax tree (``params/...`` keys: gradients, Adam
+    moments) → ``{torch parameter name: tensor}``."""
+    return flax_to_torch(flat, model, params_only=True)
+
+
+def flax_train_state_to_torch(model: torch.nn.Module, params: dict,
+                              batch_stats: dict, mu: dict, nu: dict,
+                              count: int):
+    """A JAX train state as flat numpy dicts (``params/...``,
+    ``batch_stats/...``; ``mu`` and ``nu`` keyed like ``params``) →
+    (the model's state dict, the optimizer's named state for
+    ``ChainOptimizer.load_named_state``)."""
+    state = flax_to_torch({**params, **batch_stats}, model)
+    named = {"count": int(count),
+             "mu": flax_params_to_torch(mu, model),
+             "nu": flax_params_to_torch(nu, model)}
+    return state, named
 
 
 def load_into(model: torch.nn.Module, flat: dict) -> torch.nn.Module:

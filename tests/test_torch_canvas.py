@@ -1,8 +1,10 @@
-"""BEV canvas scatter: the port's plain version against the JAX Pallas
-kernel (``scatter_canvas(interpret=True)``). The canvas is a pure copy,
-so every comparison is exact (bf16 and fp32). The CUDA kernel is held
-against the plain version in ``test_torch_cuda_kernels.py``."""
+"""BEV canvas scatter and its gradient: the port's plain versions against
+the JAX Pallas kernel (``scatter_canvas(interpret=True)``) and its custom
+VJP. The canvas and its gradient are pure copies, so every comparison is
+exact (bf16 and fp32). The CUDA kernels are held against the plain
+versions in ``test_torch_cuda_kernels.py``."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,6 +40,31 @@ def test_plain_canvas_equals_pallas_interpret(case, dtype):
     )
     assert got.shape == (2, ny, nx, 64) and got.dtype == getattr(torch, dtype)
     np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("layout", ["nhwc", "nchw_view"])
+def test_plain_canvas_grad_equals_jax_vjp(case, dtype, layout):
+    """``scatter_canvas_grad_plain`` against ``jax.vjp`` of the Pallas
+    canvas (interpret mode): the cotangent's row at each valid slot's
+    cell, 0 at the invalid suffix; also for a non-contiguous cotangent,
+    the NHWC view of an NCHW tensor, as a convolution may hand it back."""
+    ny, nx, v, n_valid = CASES[case]
+    rng = np.random.RandomState(1)
+    feats, lins = canvas_inputs(rng, 2, v, ny * nx, n_valid)
+    ct = rng.standard_normal((2, ny, nx, 64)).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    _, vjp = jax.vjp(lambda f: jax_scatter_canvas(
+        f, jnp.asarray(lins), ny, nx, 256, True), jnp.asarray(feats, jdt))
+    want = np.asarray(vjp(jnp.asarray(ct, jdt))[0].astype(jnp.float32))
+    t_ct = torch.from_numpy(ct).to(getattr(torch, dtype))
+    if layout == "nchw_view":
+        t_ct = t_ct.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        assert not t_ct.is_contiguous()
+    got = canvas.scatter_canvas_grad(t_ct, torch.from_numpy(lins))
+    assert got.shape == (2, v, 64) and got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 def test_pointpillar_scatter_matches_jax_module():

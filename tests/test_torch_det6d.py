@@ -172,7 +172,7 @@ def _sa_pair(folded, method, seed):
         jmod.init(jax.random.PRNGKey(seed), *args)), seed)
     ref = jmod.apply(unflatten(flat), *args)
     tmod = PointnetSAModuleFSMSG(in_channels=1, **kw)
-    weights.load_into(tmod, flat)
+    weights.load_into(tmod, flat).eval()
     assert tmod._binned_ok(512) == jmod._binned_ok(512) == folded
     with torch.no_grad():
         got = tmod(*(torch.from_numpy(a) for a in (xyz, feats, valid,

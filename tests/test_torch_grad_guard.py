@@ -1,8 +1,9 @@
-"""The kernel wrappers refuse to cut autograd: ``build.refuse_grad`` and
-the CPU plain versions of the two kernels whose JAX counterparts are
+"""The kernel wrappers never cut autograd: ``build.refuse_grad`` (the
+sparse conv's CUDA path, whose backward comes with SECOND's training)
+and the gradients of the two kernels whose JAX counterparts are
 differentiable (the canvas scatter's custom VJP, the sparse conv's plain
-XLA), whose gradients must equal the JAX package's. The card side (the
-CUDA paths raise under ``enable_grad``) is in
+XLA), which must equal the JAX package's. The card side (the canvas's
+CUDA backward, the sparse conv raising under ``enable_grad``) is in
 ``tests/test_torch_cuda_kernels.py``."""
 
 import jax
@@ -35,8 +36,8 @@ def test_refuse_grad(grad_enabled, requires, raises):
 
 
 def test_refuse_grad_names_the_kernel():
-    with pytest.raises(RuntimeError, match="^scatter_canvas: .*training"):
-        build.refuse_grad("scatter_canvas", torch.ones(1, requires_grad=True))
+    with pytest.raises(RuntimeError, match="^sparse_conv: .*training"):
+        build.refuse_grad("sparse_conv", torch.ones(1, requires_grad=True))
 
 
 def test_plain_canvas_backward_equals_jax_vjp():

@@ -229,7 +229,7 @@ def test_fp_module_equals_jax(skip):
         jmod.init(jax.random.PRNGKey(0), *args)), 6)
     ref = np.asarray(jmod.apply(unflatten(flat), *args))
     tmod = PointnetFPModule(12 + (5 if skip else 0), (16, 24))
-    weights.load_into(tmod, flat)
+    weights.load_into(tmod, flat).eval()
     with torch.no_grad():
         got = tmod(*(None if a is None else torch.from_numpy(a)
                      for a in (unknown, known, ufeat, kfeat, kvalid)))

@@ -178,7 +178,7 @@ def test_point_head_simple_equals_jax(before_fusion):
                                                dict(jbd))), 2)
     ref = jmod.apply(unflatten(flat), dict(jbd))
     tmod = PointHeadSimple(cfg, 24, 1)
-    weights.load_into(tmod, flat)
+    weights.load_into(tmod, flat).eval()
     with torch.no_grad():
         got = tmod({k: _t(v) for k, v in bd.items()})
     for k in ("point_cls_preds", "point_cls_scores"):
@@ -206,7 +206,7 @@ def test_anchor_head_decodes_every_anchor_before_a_roi_head():
     for full in (True, False):
         tmod = AnchorHeadSingle(cfg, 32, 1, ("Car",), grid, pc,
                                 predict_boxes_when_training=full)
-        weights.load_into(tmod, flat)
+        weights.load_into(tmod, flat).eval()
         with torch.no_grad():
             got = tmod({"spatial_features_2d": _t(x)})
         assert ("lazy_box_decode" in got) != full
@@ -216,7 +216,7 @@ def test_anchor_head_decodes_every_anchor_before_a_roi_head():
                                rtol=OP_TOL, atol=OP_TOL)
     tmod = AnchorHeadSingle(cfg, 32, 1, ("Car",), grid, pc,
                             predict_boxes_when_training=True)
-    weights.load_into(tmod, flat)
+    weights.load_into(tmod, flat).eval()
     with torch.no_grad():
         boxes = tmod({"spatial_features_2d": _t(x)})["batch_box_preds"]
     assert tuple(boxes.shape) == (2, 16 * 16 * 2, 7)
@@ -309,7 +309,7 @@ def vsa():
     tmod = voxel_set_abstraction.VoxelSetAbstraction(
         cfg, VS, PC, num_bev_features=16, num_rawpoint_features=1,
         multi_scale_channels={k: f.shape[-1] for k, (f, _, _) in ms.items()})
-    weights.load_into(tmod, flat)
+    weights.load_into(tmod, flat).eval()
     tbd = {k: _t(v) if isinstance(v, np.ndarray) else v
            for k, v in bd.items()}
     tbd["multi_scale_3d_features"] = {
@@ -415,7 +415,7 @@ def test_pvrcnn_head_equals_jax(use_bn):
         jax.random.PRNGKey(0), dict(jbd))), 4)
     ref = jax.jit(lambda v, d: jmod.apply(v, d))(unflatten(flat), dict(jbd))
     tmod = pvrcnn_head.PVRCNNHead(cfg, 12, 1)
-    weights.load_into(tmod, flat)
+    weights.load_into(tmod, flat).eval()
     with torch.no_grad():
         got = tmod({kk: _t(v) for kk, v in bd.items()})
     counts = np.asarray(ref["roi_valid"]).sum(-1)

@@ -164,7 +164,7 @@ def _sa_pair(folded, methods, npoints, ranges, seed, num_class=0):
         jmod.init(jax.random.PRNGKey(seed), *args)), seed)
     ref = jmod.apply(unflatten(flat), *args)
     tmod = pn2.PointnetSAModuleFSMSG(in_channels=8, **kw)
-    weights.load_into(tmod, flat)
+    weights.load_into(tmod, flat).eval()
     assert tmod._binned_ok(384) == jmod._binned_ok(384) == folded
     t = [torch.from_numpy(a) for a in (xyz, feats, valid, scores)]
     with torch.no_grad():
