@@ -52,6 +52,33 @@ Phases, one status line each; any failure exits non-zero:
                     prints the breakdown), the loss falling, exactly 1
                     canvas forward and 1 backward launch a step and none
                     of any other kernel.
+4d. pipeline / kitti — the port's host data pipeline on ``data/kitti``
+                    (``pointpillar.yaml``'s ``DATA_CONFIG``) against the
+                    JAX loader's batches stored in ``de6d_tpu_torch/
+                    testdata/kitti_loader_jax_ref.npz``, bit for bit
+                    (:func:`check_loader`); host ms per batch over train
+                    epoch 0 with 1 and 4 workers, with 4 in the loader's
+                    own process, and over the val split.
+4e. train / kitti — ``tools/train.py`` (``prepare``, ``train``,
+                    ``evaluate``) in bf16 at batch 4 for one epoch of
+                    ``data/kitti`` from the fresh init: step ms, steps/s,
+                    frames/s, the loader's share of the loop, the loss
+                    falling, exactly 1 canvas forward and 1 backward
+                    launch a step and no other kernel, the checkpoint,
+                    the post-training eval (1 canvas and 1-2 fused-NMS
+                    launches a batch: the 1024-prefix cascade).
+4f. eval / kitti  — the port's KITTI eval on the JAX run's own detections
+                    (AP dict exactly, :func:`check_eval_code`; which
+                    matcher ran, native or Python); ``eval_one_epoch`` with
+                    the trained weights over the 100 val frames at batch 8
+                    in fp32 (TF32 off) against ``de6d_tpu_torch/testdata/
+                    pointpillar_eval_jax_ref.npz`` (:func:`check_eval_parity`:
+                    counts, labels, boxes and scores within 1e-3, recall
+                    counters and AP equal or parted at certified
+                    thresholds), recall above 0, recall and 3D AP; bf16 ms
+                    per frame with 1 canvas and 1 fused-NMS launch a
+                    batch; ``tools/test.py --ckpt`` on phase 4e's
+                    checkpoint.
 5. kernels / fps  — the FPS kernel against its plain version at Det6D's
                     shapes (d-fps 8 x 16384 -> 4096 on the real scans,
                     s-fps 8 x 4096 -> 1024 and 8 x 1024 -> 512 weighted by
@@ -189,6 +216,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -218,6 +246,13 @@ PVRCNN_CFG = ROOT / "configs/kitti_models/pv_rcnn.yaml"
 PVRCNN_REF = ROOT / "de6d_tpu_torch/testdata/pvrcnn_jax_ref.npz"
 PVRCNN_SEED = 2026  # no trained PV-RCNN weights in the repository
 TRAIN_REF = ROOT / "de6d_tpu_torch/testdata/pointpillar_train_jax_ref.npz"
+KITTI_DIR = ROOT / "data/kitti"
+LOADER_REF = ROOT / "de6d_tpu_torch/testdata/kitti_loader_jax_ref.npz"
+EVAL_REF = ROOT / "de6d_tpu_torch/testdata/pointpillar_eval_jax_ref.npz"
+EVAL_BATCH = 8
+# a recall counter or an AP may part from the reference only at a box
+# whose IoU lies this close to the threshold in both runs
+PARTING_IOU = 1e-3
 TRAIN_STEPS = 30  # steps of the train phase, after one warm step
 TRAIN_PROFILE_STEPS = 5
 
@@ -1284,6 +1319,522 @@ def phase_train(report, kernels, profile, steps=TRAIN_STEPS):
     if profile:
         for name, us, c in rows[:12]:
             print(f"train profile:   {us:10.1f} us  x{c:5.1f}  {name[:90]}")
+
+
+# ---------------------------------------------------------------------
+# PointPillars on data/kitti: the host pipeline, tools/train.py, eval
+# ---------------------------------------------------------------------
+
+def kitti_loader(training, batch_size, workers=4):
+    """The port's (dataset, loader) on ``data/kitti`` with
+    ``pointpillar.yaml``'s ``DATA_CONFIG``."""
+    from de6d_tpu_torch.config import cfg_from_yaml_file
+    from de6d_tpu_torch.datasets import build_dataloader
+
+    cfg = cfg_from_yaml_file(CFG)
+    return build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+                            root_path=str(KITTI_DIR), training=training,
+                            workers=workers)
+
+
+def first_batches(loader, n, epoch=0):
+    loader.set_epoch(epoch)
+    out = []
+    for b in loader:
+        out.append(b)
+        if len(out) == n:
+            break
+    return out
+
+
+def check_loader(workers=4):
+    """The port's loader against ``kitti_loader_jax_ref.npz`` (the JAX
+    loader's first 8 train batches of epoch 0 at batch 4 and its first val
+    batch at batch 8), bit for bit: points (sha256 of the bytes; the valid
+    rows of the first batch of each split in full), points_mask, gt_boxes,
+    image_shape, frame_id and the calibration matrices. Returns the
+    counts."""
+    import hashlib
+
+    import numpy as np
+
+    with np.load(LOADER_REF) as raw:
+        ref = dict(raw)
+    keys = ["batch_size", "calib", "frame_id", "gt_boxes", "image_shape",
+            "points", "points_mask"]
+    res = {}
+    for tag, training, bs in (("train", True, 4), ("val", False, EVAL_BATCH)):
+        n = int(ref[f"{tag}_batches"])
+        _, loader = kitti_loader(training, bs, workers)
+        got = first_batches(loader, n)
+        loader.close()
+        for i, b in enumerate(got):
+            p = f"{tag}{i}_"
+            where = f"pipeline: {tag} batch {i}"
+            if sorted(b) != keys:
+                fail(f"{where}: keys {sorted(b)}")
+            pts = b["points"]
+            if (pts.dtype != np.float32 or tuple(pts.shape) != tuple(
+                    ref[p + "points_shape"]) or hashlib.sha256(
+                    np.ascontiguousarray(pts).tobytes()).hexdigest()
+                    != str(ref[p + "points_sha256"])):
+                fail(f"{where}: points differ from the JAX loader's")
+            if i == 0 and not np.array_equal(pts[b["points_mask"]],
+                                             ref[p + "points_valid"]):
+                fail(f"{where}: valid points differ")
+            for k in ("points_mask", "gt_boxes", "image_shape"):
+                if (b[k].dtype != ref[p + k].dtype
+                        or not np.array_equal(b[k], ref[p + k])):
+                    fail(f"{where}: {k} differs")
+            if list(b["frame_id"]) != ref[p + "frame_id"].tolist():
+                fail(f"{where}: frame ids {b['frame_id']}")
+            for m in ("P2", "R0", "V2C"):
+                if not np.array_equal(np.stack([getattr(c, m)
+                                                for c in b["calib"]]),
+                                      ref[p + f"calib_{m}"]):
+                    fail(f"{where}: calib {m} differs")
+        res[f"{tag}_batches"] = len(got)
+    return res
+
+
+def time_loader(training, batch_size, workers, epoch=0):
+    """Host ms per batch over a whole epoch of the port's loader, after
+    its first batch (which waits for the loader's process to start), and
+    the seconds to that first batch. Returns (ms, batches, start s)."""
+    _, loader = kitti_loader(training, batch_size, workers)
+    loader.set_epoch(epoch)
+    t0 = time.perf_counter()
+    it = iter(loader)
+    next(it)
+    t1 = time.perf_counter()
+    n = 1 + sum(1 for _ in it)
+    ms = (time.perf_counter() - t1) * 1e3 / (n - 1)
+    loader.close()
+    return ms, n, t1 - t0
+
+
+def phase_pipeline(report):
+    """``pipeline / kitti``: the loader against the JAX loader's batches,
+    then its host ms per batch over train epoch 0 (batch 4) with 1 and 4
+    workers and over the val split (batch 8), and the seconds its process
+    takes to give the first batch."""
+    t0 = time.perf_counter()
+    res = check_loader(workers=4)
+    check_s = time.perf_counter() - t0
+    for workers in (1, 4):
+        ms, n, start_s = time_loader(True, 4, workers)
+        res[f"train_ms_per_batch_w{workers}"] = ms
+        res[f"train_first_batch_s_w{workers}"] = start_s
+    res["train_batches_per_epoch"] = n
+    (res["val_ms_per_batch_w4"], res["val_batches"],
+     res["val_first_batch_s_w4"]) = time_loader(False, EVAL_BATCH, 4)
+    report["pipeline_kitti"] = res
+    print(f"pipeline / kitti: the port's loader equals the JAX loader's "
+          f"batches bit for bit ({res['train_batches']} train batches of "
+          f"epoch 0 at batch 4, 1 val batch at batch {EVAL_BATCH}; "
+          f"{check_s:.1f} s); host ms per batch over train epoch 0 "
+          f"({n} batches of 4, gt sampling, flip, rotation, scaling): "
+          f"{res['train_ms_per_batch_w1']:.2f} (1 worker), "
+          f"{res['train_ms_per_batch_w4']:.2f} (4 workers), after a first "
+          f"batch in {res['train_first_batch_s_w4']:.2f} s (the loader's "
+          f"process starting); val {res['val_ms_per_batch_w4']:.2f} ms per "
+          f"batch of {EVAL_BATCH}", flush=True)
+
+
+def reset_launches(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def read_launches(kernels):
+    return {k: fn.launches for k, fn in kernels.items()}
+
+
+def phase_train_kitti(report, kernels):
+    """``train / kitti``: ``tools/train.py``'s entry (its ``prepare``,
+    ``train`` and ``evaluate``, as ``main`` runs them) with
+    ``pointpillar.yaml`` in bf16 at batch 4 for one epoch of ``data/kitti``
+    from the fresh init (``--fix_random_seed``), 4 loader workers: step ms,
+    steps/s, frames/s, the share of the loop's wall time spent waiting on
+    the loader; the loss finite and falling (mean of the last 10 steps
+    below the first 10); exactly one canvas forward and one backward
+    launch a step and no other kernel; the checkpoint written; the
+    post-training eval over the val split with one canvas and one or two
+    fused-NMS launches a batch. Returns the checkpoint's path."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.tools import train as train_cli
+
+    tag = "chip_smoke"
+    shutil.rmtree(ROOT / "output/kitti_models/pointpillar" / tag,
+                  ignore_errors=True)
+    argv = ["--cfg_file", str(CFG), "--epochs", "1", "--batch_size", "4",
+            "--workers", "4", "--extra_tag", tag, "--fix_random_seed",
+            "--set", "DATA_CONFIG.DATA_PATH", str(KITTI_DIR)]
+    t0 = time.perf_counter()
+    run = train_cli.prepare(argv)
+    prep_s = time.perf_counter() - t0
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    train_cli.train(run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    steps = len(run.step_log)
+    want = {k: steps if k in ("canvas", "canvas_grad") else 0
+            for k in kernels}
+    if steps != len(run.train_loader) or launches != want:
+        fail(f"train / kitti: {steps} steps, launches {launches}, "
+             f"expected {want}")
+    losses = np.array([float(x[2]) for x in run.step_log])
+    if not np.isfinite(losses).all():
+        fail(f"train / kitti: non-finite losses {losses}")
+    if not losses[-10:].mean() < losses[:10].mean():
+        fail(f"train / kitti: the loss did not fall: first 10 "
+             f"{losses[:10].mean()}, last 10 {losses[-10:].mean()}")
+    ckpt = run.ckpt_dir / "checkpoint_epoch_1"
+    if not ckpt.is_file():
+        fail(f"train / kitti: no checkpoint at {ckpt}")
+    data_s = np.array([x[0] for x in run.step_log])
+    step_s = np.array([x[1] for x in run.step_log])
+    iter_ms = (data_s + step_s) * 1e3
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    ret, _ = train_cli.evaluate(run)
+    eval_s = time.perf_counter() - t0
+    eval_launches = read_launches(kernels)
+    n_eval = -(-100 // 4)
+    # the fused NMS runs on the 1024-candidate prefix, and again on all
+    # 4096 where the prefix does not decide a batch (ops/nms.py cascade)
+    want = {k: n_eval if k == "canvas" else 0 for k in kernels}
+    want["nms"] = eval_launches["nms"]
+    if eval_launches != want or not n_eval <= want["nms"] <= 2 * n_eval:
+        fail(f"train / kitti: post-training eval launches {eval_launches} "
+             f"in {n_eval} batches, expected 1 canvas and 1-2 NMS a batch")
+    if not (run.output_dir / "eval/eval_with_train/result.pkl").is_file():
+        fail("train / kitti: the post-training eval wrote no result.pkl")
+    out = {
+        "steps": steps, "batch": 4, "compute_dtype": "bfloat16",
+        "prepare_s": prep_s, "wall_s": wall,
+        "median_step_ms": float(np.median(iter_ms)),
+        "step_ms_iqr": [float(x) for x in np.percentile(iter_ms, [25, 75])],
+        "median_host_step_ms": float(np.median(step_s) * 1e3),
+        "median_loader_wait_ms": float(np.median(data_s) * 1e3),
+        "loader_wait_share": float(data_s.sum() / (data_s + step_s).sum()),
+        "steps_per_s": steps / wall, "frames_per_s": 4 * steps / wall,
+        "first10_loss": float(losses[:10].mean()),
+        "last10_loss": float(losses[-10:].mean()),
+        "launches": launches, "eval_launches": eval_launches,
+        "eval_s": eval_s,
+        "eval_recall": {k: ret[k] for k in ret if k.startswith("recall/")},
+        "checkpoint": str(ckpt),
+    }
+    report["train_kitti"] = out
+    print(f"train / kitti: tools/train.py, pointpillar.yaml bf16, batch 4, "
+          f"1 epoch of data/kitti ({steps} steps) from the fresh init: "
+          f"median step {out['median_step_ms']:.2f} ms (IQR "
+          f"{out['step_ms_iqr'][0]:.2f}-{out['step_ms_iqr'][1]:.2f}; host "
+          f"step {out['median_host_step_ms']:.2f}, loader wait "
+          f"{out['median_loader_wait_ms']:.2f}), "
+          f"{out['steps_per_s']:.2f} steps/s, {out['frames_per_s']:.2f} "
+          f"frames/s, loader wait {out['loader_wait_share']:.1%} of the "
+          f"loop; loss first 10 {out['first10_loss']:.4f} -> last 10 "
+          f"{out['last10_loss']:.4f}; launches {launches}; checkpoint "
+          f"{out['checkpoint']}; post-training eval {eval_s:.1f} s, "
+          f"launches {eval_launches}, recall {out['eval_recall']} "
+          f"(prepare {prep_s:.1f} s)", flush=True)
+    return ckpt
+
+
+def eval_annos_from_arrays(ref):
+    """The fixture's per-frame detections as KITTI annos, built by the
+    port's ``generate_prediction_dicts`` with each val frame's
+    calibration."""
+    import numpy as np
+
+    ds, loader = kitti_loader(False, EVAL_BATCH, 4)
+    starts = np.concatenate([[0], np.cumsum(ref["count"])])
+    annos, i = [], 0
+    loader.set_epoch(0)
+    for batch in loader:
+        preds = []
+        for _ in range(batch["batch_size"]):
+            s, e = starts[i], starts[i + 1]
+            preds.append({"pred_boxes": ref["boxes"][s:e],
+                          "pred_scores": ref["scores"][s:e],
+                          "pred_labels": ref["labels"][s:e].astype(np.int32)})
+            i += 1
+        annos.extend(ds.generate_prediction_dicts(batch, preds,
+                                                  ds.class_names))
+    return ds, annos
+
+
+def check_eval_code():
+    """The port's KITTI eval on the JAX run's own detections (the eval
+    fixture) must give the stored AP dict exactly."""
+    import numpy as np
+
+    with np.load(EVAL_REF) as raw:
+        ref = dict(raw)
+    ds, annos = eval_annos_from_arrays(ref)
+    _, ap = ds.evaluation(annos, ds.class_names)
+    keys = ref["ap_keys"].tolist()
+    got = np.array([float(ap[k]) for k in keys])
+    if sorted(ap) != sorted(keys):
+        fail(f"eval / kitti: AP keys {sorted(ap)}")
+    if not np.array_equal(got, ref["ap_values"]):
+        bad = [k for k, a, b in zip(keys, got, ref["ap_values"]) if a != b]
+        fail(f"eval / kitti: the port's KITTI eval on the JAX detections "
+             f"differs at {bad}")
+    from de6d_tpu_torch.native import native_eval
+
+    return {"ap_equal": True, "native_matcher": native_eval.available()}
+
+
+def _best_iou(gt, boxes):
+    """Each valid gt box's best 3D IoU with ``boxes`` (CPU, fp32)."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.ops import iou3d
+
+    if len(boxes) == 0 or len(gt) == 0:
+        return np.zeros(len(gt))
+    iou = iou3d.boxes_iou3d(torch.from_numpy(np.ascontiguousarray(
+        gt, np.float32)), torch.from_numpy(np.ascontiguousarray(
+            boxes, np.float32)))
+    return iou.amax(dim=1).numpy()
+
+
+def check_eval_parity(ret, annos, tol=PARITY_TOL):
+    """The port's eval (fp32) against ``pointpillar_eval_jax_ref.npz``:
+    frame ids, per-frame counts and labels equal, boxes and scores within
+    ``tol``; each recall counter equal, or parted only at ground-truth
+    boxes whose best 3D IoU lies within :data:`PARTING_IOU` of the
+    threshold in both runs (certified); the AP dict: the AOS entries
+    within ``50 * max |d yaw|`` (AOS averages ``(1 + cos d)/2`` over the
+    matches, in percent: continuous in the yaw), every other entry equal,
+    or a difference explained by the detections at a threshold
+    (:func:`certify_ap`). Returns the report."""
+    import numpy as np
+
+    with np.load(EVAL_REF) as raw:
+        ref = dict(raw)
+    names = ["Car", "Pedestrian", "Cyclist"]
+    got = {
+        "frame_id": np.array([a["frame_id"] for a in annos]),
+        "count": np.array([len(a["score"]) for a in annos]),
+        "boxes": np.concatenate([np.asarray(a["boxes_lidar"], np.float32)
+                                 .reshape(-1, 7) for a in annos]),
+        "scores": np.concatenate([np.asarray(a["score"], np.float32)
+                                  for a in annos]),
+        "labels": np.concatenate([np.array([names.index(n) + 1
+                                            for n in a["name"]], np.int64)
+                                  for a in annos]),
+    }
+    if got["frame_id"].tolist() != ref["frame_id"].tolist():
+        fail("eval / kitti: frame order differs")
+    if not np.array_equal(got["count"], ref["count"]):
+        bad = np.nonzero(got["count"] != ref["count"])[0]
+        fail(f"eval / kitti: counts differ at frames {bad.tolist()}: "
+             f"{got['count'][bad]} vs {ref['count'][bad]}")
+    if not np.array_equal(got["labels"], ref["labels"]):
+        fail("eval / kitti: labels differ")
+    d_box = float(np.abs(got["boxes"] - ref["boxes"]).max(initial=0))
+    d_score = float(np.abs(got["scores"] - ref["scores"]).max(initial=0))
+    if max(d_box, d_score) > tol:
+        fail(f"eval / kitti: max |d box| {d_box}, |d score| {d_score} > "
+             f"{tol}")
+    # recall counters
+    counts = dict(zip(ref["recall_keys"].tolist(),
+                      ref["recall_counts"].tolist()))
+    partings = []
+    gt_by_frame = None
+    if ret["recall_counts"] != counts:
+        if ret["recall_counts"].get("gt") != counts["gt"]:
+            fail(f"eval / kitti: {ret['recall_counts']['gt']} gt boxes, "
+                 f"reference {counts['gt']}")
+        gt_by_frame = eval_gt_boxes()
+        starts = np.concatenate([[0], np.cumsum(ref["count"])])
+        for k, want in counts.items():
+            if k == "gt" or ret["recall_counts"][k] == want:
+                continue
+            t = float(k.split("_")[1])
+            for f, gt in enumerate(gt_by_frame):
+                s, e = starts[f], starts[f + 1]
+                bg = _best_iou(gt, got["boxes"][s:e])
+                br = _best_iou(gt, ref["boxes"][s:e])
+                for j in np.nonzero((bg > t) != (br > t))[0]:
+                    if max(abs(bg[j] - t), abs(br[j] - t)) > PARTING_IOU:
+                        fail(f"eval / kitti: {k} parts at frame {f} gt {j} "
+                             f"(best IoU {bg[j]} vs {br[j]}), not within "
+                             f"{PARTING_IOU} of {t}")
+                    partings.append((k, f, int(j), float(bg[j]),
+                                     float(br[j])))
+            net = sum(1 if p[3] > t else -1 for p in partings if p[0] == k)
+            if ret["recall_counts"][k] - want != net:
+                fail(f"eval / kitti: {k} {ret['recall_counts'][k]} vs {want}"
+                     f" not explained by the certified partings")
+    # AP
+    keys = ref["ap_keys"].tolist()
+    ap = np.array([float(ret[k]) for k in keys])
+    d_yaw = float(np.abs(got["boxes"][:, 6] - ref["boxes"][:, 6]).max(
+        initial=0))
+    aos_tol = 50 * d_yaw
+    d_aos = max((abs(a - b) for k, a, b in zip(keys, ap, ref["ap_values"])
+                 if "_aos/" in k), default=0.0)
+    if d_aos > aos_tol:
+        fail(f"eval / kitti: AOS differs by {d_aos} > {aos_tol}")
+    ap_diff = [k for k, a, b in zip(keys, ap, ref["ap_values"])
+               if a != b and "_aos/" not in k]
+    certified_ap = []
+    if ap_diff:
+        certified_ap = certify_ap(got, ref, ap_diff)
+    return {"counts": int(got["count"].sum()), "max_abs_box": d_box,
+            "max_abs_score": d_score, "recall_partings": partings,
+            "max_abs_aos": d_aos, "aos_tol": aos_tol,
+            "ap_differs_at": ap_diff, "ap_certified_by": certified_ap}
+
+
+def eval_gt_boxes():
+    """Each val frame's gt boxes (valid rows) as the eval batches carry
+    them."""
+    import numpy as np
+
+    _, loader = kitti_loader(False, EVAL_BATCH, 4)
+    out = []
+    loader.set_epoch(0)
+    for b in loader:
+        for g in b["gt_boxes"]:
+            out.append(g[np.any(np.abs(g[:, :7]) > 0, axis=-1), :7])
+    return out
+
+
+def certify_ap(got, ref, ap_diff):
+    """Replace the port's detections that lie at a threshold by the
+    reference's: a 3D or BEV IoU with a gt box within :data:`PARTING_IOU`
+    of 0.25, 0.5 or 0.7 in either run, or a score whose order against
+    another detection's differs between the runs. The AP of the result
+    must equal the reference AP (AOS aside). Returns the replaced
+    detections' indices."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.ops import iou3d
+
+    gt_by_frame = eval_gt_boxes()
+    starts = np.concatenate([[0], np.cumsum(ref["count"])])
+    near = np.zeros(len(ref["scores"]), bool)
+    for f, gt in enumerate(gt_by_frame):
+        s, e = starts[f], starts[f + 1]
+        if e == s or len(gt) == 0:
+            continue
+        g = torch.from_numpy(np.ascontiguousarray(gt, np.float32))
+        for boxes in (got["boxes"][s:e], ref["boxes"][s:e]):
+            a = torch.from_numpy(np.ascontiguousarray(boxes, np.float32))
+            for iou in (iou3d.boxes_iou3d(a, g), iou3d.boxes_iou_bev(a, g)):
+                iou = iou.numpy()
+                for t in (0.25, 0.5, 0.7):
+                    near[s:e] |= (np.abs(iou - t) <= PARTING_IOU).any(1)
+    flips = (np.sign(got["scores"][:, None] - got["scores"][None])
+             != np.sign(ref["scores"][:, None] - ref["scores"][None]))
+    near |= flips.any(1)
+    hybrid = {k: v.copy() for k, v in got.items()}
+    hybrid["boxes"][near] = ref["boxes"][near]
+    hybrid["scores"][near] = ref["scores"][near]
+    ds, annos = eval_annos_from_arrays(hybrid)
+    _, ap = ds.evaluation(annos, ds.class_names)
+    keys = [k for k in ref["ap_keys"].tolist() if "_aos/" not in k]
+    want = dict(zip(ref["ap_keys"].tolist(), ref["ap_values"].tolist()))
+    if any(float(ap[k]) != want[k] for k in keys):
+        fail(f"eval / kitti: AP differs at {ap_diff}, not explained by the "
+             f"{int(near.sum())} detections at a threshold")
+    return np.nonzero(near)[0].tolist()
+
+
+def phase_eval_kitti(report, kernels, ckpt):
+    """``eval / kitti``: the port's KITTI eval on the JAX detections;
+    ``eval_one_epoch`` of PointPillars with the trained weights over the
+    100 val frames at batch 8: fp32 (TF32 off) against
+    ``pointpillar_eval_jax_ref.npz`` (:func:`check_eval_parity`), recall
+    above 0; bf16 ms per frame with one canvas and one fused-NMS launch a
+    batch; then ``tools/test.py --ckpt`` on ``train / kitti``'s
+    checkpoint."""
+    import torch
+
+    from de6d_tpu_torch.tools import test as test_cli
+    from de6d_tpu_torch.train.eval_utils import eval_one_epoch
+
+    code = check_eval_code()
+    ds, loader = kitti_loader(False, EVAL_BATCH, 4)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, mc, _ = build_model("float32", "cuda")
+    ret32, annos = eval_one_epoch(model, loader, ds, mc, ds.class_names)
+    parity = check_eval_parity(ret32, annos)
+    if not ret32["recall/recalled_0.3"] > 0:
+        fail(f"eval / kitti: recall {ret32['recall_counts']}")
+    del model
+    model, mc, _ = build_model("bfloat16", "cuda")
+    eval_one_epoch(model, loader, ds, mc, ds.class_names)  # warm
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    ret16, _ = eval_one_epoch(model, loader, ds, mc, ds.class_names)
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    n = len(loader)
+    loader.close()
+    want = {k: n if k in ("canvas", "nms") else 0 for k in kernels}
+    if launches != want:
+        fail(f"eval / kitti: launches {launches}, expected {want}")
+    del model
+    argv = ["--cfg_file", str(CFG), "--ckpt", str(ckpt), "--extra_tag",
+            "chip_smoke", "--batch_size", str(EVAL_BATCH), "--workers", "4",
+            "--allow-zero-recall", "--set", "DATA_CONFIG.DATA_PATH",
+            str(KITTI_DIR)]
+    t0 = time.perf_counter()
+    ret_cli = test_cli.main(argv)
+    cli_s = time.perf_counter() - t0
+    out_dir = ROOT / "output/kitti_models/pointpillar/chip_smoke/eval/single"
+    if not (out_dir / "result.pkl").is_file():
+        fail("eval / kitti: tools/test.py wrote no result.pkl")
+
+    def ap_line(r):
+        return {c: (round(r[f"{c}_3d/moderate"], 4),
+                    round(r[f"{c}_3d/moderate_R40"], 4))
+                for c in ("Car", "Pedestrian", "Cyclist")}
+
+    out = {
+        "eval_code": code, "parity": parity,
+        "fp32": {k: v for k, v in ret32.items()},
+        "bf16": {k: v for k, v in ret16.items()},
+        "bf16_ms_per_frame": ret16["sec_per_example"] * 1e3,
+        "bf16_steady_ms_per_frame": (ret16["steady_sec_per_example"] or 0)
+        * 1e3,
+        "bf16_wall_s": wall, "batches": n, "launches": launches,
+        "test_cli_s": cli_s,
+        "test_cli": {k: v for k, v in ret_cli.items()},
+    }
+    report["eval_kitti"] = out
+    print(f"eval / kitti: the port's KITTI eval on the JAX run's detections "
+          f"gives its AP dict exactly (native matcher: "
+          f"{code['native_matcher']}); fp32 (TF32 off) eval_one_epoch of "
+          f"the trained weights over the 100 val frames at batch "
+          f"{EVAL_BATCH} matches pointpillar_eval_jax_ref.npz: "
+          f"{parity['counts']} detections, max |d box| "
+          f"{parity['max_abs_box']:.3g}, |d score| "
+          f"{parity['max_abs_score']:.3g} (tol {PARITY_TOL}), recall "
+          f"partings {parity['recall_partings']}, AP differs at "
+          f"{parity['ap_differs_at']}; recall {ret32['recall_counts']}; "
+          f"3D AP (R11, R40) moderate {ap_line(ret32)}; bf16 "
+          f"{out['bf16_ms_per_frame']:.3f} ms per frame over the epoch "
+          f"(steady p50 {out['bf16_steady_ms_per_frame']:.3f}), launches "
+          f"{launches} in {n} batches; tools/test.py --ckpt on the "
+          f"train / kitti checkpoint ran in {cli_s:.1f} s, recall "
+          f"{ret_cli['recall_counts']}", flush=True)
 
 
 # ---------------------------------------------------------------------
@@ -3658,6 +4209,9 @@ def main():
 
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
+    # the CLIs write output/ under the current directory, as the JAX
+    # ones do: run them in this checkout, wherever the script was started
+    os.chdir(ROOT)
     from de6d_tpu_torch.ops.kernels import (
         build, canvas, fps, lookup, matrix_fps, nms_fused, nms_mask,
         sparse_conv,
@@ -3689,14 +4243,18 @@ def main():
     phase_parity("cuda", report)
     phase_canvas_grad(report)
     phase_train_parity(report)
-    phase_train(report, {"canvas": canvas.scatter_canvas,
-                         "canvas_grad": canvas.scatter_canvas_grad,
-                         "nms": nms, "nms_mask": nms_mask.nms_suppression_mask,
-                         "nms_resolve": nms_mask.nms_resolve, "fps": fps.fps,
-                         "matrix_fps": matrix_fps.matrix_fps,
-                         "lookup": lookup.lookup,
-                         "neighbor_table": lookup.neighbor_table,
-                         "sparse_conv": sparse_conv.sparse_conv}, profile)
+    every_kernel = {"canvas": canvas.scatter_canvas,
+                    "canvas_grad": canvas.scatter_canvas_grad,
+                    "nms": nms, "nms_mask": nms_mask.nms_suppression_mask,
+                    "nms_resolve": nms_mask.nms_resolve, "fps": fps.fps,
+                    "matrix_fps": matrix_fps.matrix_fps,
+                    "lookup": lookup.lookup,
+                    "neighbor_table": lookup.neighbor_table,
+                    "sparse_conv": sparse_conv.sparse_conv}
+    phase_train(report, every_kernel, profile)
+    phase_pipeline(report)
+    ckpt = phase_train_kitti(report, every_kernel)
+    phase_eval_kitti(report, every_kernel, ckpt)
 
     model, mc = phase_det6d_kernels(report)
     pts, mask = load_det6d_scans()
@@ -3780,7 +4338,9 @@ def main():
                "iassd": report["serve_iassd"]["launches"],
                "second": report["serve_second"]["launches"],
                "pv_rcnn": report["serve_pv_rcnn"]["launches"],
-               "pointpillar_train": report["train"]["launches"]}
+               "pointpillar_train": report["train"]["launches"],
+               "pointpillar_train_kitti": report["train_kitti"]["launches"],
+               "pointpillar_eval_kitti": report["eval_kitti"]["launches"]}
     kernels = []
     for key in ("canvas", "canvas_grad", "nms", "nms_mask", "fps",
                 "matrix_fps", "lookup", "neighbor_table", "sparse_conv"):

@@ -19,7 +19,7 @@ from torch import nn
 from ...ops import sparse
 from ...registry import BACKBONES_3D
 from ..model_utils.dtype_utils import compute_dtype
-from ..model_utils.layers import BatchNorm
+from ..model_utils.layers import BatchNorm, normal
 
 
 class MaskedBatchNorm(BatchNorm):
@@ -45,10 +45,17 @@ class _SparseConv(nn.Module):
     def __init__(self, cin, cout, kernel):
         super().__init__()
         k3 = kernel[0] * kernel[1] * kernel[2]
-        self.weight = nn.Parameter(
-            torch.randn(k3, cin, cout) / (k3 * cin) ** 0.5)
+        self.weight = nn.Parameter(torch.empty(k3, cin, cout))
         self.bias = None
         self.MaskedBatchNorm_0 = MaskedBatchNorm(cout)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        """flax's ``variance_scaling(1, "fan_in", "normal")``: fan-in
+        ``k3 * cin``, not truncated."""
+        k3, cin, _ = self.weight.shape
+        with torch.no_grad():
+            normal((k3 * cin) ** -0.5)(self.weight, generator)
 
 
 class SubMConvLayer(_SparseConv):

@@ -31,7 +31,7 @@ from ...ops.ball_query import _fma
 from ...registry import DENSE_HEADS
 from ...utils import box_coder_utils, loss_utils
 from ..model_utils.dtype_utils import compute_dtype
-from ..model_utils.layers import Conv
+from ..model_utils.layers import Conv, constant, normal
 from . import anchor_generator
 from .axis_aligned_assigner import assign_targets
 
@@ -114,9 +114,15 @@ class AnchorHeadSingle(nn.Module):
             self.register_buffer(name, torch.from_numpy(np.tile(arr, cells)),
                                  persistent=False)
         dt = compute_dtype(model_cfg)
-        self.conv_cls = Conv(input_channels, a_loc * num_class, 1, dtype=dt)
+        # flax's initialisers of the JAX head: the focal prior pi = 0.01 on
+        # the class bias, a small normal on the box kernel
+        self.conv_cls = Conv(
+            input_channels, a_loc * num_class, 1, dtype=dt,
+            bias_init=constant(-np.log((1 - 0.01) / 0.01)),
+        )
         self.conv_box = Conv(
-            input_channels, a_loc * self.box_coder.code_size, 1, dtype=dt
+            input_channels, a_loc * self.box_coder.code_size, 1, dtype=dt,
+            kernel_init=normal(0.001),
         )
         self.use_dir = model_cfg.get("USE_DIRECTION_CLASSIFIER", False)
         self.num_dir_bins = int(model_cfg.get("NUM_DIR_BINS", 2))

@@ -15,6 +15,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from ...ops import iou3d
 from ...ops import nms as nms_ops
 from ...ops import voxelize as voxelize_ops
 from ...registry import (
@@ -287,3 +288,24 @@ def post_processing(batch_dict, post_cfg, num_class: int):
         "pred_labels": torch.where(in_count, sel_labels, 0).to(torch.int32),
         "pred_count": counts,
     }
+
+
+def generate_recall_record(batch_dict, pred_boxes, pred_counts,
+                           thresh_list=(0.3, 0.5, 0.7)):
+    """Recall counters against ``batch_dict["gt_boxes"]`` (B, M, 7+1+): per
+    IoU threshold t, the ground-truth boxes (any of the first 7 columns
+    non-zero) whose best 3D IoU with the first ``pred_counts[b]`` boxes
+    exceeds t. Returns ``{"gt": n, "recalled_<t>": n, ...}`` as 0-d int64
+    tensors summed over the batch."""
+    gt = batch_dict["gt_boxes"][..., :7].float()
+    boxes = pred_boxes[..., :7].float()
+    gt_valid = torch.any(torch.abs(gt) > 0, dim=-1)  # (B, M)
+    box_valid = (torch.arange(boxes.shape[1], device=boxes.device)[None]
+                 < pred_counts[:, None])  # (B, P)
+    iou = iou3d.boxes_iou3d(gt, boxes)  # (B, M, P)
+    iou = torch.where(gt_valid[..., None] & box_valid[:, None], iou, 0.0)
+    best = iou.amax(dim=-1)
+    out = {"gt": gt_valid.sum()}
+    for t in thresh_list:
+        out[f"recalled_{t}"] = ((best > t) & gt_valid).sum()
+    return out

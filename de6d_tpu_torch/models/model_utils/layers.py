@@ -4,17 +4,89 @@ Parameters are fp32; each layer casts its input and weights to the
 module's compute dtype at use, as flax's ``dtype=`` does. Each class
 names its flax counterpart in ``FLAX_KIND`` so ``weights.flax_to_torch``
 knows how to carry a flax kernel across.
+
+The layers initialise as flax's do: kernels by ``lecun_normal`` (a normal
+of variance 1 / fan_in truncated at two standard deviations, with flax's
+fan-in of each kernel layout), biases zero, BatchNorm scale one and bias
+zero. ``Conv`` takes flax's ``kernel_init`` / ``bias_init`` overrides as
+callables ``fn(tensor, generator)``. :func:`init_flax_` draws a whole
+model again from one ``torch.Generator``; the bits cannot be flax's
+(jax's PRNG is not torch's), only the distributions are.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+# the standard deviation of a unit normal truncated at +-2, by which
+# flax's variance_scaling divides to keep the requested variance
+_TRUNC_STD = 0.87962566103423978
 
-class Dense(nn.Module):
-    """flax ``nn.Dense``: ``y = x @ W (+ b)`` on the last axis."""
+
+def lecun_normal(fan_in: int):
+    """flax ``lecun_normal()``: ``variance_scaling(1, "fan_in",
+    "truncated_normal")`` for a kernel of fan-in ``fan_in``."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+
+    def init(t, generator=None):
+        return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
+                                     generator=generator)
+
+    return init
+
+
+def normal(stddev: float):
+    """flax ``initializers.normal(stddev)``."""
+    def init(t, generator=None):
+        return nn.init.normal_(t, 0.0, stddev, generator=generator)
+
+    return init
+
+
+def constant(value: float):
+    """flax ``initializers.constant(value)``."""
+    def init(t, generator=None):
+        return nn.init.constant_(t, value)
+
+    return init
+
+
+zeros = constant(0.0)
+
+
+def init_flax_(model: nn.Module, generator: torch.Generator | None = None):
+    """Draw every layer of ``model`` again as flax initialises it, in
+    module order, from ``generator`` (a CPU generator: call before moving
+    the model to the card). Returns the model."""
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "FLAX_KIND"):
+                m.reset_parameters(generator)
+    return model
+
+
+class _FlaxInit(nn.Module):
+    """Kernel and bias initialisers of a flax layer; ``fan_in`` is the
+    kernel's flax fan-in."""
+
+    def _set_inits(self, fan_in, kernel_init=None, bias_init=None):
+        self.kernel_init = kernel_init or lecun_normal(fan_in)
+        self.bias_init = bias_init or zeros
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.kernel_init(self.weight, generator)
+            if self.bias is not None:
+                self.bias_init(self.bias, generator)
+
+
+class Dense(_FlaxInit):
+    """flax ``nn.Dense``: ``y = x @ W (+ b)`` on the last axis; fan-in
+    ``in_features``."""
 
     FLAX_KIND = "Dense"
 
@@ -24,9 +96,10 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = (
-            nn.Parameter(torch.zeros(out_features)) if use_bias else None
+            nn.Parameter(torch.empty(out_features)) if use_bias else None
         )
-        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+        self._set_inits(in_features)
+        self.reset_parameters()
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
@@ -56,6 +129,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def reset_parameters(self, generator=None):
+        """flax's: scale one, bias zero, mean zero, var one."""
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
     def forward(self, x, channel_dim: int = -1):
         shape = [1] * x.ndim
         shape[channel_dim] = -1
@@ -78,20 +159,23 @@ class BatchNorm(nn.Module):
         return y.to(self.dtype)
 
 
-class Conv(nn.Module):
-    """flax ``nn.Conv`` on an NCHW (channels-last in memory) tensor."""
+class Conv(_FlaxInit):
+    """flax ``nn.Conv`` on an NCHW (channels-last in memory) tensor;
+    fan-in ``kernel * kernel * cin`` (flax's HWIO kernel)."""
 
     FLAX_KIND = "Conv"
 
     def __init__(self, cin, cout, kernel, stride=1, padding=0,
-                 use_bias=True, dtype=torch.float32):
+                 use_bias=True, dtype=torch.float32, kernel_init=None,
+                 bias_init=None):
         super().__init__()
         self.stride = stride
         self.padding = padding
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
-        self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
-        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+        self.bias = nn.Parameter(torch.empty(cout)) if use_bias else None
+        self._set_inits(kernel * kernel * cin, kernel_init, bias_init)
+        self.reset_parameters()
 
     def forward(self, x):
         w = self.weight.to(self.dtype).contiguous(
@@ -101,11 +185,13 @@ class Conv(nn.Module):
         return F.conv2d(x.to(self.dtype), w, b, self.stride, self.padding)
 
 
-class ConvTranspose(nn.Module):
+class ConvTranspose(_FlaxInit):
     """flax ``nn.ConvTranspose`` with kernel == stride (the only form
     BaseBEVBackbone uses; output is exactly ``stride`` times larger).
     The torch weight is (in, out, kh, kw); flax does not flip the kernel
-    and torch does, so ``weights.flax_to_torch`` flips it on the way in."""
+    and torch does, so ``weights.flax_to_torch`` flips it on the way in.
+    No bias (``use_bias=False`` in BaseBEVBackbone); fan-in ``stride *
+    stride * cin`` (flax's (kh, kw, in, out) kernel)."""
 
     FLAX_KIND = "ConvTranspose"
 
@@ -114,7 +200,9 @@ class ConvTranspose(nn.Module):
         self.stride = stride
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(cin, cout, stride, stride))
-        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+        self.bias = None
+        self._set_inits(stride * stride * cin)
+        self.reset_parameters()
 
     def forward(self, x):
         w = self.weight.to(self.dtype)

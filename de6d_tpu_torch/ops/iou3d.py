@@ -1,6 +1,7 @@
 """Rotated BEV overlap and IoU (counterpart of ``de6d_tpu/ops/iou3d.py``:
-``_pairwise_green_pass``, ``boxes_overlap_bev``, ``boxes_iou_bev``), and
-the target assigner's axis-aligned ``boxes3d_nearest_bev_iou``.
+``_pairwise_green_pass``, ``boxes_overlap_bev``, ``boxes_iou_bev``,
+``boxes_iou3d``), and the target assigner's axis-aligned
+``boxes3d_nearest_bev_iou``.
 
 Sort-free exact method: by Green's theorem the boundary of A∩B is A's
 edges clipped into B plus B's edges clipped into A, and the shoelace
@@ -112,6 +113,24 @@ def boxes_overlap_bev(boxes_a, boxes_b):
 def boxes_iou_bev(boxes_a, boxes_b):
     """(N, 7+) × (M, 7+) → (N, M) rotated BEV IoU."""
     return pairwise_iou_packed(pack_bev(boxes_a), pack_bev(boxes_b))
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """(..., N, 7+) × (..., M, 7+) → (..., N, M) 3D IoU: the rotated BEV
+    overlap times the z-extent overlap, over the union of the volumes
+    (yaw only, the first 7 columns, also for 9-DoF boxes)."""
+    overlap_bev = pairwise_overlap_packed(pack_bev(boxes_a), pack_bev(boxes_b))
+    za1 = boxes_a[..., 2] - boxes_a[..., 5] / 2
+    za2 = boxes_a[..., 2] + boxes_a[..., 5] / 2
+    zb1 = boxes_b[..., 2] - boxes_b[..., 5] / 2
+    zb2 = boxes_b[..., 2] + boxes_b[..., 5] / 2
+    overlap_h = torch.clamp(
+        torch.minimum(za2[..., :, None], zb2[..., None, :])
+        - torch.maximum(za1[..., :, None], zb1[..., None, :]), min=0.0)
+    overlap_3d = overlap_bev * overlap_h
+    vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5])[..., :, None]
+    vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5])[..., None, :]
+    return overlap_3d / torch.clamp(vol_a + vol_b - overlap_3d, min=EPS)
 
 
 # Jitted XLA on the CPU, whose labels the assigner must reproduce, rounds

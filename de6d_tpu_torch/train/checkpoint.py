@@ -11,6 +11,7 @@ Ring pruning keeps the newest ``max_keep``.
 from __future__ import annotations
 
 import re
+import zipfile
 from pathlib import Path
 
 import torch
@@ -53,7 +54,22 @@ def prune_checkpoints(ckpt_dir, max_keep: int):
 
 
 def _load(path):
-    return torch.load(Path(path), map_location="cpu", weights_only=True)
+    """A checkpoint of this package, or ValueError naming ``path``: a
+    directory (an orbax checkpoint of the JAX package's CLI, which writes
+    under the same ``output/`` path) or any other file is not read."""
+    path = Path(path)
+    if not (path.is_file() and zipfile.is_zipfile(path)):
+        raise ValueError(
+            f"{path} is not a de6d_tpu_torch checkpoint (a torch.save "
+            "file); an orbax directory of the JAX package is not read "
+            "here: weights.flax_train_state_to_torch carries a JAX train "
+            "state across")
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if not (isinstance(raw, dict) and {"model", "optimizer", "epoch",
+                                       "step"} <= set(raw)):
+        raise ValueError(f"{path} is not a de6d_tpu_torch checkpoint "
+                         "(no model / optimizer / epoch / step entries)")
+    return raw
 
 
 def restore_checkpoint(path, state):

@@ -24,12 +24,18 @@ DEVICE_BATCH_KEYS = ("points", "points_mask", "gt_boxes")
 
 
 def device_batch(batch, device):
-    """The keys the model reads, as tensors on ``device``."""
+    """The keys the model reads, as tensors on ``device``. Host arrays go
+    to the card through pinned memory, so the copy queues behind the
+    step in flight instead of blocking the host until it ends (a copy
+    from pageable memory is synchronous)."""
     out = {}
     for k in DEVICE_BATCH_KEYS:
         if k in batch:
             v = batch[k]
-            v = torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+            if isinstance(v, np.ndarray):
+                v = torch.from_numpy(v)
+                if device.type == "cuda":
+                    v = v.pin_memory()
             out[k] = v.to(device, non_blocking=True)
     return out
 
@@ -60,12 +66,16 @@ def train_model(
     log_interval: int = 50,
     profile_dir=None,
     profile_steps: tuple = (10, 20),
+    step_log=None,
 ):
     """Train ``state`` over ``train_loader`` (any iterable of batches
     with ``set_epoch``) from ``start_epoch`` to ``total_epochs``. With
     ``profile_dir``, steps [profile_steps[0], profile_steps[1]) are traced
-    by ``torch.profiler`` into ``profile_dir/trace.json``. Returns the
-    state."""
+    by ``torch.profiler`` into ``profile_dir/trace.json``. With a list
+    ``step_log``, each step appends (seconds waiting on the loader,
+    seconds of the step on the host: its dispatch plus the wait for the
+    step before it, its loss as a 0-d tensor on the device, not
+    synchronised). Returns the state."""
     del opt_cfg  # the schedule and clip live in the optimizer
     device = next(model.parameters()).device
     train_step = make_train_step(model, optimizer)
@@ -93,6 +103,8 @@ def train_model(
             t_step = time.perf_counter() - t_end - t_data
             data_time.update(t_data)
             step_time.update(t_step)
+            if step_log is not None:
+                step_log.append((t_data, t_step, metrics["loss"]))
             it += 1
             if prof is not None and it >= profile_steps[1]:
                 if device.type == "cuda":

@@ -177,16 +177,22 @@ def test_build_network_defaults_to_cuda():
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port, and chip_smoke.py, imports without
-    pulling in jax, flax or de6d_tpu."""
+    """Every module of the port, the host pipeline, the KITTI eval, the
+    eval loop and both CLIs by name, and chip_smoke.py, import without
+    pulling in jax, flax, optax or de6d_tpu."""
     code = """
 import importlib, pkgutil, sys
 import de6d_tpu_torch
+for name in ("de6d_tpu_torch.datasets",
+             "de6d_tpu_torch.datasets.eval.kitti_eval",
+             "de6d_tpu_torch.train.eval_utils",
+             "de6d_tpu_torch.tools.train", "de6d_tpu_torch.tools.test"):
+    importlib.import_module(name)
 for m in pkgutil.walk_packages(de6d_tpu_torch.__path__, "de6d_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "de6d_tpu"))
+bad = sorted(k for k in sys.modules if k.split(".")[0] in (
+    "jax", "jaxlib", "flax", "optax", "de6d_tpu"))
 print("BAD", bad)
 assert not bad, bad
 """

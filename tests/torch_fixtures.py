@@ -259,3 +259,47 @@ def run_jax_point_detector(jmodel, variables, post_cfg, num_class, pts, mask):
             out[f"scores_{k}"] = np.asarray(scores)
     return out
 
+
+
+KITTI_ROOT = "data/kitti"
+
+
+def kitti_subtree(dst, n_train=8, n_val=4):
+    """A KITTI tree cut from the repository's ``data/kitti`` into ``dst``:
+    the first ``n_train`` train and ``n_val`` val frames (velodyne, calib,
+    labels), their infos, and the sampling database of those train frames
+    (dbinfos filtered, the object files copied). Returns ``dst``."""
+    import pickle
+    import shutil
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parent.parent / KITTI_ROOT
+    dst = Path(dst)
+    (dst / "ImageSets").mkdir(parents=True, exist_ok=True)
+    (dst / "gt_database").mkdir(exist_ok=True)
+    for sub in ("velodyne", "calib", "label_2"):
+        (dst / "training" / sub).mkdir(parents=True, exist_ok=True)
+    ext = {"velodyne": ".bin", "calib": ".txt", "label_2": ".txt"}
+    for split, n in (("train", n_train), ("val", n_val)):
+        with open(src / f"kitti_infos_{split}.pkl", "rb") as f:
+            infos = pickle.load(f)[:n]
+        ids = [i["point_cloud"]["lidar_idx"] for i in infos]
+        (dst / "ImageSets" / f"{split}.txt").write_text("\n".join(ids) + "\n")
+        for idx in ids:
+            for sub in ("velodyne", "calib", "label_2"):
+                name = f"training/{sub}/{idx}{ext[sub]}"
+                shutil.copyfile(src / name, dst / name)
+        with open(dst / f"kitti_infos_{split}.pkl", "wb") as f:
+            pickle.dump(infos, f)
+        if split == "train":
+            with open(src / "kitti_dbinfos_train.pkl", "rb") as f:
+                db = pickle.load(f)
+            keep = set(ids)
+            db = {k: [d for d in v if d["image_idx"] in keep]
+                  for k, v in db.items()}
+            for objs in db.values():
+                for d in objs:
+                    shutil.copyfile(src / d["path"], dst / d["path"])
+            with open(dst / "kitti_dbinfos_train.pkl", "wb") as f:
+                pickle.dump(db, f)
+    return dst
