@@ -100,6 +100,35 @@ Phases, one status line each; any failure exits non-zero:
                     ``de6d_tpu_torch/testdata/det6d_jax_ref.npz``: per-layer
                     picks, counts, labels, boxes and scores
                     (:func:`check_det6d_parity`).
+7a. parity / train_det6d — the Det6D train step in fp32 (TF32 off) from
+                    ``bench_assets/det6d_car_params.npz`` on the batch of
+                    2 stored in ``de6d_tpu_torch/testdata/
+                    det6d_train_jax_ref.npz`` (the JAX loader's on
+                    ``data/slopedkitti``, SlopeAug on), every sampling call
+                    given the reference's picks: own picks certified,
+                    labels identical, targets, loss terms, gradient norm,
+                    gradients and BatchNorm statistics within
+                    :data:`DET6D_TRAIN_TOL` (:func:`check_det6d_train_parity`).
+7b. train / det6d — ``train_model`` with ``slopedkitti_models/
+                    det6d_car.yaml``'s dtypes (the head in bf16) at batch 8
+                    on the fixture's 8 frames, :data:`TRAIN_STEPS` steps:
+                    step ms, steps/s, frames/s, device ms and idle share
+                    (5-step profiler window), peak memory, the loss
+                    falling, exactly 3 FPS launches a step and no other
+                    kernel launch.
+7c. train / det6d_slopedkitti — ``tools/train.py`` (``prepare``, ``train``,
+                    ``evaluate``) on that config for one epoch of
+                    ``data/slopedkitti`` at batch 8 from the fresh init:
+                    steps/s, the loader's share of the loop, the loss, 3
+                    FPS launches a step; the post-training eval with 3 FPS
+                    and 1-2 fused-NMS launches a batch.
+7d. eval / det6d_slopedkitti — ``eval_one_epoch`` of the trained weights
+                    over the 50 val frames at batch 8: fp32 (TF32 off)
+                    against ``de6d_tpu_torch/testdata/det6d_eval_jax_ref.npz``
+                    with the reference's picks (:func:`det6d_eval_parity`:
+                    counts, labels, boxes, scores, recall, the SlopedKITTI
+                    result dict); with the head in bf16, ms per frame and
+                    the launch counts.
 
 8. kernels / nms_mask — ``nms_suppression_mask`` and ``nms_resolve``
                     against their plain versions, whole outputs equal: the
@@ -231,6 +260,10 @@ DET6D_CFG = ROOT / "configs/kitti_models/det6d_car.yaml"
 DET6D_PARAMS = ROOT / "bench_assets/det6d_car_params.npz"
 DET6D_SCANS = ROOT / "bench_assets/det6d_car_scans.npz"
 DET6D_REF = ROOT / "de6d_tpu_torch/testdata/det6d_jax_ref.npz"
+DET6D_SLOPED_CFG = ROOT / "configs/slopedkitti_models/det6d_car.yaml"
+DET6D_TRAIN_REF = ROOT / "de6d_tpu_torch/testdata/det6d_train_jax_ref.npz"
+DET6D_EVAL_REF = ROOT / "de6d_tpu_torch/testdata/det6d_eval_jax_ref.npz"
+SLOPEDKITTI_DIR = ROOT / "data/slopedkitti"
 RCNN_CFG = ROOT / "configs/kitti_models/pointrcnn.yaml"
 RCNN_REF = ROOT / "de6d_tpu_torch/testdata/pointrcnn_jax_ref.npz"
 RCNN_SEED = 2026  # numpy seed of PointRCNN's weights (weights.seeded_flax)
@@ -351,14 +384,16 @@ def spec_from_cfg(cfg):
 def build_model(compute_dtype, dev, cfg_path=CFG, params=PARAMS):
     """The port's model for one yaml with its trained weights, or, with
     ``params`` an int, with weights drawn from that numpy seed. In fp32
-    the slots' own compute-dtype overrides are dropped: fp32 everywhere."""
+    the slots' own compute-dtype overrides are dropped: fp32 everywhere;
+    ``compute_dtype`` None keeps the config's own dtypes."""
     from de6d_tpu_torch import weights
     from de6d_tpu_torch.config import cfg_from_yaml_file
     from de6d_tpu_torch.models import build_network
 
     cfg = cfg_from_yaml_file(cfg_path)
     mc = copy.deepcopy(cfg.MODEL)
-    mc["COMPUTE_DTYPE"] = compute_dtype
+    if compute_dtype is not None:
+        mc["COMPUTE_DTYPE"] = compute_dtype
     if compute_dtype == "float32":
         for slot in mc.values():
             if isinstance(slot, dict):
@@ -1209,23 +1244,25 @@ class Scalars:
         self.last[tag] = value
 
 
-def phase_train(report, kernels, profile, steps=TRAIN_STEPS):
-    """``train_model`` over the fixture's 4 frames at full width in bf16
-    from the trained weights, ``steps`` steps after one warm step (cuDNN's
-    first calls): step ms from the loop itself (pipelined 1 deep), peak
-    memory, the loss at the first and the last step, launches of every
-    kernel; then a torch.profiler window for the device time of a step."""
+def measure_train(tag, model, batch, opt_cfg, kernels, per_step,
+                  steps=TRAIN_STEPS):
+    """``train_model`` over one fixed batch, ``steps`` steps after one
+    warm step (cuDNN's first calls): step ms from the loop itself
+    (pipelined 1 deep), steps/s, frames/s, peak memory, the loss at the
+    first and the last step (it must fall), launches of every kernel
+    (``per_step[k]`` a step for kernel k, none of any other); then a
+    torch.profiler window of :data:`TRAIN_PROFILE_STEPS` steps for the
+    device time of a step. Returns (report, the profile's rows: (kernel,
+    device us a step, launches a step), longest first)."""
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
 
     from de6d_tpu_torch.train import (
         build_optimizer_and_schedule, create_train_state, make_train_step,
     )
     from de6d_tpu_torch.train.train_loop import train_model
 
-    model, _, _ = build_model("bfloat16", "cuda")
-    batch = load_train_batch("cuda")
-    opt_cfg = train_opt_cfg()
     opt, sched = build_optimizer_and_schedule(opt_cfg, model, 1)
     state = create_train_state(model, opt)
     step = make_train_step(model, opt)
@@ -1233,8 +1270,7 @@ def phase_train(report, kernels, profile, steps=TRAIN_STEPS):
     state, m0 = step(state, batch)
     first_loss = float(m0["loss"])
     warm_ms = (time.perf_counter() - t0) * 1e3
-    for fn in kernels.values():
-        fn.launches = 0
+    reset_launches(kernels)
     torch.cuda.reset_peak_memory_stats()
     loader = TimedLoader(batch)
     scalars = Scalars()
@@ -1244,26 +1280,23 @@ def phase_train(report, kernels, profile, steps=TRAIN_STEPS):
                         lr_schedule=sched, log_interval=steps + 1)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    launches = read_launches(kernels)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {k: steps if k in ("canvas", "canvas_grad") else 0
-            for k in kernels}
+    want = {k: steps * per_step.get(k, 0) for k in kernels}
     if launches != want:
-        fail(f"train: launches {launches} in {steps} steps, expected {want}")
+        fail(f"{tag}: launches {launches} in {steps} steps, expected {want}")
     last_loss = scalars.last.get("train/loss")
     grad_norm = scalars.last.get("train/grad_norm")
     if last_loss is None or not (np.isfinite(last_loss)
                                  and np.isfinite(grad_norm)):
-        fail(f"train: last loss {last_loss}, grad_norm {grad_norm}")
+        fail(f"{tag}: last loss {last_loss}, grad_norm {grad_norm}")
     if not last_loss < first_loss:
-        fail(f"train: the loss did not fall on a fixed batch: first "
+        fail(f"{tag}: the loss did not fall on a fixed batch: first "
              f"{first_loss}, last {last_loss}")
     step_ms = np.diff(loader.stamps + [t_end]) * 1e3
     wall = t_end - t0
     med = float(np.median(step_ms))
     q1, q3 = np.percentile(step_ms, [25, 75])
-
-    from torch.profiler import ProfilerActivity, profile as tprofile
 
     n_prof = TRAIN_PROFILE_STEPS
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -1284,38 +1317,57 @@ def phase_train(report, kernels, profile, steps=TRAIN_STEPS):
             rows.append((e.key, dev_us / n_prof, e.count / n_prof))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows) / 1e3
-    ours = {k: sum(us for name, us, _ in rows
-                   if f"::{k}(" in name or name.startswith(f"{k}("))
-            for k in ("canvas_kernel", "canvas_grad_kernel")}
+    b = int(batch["points"].shape[0])
     out = {
-        "steps": steps, "batch": int(batch["points"].shape[0]),
-        "compute_dtype": "bfloat16", "warm_step_ms": warm_ms,
+        "steps": steps, "batch": b, "warm_step_ms": warm_ms,
         "step_ms": step_ms.tolist(), "median_step_ms": med,
         "step_ms_iqr": [float(q1), float(q3)],
         "step_ms_min_max": [float(step_ms.min()), float(step_ms.max())],
-        "steps_per_s": steps / wall,
-        "frames_per_s": steps * int(batch["points"].shape[0]) / wall,
+        "steps_per_s": steps / wall, "frames_per_s": steps * b / wall,
         "device_ms_per_step": device_ms,
         "idle_share_of_median_step": 1 - device_ms / med,
-        "kernels_device_us_per_step": ours,
         "peak_mem_gib": peak, "first_loss": first_loss,
         "last_loss": float(last_loss), "last_grad_norm": float(grad_norm),
         "launches": launches,
     }
+    return out, rows
+
+
+def train_line(tag, out, what):
+    """The status line of a train phase."""
+    q1, q3 = out["step_ms_iqr"]
+    lo, hi = out["step_ms_min_max"]
+    return (f"{tag}: {out['steps']} steps of batch {out['batch']} {what}: "
+            f"median step {out['median_step_ms']:.2f} ms (IQR {q1:.2f}-"
+            f"{q3:.2f}, min {lo:.2f}, max {hi:.2f}), "
+            f"{out['steps_per_s']:.2f} steps/s, {out['frames_per_s']:.2f} "
+            f"frames/s, device {out['device_ms_per_step']:.2f} ms a step "
+            f"(profiler, {TRAIN_PROFILE_STEPS} steps), idle "
+            f"{out['idle_share_of_median_step']:.1%} of the median step, "
+            f"peak {out['peak_mem_gib']:.2f} GiB; loss "
+            f"{out['first_loss']:.4f} -> {out['last_loss']:.4f}, grad_norm "
+            f"{out['last_grad_norm']:.4f}; launches {out['launches']}; warm "
+            f"step {out['warm_step_ms']:.0f} ms")
+
+
+def phase_train(report, kernels, profile):
+    """``train / pointpillar``: :func:`measure_train` over the fixture's 4
+    frames at full width in bf16 from the trained weights, exactly one
+    canvas forward and one backward launch a step."""
+    model, _, _ = build_model("bfloat16", "cuda")
+    out, rows = measure_train(
+        "train / pointpillar", model, load_train_batch("cuda"),
+        train_opt_cfg(), kernels, {"canvas": 1, "canvas_grad": 1})
+    ours = {k: sum(us for name, us, _ in rows
+                   if f"::{k}(" in name or name.startswith(f"{k}("))
+            for k in ("canvas_kernel", "canvas_grad_kernel")}
+    out.update(compute_dtype="bfloat16", kernels_device_us_per_step=ours)
     if profile:
         out["profile_top"] = [list(r) for r in rows[:25]]
     report["train"] = out
-    print(f"train / pointpillar: {steps} steps of batch {out['batch']} bf16 "
-          f"at full width through train_model: median step {med:.2f} ms "
-          f"(IQR {q1:.2f}-{q3:.2f}, min {step_ms.min():.2f}, max "
-          f"{step_ms.max():.2f}), {out['steps_per_s']:.2f} steps/s, "
-          f"{out['frames_per_s']:.2f} frames/s, device {device_ms:.2f} ms a "
-          f"step (profiler, {n_prof} steps), idle "
-          f"{out['idle_share_of_median_step']:.1%} of the median step, peak "
-          f"{peak:.2f} GiB; loss {first_loss:.4f} -> {last_loss:.4f}, "
-          f"grad_norm {grad_norm:.4f}; launches {launches}; hand-written "
-          f"kernels { {k: f'{us:.1f} us' for k, us in ours.items()} }; warm "
-          f"step {warm_ms:.0f} ms", flush=True)
+    print(train_line("train / pointpillar", out, "bf16 at full width "
+                     "through train_model") + f"; hand-written kernels "
+          f"{ {k: f'{us:.1f} us' for k, us in ours.items()} }", flush=True)
     if profile:
         for name, us, c in rows[:12]:
             print(f"train profile:   {us:10.1f} us  x{c:5.1f}  {name[:90]}")
@@ -2228,6 +2280,491 @@ def phase_det6d_parity(report):
           f"|d box| {res['max_abs_diff']['pred_boxes']:.3g}, max |d score| "
           f"{res['max_abs_diff']['pred_scores']:.3g} (tol {PARITY_TOL})",
           flush=True)
+
+
+# ---------------------------------------------------------------------
+# Det6D training: parity, train_model, tools/train.py, the SlopedKITTI
+# eval
+# ---------------------------------------------------------------------
+
+# How far an fp32 evaluation of the fixture's full-width Det6D step lies
+# from a float64 evaluation of the same step (the port's, every layer in
+# float64, the reference's picks), the larger of the JAX package's and the
+# port's on the CPU (tests/test_torch_det6d_train.py::
+# test_full_width_gradients_against_float64): gradients 1.39e-2 of a
+# leaf's largest |entry| (the port over every entry; JAX 1.01e-2 over the
+# fixture's stored entries: BatchNorm's backward over up to 4096 x 128
+# grouped slots cancels), loss terms 5.32e-7 relative (both), the gradient
+# norm 6.85e-6 relative (JAX; the port 2.58e-7).
+DET6D_TRAIN_F64 = {"grad": 1.39e-2, "loss": 5.32e-7, "grad_norm": 6.85e-6}
+# Tolerances of the card's fp32 step against the JAX fp32 step: each
+# fp32 evaluation lies within the distance above of the float64 one (the
+# phase checks the card's own distance), so the two lie within twice that
+# of each other. BatchNorm statistics (fp32 sums over up to 1,048,576
+# positions a channel) at 2e-4 relative + 1e-5, regression targets 1e-5
+# (log of the two libraries), as in :data:`TRAIN_TOL`.
+DET6D_TRAIN_TOL = {**{k: 2 * v for k, v in DET6D_TRAIN_F64.items()},
+                   "stats_rtol": 2e-4, "stats_atol": 1e-5,
+                   "reg_targets": 1e-5}
+DET6D_TRAIN_TARGETS = ("vote_cls_labels", "vote_reg_labels",
+                       "point_cls_labels", "point_reg_labels",
+                       "point_box_labels")
+
+
+def det6d_train_batch(dev, prefix=""):
+    """The fixture's batch of 2 (``prefix`` "train8_": its batch of 8)."""
+    import numpy as np
+    import torch
+
+    with np.load(DET6D_TRAIN_REF) as ref:
+        return {k: torch.from_numpy(ref[prefix + k]).to(dev)
+                for k in ("points", "points_mask", "gt_boxes")}
+
+
+def det6d_train_forward(model, batch, ref):
+    """A train-mode forward and loss of ``model`` on ``batch`` with every
+    sampling call forced to the fixture's picks. Returns (batch dict,
+    loss, terms, the sampling calls with the port's own picks)."""
+    picks = [ref[f"picks_{k}"] for k in range(3)]
+    model.train()
+    with forced_sampling(picks) as calls:
+        out = model(dict(batch))
+    loss, tb = model.get_training_loss(out)
+    return out, loss, tb, list(calls)
+
+
+def det6d_train_gradients(dev, batch, ref, dtype):
+    """The port's loss terms and gradients (flat float64 numpy per
+    parameter) of the fixture's step from the trained weights, the
+    fixture's picks forced, with every layer computing in ``dtype``
+    (float32 or float64; the geometry and the grouped inputs stay fp32,
+    as the layers read them)."""
+    import torch
+
+    model = build_model("float32", dev, DET6D_SLOPED_CFG, DET6D_PARAMS)[0]
+    if dtype == torch.float64:
+        model.double()
+        for mod in model.modules():
+            if isinstance(getattr(mod, "dtype", None), torch.dtype):
+                mod.dtype = torch.float64
+    out, loss, tb, _ = det6d_train_forward(model, batch, ref)
+    loss.backward()
+    for k in ("vote_cls_labels", "point_cls_labels"):
+        if not (out[k].cpu().numpy() == ref[f"target/{k}"]).all():
+            raise RuntimeError(f"det6d gradients in {dtype}: {k} differ "
+                               "from the fixture's")
+    grads = {n: p.grad.detach().double().cpu().numpy().reshape(-1)
+             for n, p in model.named_parameters()}
+    return grads, {k: float(v) for k, v in tb.items()}
+
+
+def f64_distances(g32, m32, g64, m64):
+    """Largest gradient distance of ``g32`` from ``g64`` relative to each
+    leaf's largest |entry|, largest relative loss-term distance, relative
+    gradient-norm distance."""
+    import numpy as np
+
+    grad = max(float(np.abs(g32[n] - g).max() / max(np.abs(g).max(), 1e-30))
+               for n, g in g64.items())
+    loss = max(abs(m32[k] / v - 1) for k, v in m64.items() if v != 0)
+
+    def norm(g):
+        return np.sqrt(sum(float((x ** 2).sum()) for x in g.values()))
+
+    return {"grad": grad, "loss": loss,
+            "grad_norm": abs(norm(g32) / norm(g64) - 1)}
+
+
+def check_det6d_train_parity(dev, measure_f64=True):
+    """Det6D's train step in fp32 from the trained weights on the
+    fixture's batch (2 frames of the JAX loader, SlopeAug on) against the
+    JAX step stored in ``det6d_train_jax_ref.npz``, every sampling call
+    given the reference's picks (:func:`forced_sampling`):
+
+    1. each call's own picks equal the reference's or part at a certified
+       near-tie (:func:`certify_sampling_call`);
+    2. vote, point-cls, pitch-cls, yaw-bin and SASA labels and the box
+       labels identical; regression targets within
+       ``DET6D_TRAIN_TOL["reg_targets"]``;
+    3. the loss terms, the gradient norm, every gradient (against its
+       leaf's largest |entry|) and the BatchNorm statistics after the step
+       within :data:`DET6D_TRAIN_TOL`.
+    Returns a report; raises RuntimeError where a check fails."""
+    import numpy as np
+    import torch
+
+    tol = DET6D_TRAIN_TOL
+    tag = "parity / train_det6d"
+    ref = dict(np.load(DET6D_TRAIN_REF))
+    batch = det6d_train_batch(dev)
+    model = build_model("float32", dev, DET6D_SLOPED_CFG, DET6D_PARAMS)[0]
+    out, loss, tb, calls = det6d_train_forward(model, batch, ref)
+    partings = []
+    for k, call in enumerate(calls):
+        partings += certify_sampling_call(
+            tag, k, call, None if k == 0 else ref[f"scores_{k - 1}"], 0.0)
+    got = {k: out[k].detach().cpu().numpy() for k in DET6D_TRAIN_TARGETS}
+    for k in ("vote_cls_labels", "point_cls_labels", "point_box_labels"):
+        if not np.array_equal(got[k], ref[f"target/{k}"]):
+            raise RuntimeError(f"{tag}: {k} differ")
+    reg, ref_reg = got["point_reg_labels"], ref["target/point_reg_labels"]
+    if not (np.array_equal(reg[..., 6:18], ref_reg[..., 6:18])
+            and np.array_equal(reg[..., 30], ref_reg[..., 30])):
+        raise RuntimeError(f"{tag}: yaw-bin or pitch-class labels differ")
+    d_reg = max(float(np.abs(got[k] - ref[f"target/{k}"]).max())
+                for k in ("vote_reg_labels", "point_reg_labels"))
+    if d_reg > tol["reg_targets"]:
+        raise RuntimeError(f"{tag}: regression targets off by {d_reg}")
+    for k, lab in enumerate(out["point_sasa_labels"]):
+        if not np.array_equal(lab.cpu().numpy(),
+                              ref[f"target/point_sasa_labels_{k}"]):
+            raise RuntimeError(f"{tag}: SASA labels of layer {k} differ")
+    loss.backward()
+    grads = {n: p.grad.float().cpu().numpy().reshape(-1).copy()
+             for n, p in model.named_parameters()}
+    metrics = {k: float(v) for k, v in tb.items()}
+    metrics["grad_norm"] = float(np.sqrt(sum(
+        float((g.astype(np.float64) ** 2).sum()) for g in grads.values())))
+    rel = {}
+    for k, v in metrics.items():
+        want = float(ref[f"metric/{k}"])
+        rel[k] = abs(v - want) / max(abs(want), 1e-12)
+        if rel[k] > tol["grad_norm" if k == "grad_norm" else "loss"]:
+            raise RuntimeError(f"{tag}: {k} {v} vs {want} ({rel[k]:.3g} "
+                               "relative)")
+    grad_err = 0.0
+    for name, (err, scale) in leaf_report(ref, "grad", grads,
+                                          tol["grad"]).items():
+        e = float(err.max(initial=0)) / max(scale, 1e-30)
+        if e > tol["grad"]:
+            raise RuntimeError(f"{tag}: gradient {name} off by {e:.3g} of "
+                               f"its leaf's max {scale}")
+        grad_err = max(grad_err, e)
+    stat_err = 0.0
+    for name, b in model.named_buffers():
+        if "running" not in name:
+            continue
+        b, want = b.cpu().numpy(), ref[f"stats/{name}"]
+        if not np.allclose(b, want, rtol=tol["stats_rtol"],
+                           atol=tol["stats_atol"]):
+            raise RuntimeError(f"{tag}: {name} after the step off by "
+                               f"{np.abs(b - want).max()}")
+        stat_err = max(stat_err, float(np.abs(b - want).max()))
+    f64 = None
+    if measure_f64:
+        # the bound's premise: this device's fp32 step lies no farther
+        # from the float64 step than the CPU runs did
+        g64, m64 = det6d_train_gradients(dev, batch, ref, torch.float64)
+        g32 = {n: g.astype(np.float64) for n, g in grads.items()}
+        m32 = {k: v for k, v in metrics.items() if k != "grad_norm"}
+        f64 = f64_distances(g32, m32, g64, m64)
+        for k, v in f64.items():
+            if v > DET6D_TRAIN_F64[k]:
+                raise RuntimeError(
+                    f"{tag}: the {k} of this device's fp32 step lies "
+                    f"{v:.3g} from the float64 step, more than the CPU "
+                    f"runs' {DET6D_TRAIN_F64[k]:.3g} the tolerance rests on")
+    labels = ref["target/point_cls_labels"]
+    return {"batch_index": int(ref["batch_index"]),
+            "f64_distance": f64,
+            "positives": int((labels > 0).sum()),
+            "pitch_positives": int(((labels > 0)
+                                    & (ref_reg[..., 30] > 0)).sum()),
+            "sasa_fg": [int((ref[f"target/point_sasa_labels_{k}"] > 0).sum())
+                        for k in range(3)],
+            "partings": partings, "max_reg_target_diff": d_reg,
+            "metrics": metrics, "metrics_rel_diff": rel,
+            "max_grad_diff_of_leaf_max": grad_err,
+            "max_batch_stats_diff": stat_err}
+
+
+def phase_det6d_train_parity(report):
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = check_det6d_train_parity("cuda")
+    report["det6d_train_parity"] = r
+    print(f"parity / train_det6d: fp32 (TF32 off) step on the fixture's "
+          f"batch (loader batch {r['batch_index']}) matches the JAX step: "
+          f"picks {'identical' if not r['partings'] else 'certified partings ' + str(len(r['partings']))}; "
+          f"labels identical ({r['positives']} positives, "
+          f"{r['pitch_positives']} with pitch class 1, SASA fg "
+          f"{r['sasa_fg']}), regression targets "
+          f"{r['max_reg_target_diff']:.3g}; loss terms and grad_norm within "
+          f"{max(r['metrics_rel_diff'].values()):.3g} relative (loss "
+          f"{r['metrics']['loss']:.6f}, grad_norm "
+          f"{r['metrics']['grad_norm']:.6f}), gradients within "
+          f"{r['max_grad_diff_of_leaf_max']:.3g} of their leaf's max, BN "
+          f"statistics {r['max_batch_stats_diff']:.3g}; tolerances "
+          f"{ {k: DET6D_TRAIN_TOL[k] for k in DET6D_TRAIN_F64} }; this "
+          f"card's fp32 step from its float64 step: "
+          f"{ {k: float(f'{v:.3g}') for k, v in r['f64_distance'].items()} }",
+          flush=True)
+
+
+def det6d_opt_cfg():
+    from de6d_tpu_torch.config import cfg_from_yaml_file
+
+    return dict(cfg_from_yaml_file(DET6D_SLOPED_CFG).OPTIMIZATION)
+
+
+def phase_det6d_train(report, kernels, profile):
+    """``train / det6d``: :func:`measure_train` with
+    ``slopedkitti_models/det6d_car.yaml``'s dtypes (the head in bf16) at
+    full width from the trained weights over the fixture's 8 frames,
+    exactly 3 FPS launches a step and no other kernel launch."""
+    model = build_model(None, "cuda", DET6D_SLOPED_CFG, DET6D_PARAMS)[0]
+    out, rows = measure_train(
+        "train / det6d", model, det6d_train_batch("cuda", "train8_"),
+        det6d_opt_cfg(), kernels, {"fps": 3})
+    fps_us = sum(us for name, us, _ in rows if "fps" in name.lower())
+    out.update(compute_dtype="config (head bf16)",
+               fps_device_us_per_step=fps_us,
+               profile_top=[list(r) for r in rows[:25]])
+    report["train_det6d"] = out
+    print(train_line("train / det6d", out, "(head bf16) at full width "
+                     "through train_model") + f"; FPS kernels {fps_us:.1f} "
+          "us a step", flush=True)
+    for name, us, c in rows[:12 if profile else 6]:
+        print(f"train / det6d profile: {us:10.1f} us  x{c:6.1f}  "
+              f"{name[:90]}")
+
+
+def phase_det6d_train_slopedkitti(report, kernels):
+    """``train / det6d_slopedkitti``: ``tools/train.py``'s entry
+    (``prepare``, ``train``, ``evaluate``) on the shipped
+    ``slopedkitti_models/det6d_car.yaml`` at batch 8 for one epoch of
+    ``data/slopedkitti`` from the fresh init, 4 loader workers: step ms,
+    steps/s, frames/s, the loader's share of the loop, the loss; exactly
+    3 FPS launches a step and no other kernel; the checkpoint; the
+    post-training SlopedKITTI eval with 3 FPS and 1-2 fused-NMS launches
+    a batch."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.tools import train as train_cli
+
+    tag = "chip_smoke"
+    shutil.rmtree(ROOT / "output/slopedkitti_models/det6d_car" / tag,
+                  ignore_errors=True)
+    argv = ["--cfg_file", str(DET6D_SLOPED_CFG), "--epochs", "1",
+            "--batch_size", "8", "--workers", "4", "--extra_tag", tag,
+            "--fix_random_seed", "--set", "DATA_CONFIG.DATA_PATH",
+            str(SLOPEDKITTI_DIR)]
+    t0 = time.perf_counter()
+    run = train_cli.prepare(argv)
+    prep_s = time.perf_counter() - t0
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    train_cli.train(run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    steps = len(run.step_log)
+    want = {k: 3 * steps if k == "fps" else 0 for k in kernels}
+    if steps != len(run.train_loader) or launches != want:
+        fail(f"train / det6d_slopedkitti: {steps} steps, launches "
+             f"{launches}, expected {want}")
+    losses = np.array([float(x[2]) for x in run.step_log])
+    if not np.isfinite(losses).all():
+        fail(f"train / det6d_slopedkitti: non-finite losses {losses}")
+    ckpt = run.ckpt_dir / "checkpoint_epoch_1"
+    if not ckpt.is_file():
+        fail(f"train / det6d_slopedkitti: no checkpoint at {ckpt}")
+    data_s = np.array([x[0] for x in run.step_log])
+    step_s = np.array([x[1] for x in run.step_log])
+    iter_ms = (data_s + step_s) * 1e3
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    ret, _ = train_cli.evaluate(run)
+    eval_s = time.perf_counter() - t0
+    eval_launches = read_launches(kernels)
+    n_eval = -(-50 // 8)
+    want = {k: 3 * n_eval if k == "fps" else 0 for k in kernels}
+    want["nms"] = eval_launches["nms"]
+    if eval_launches != want or not n_eval <= want["nms"] <= 2 * n_eval:
+        fail(f"train / det6d_slopedkitti: post-training eval launches "
+             f"{eval_launches} in {n_eval} batches")
+    out = {
+        "steps": steps, "batch": 8, "compute_dtype": "config (head bf16)",
+        "prepare_s": prep_s, "wall_s": wall,
+        "median_step_ms": float(np.median(iter_ms)),
+        "step_ms_iqr": [float(x) for x in np.percentile(iter_ms, [25, 75])],
+        "median_host_step_ms": float(np.median(step_s) * 1e3),
+        "median_loader_wait_ms": float(np.median(data_s) * 1e3),
+        "loader_wait_share": float(data_s.sum() / (data_s + step_s).sum()),
+        "steps_per_s": steps / wall, "frames_per_s": 8 * steps / wall,
+        "losses": losses.tolist(), "launches": launches,
+        "eval_launches": eval_launches, "eval_s": eval_s,
+        "eval_recall": {k: ret[k] for k in ret if k.startswith("recall/")},
+        "eval_ods": ret.get("Car_ods/all_R40"), "checkpoint": str(ckpt),
+    }
+    report["train_det6d_slopedkitti"] = out
+    print(f"train / det6d_slopedkitti: tools/train.py, slopedkitti "
+          f"det6d_car.yaml (head bf16), batch 8, 1 epoch of "
+          f"data/slopedkitti ({steps} steps) from the fresh init: median "
+          f"step {out['median_step_ms']:.2f} ms (IQR "
+          f"{out['step_ms_iqr'][0]:.2f}-{out['step_ms_iqr'][1]:.2f}; host "
+          f"step {out['median_host_step_ms']:.2f}, loader wait "
+          f"{out['median_loader_wait_ms']:.2f}), {out['steps_per_s']:.2f} "
+          f"steps/s, {out['frames_per_s']:.2f} frames/s, loader wait "
+          f"{out['loader_wait_share']:.1%} of the loop; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 5 "
+          f"{losses[:5].mean():.4f}, last 5 {losses[-5:].mean():.4f}); "
+          f"launches {launches}; post-training eval {eval_s:.1f} s, "
+          f"launches {eval_launches}, recall {out['eval_recall']} "
+          f"(prepare {prep_s:.1f} s)", flush=True)
+
+
+def slopedkitti_val_loader(workers=4):
+    from de6d_tpu_torch.config import cfg_from_yaml_file
+    from de6d_tpu_torch.datasets import build_dataloader
+
+    cfg = cfg_from_yaml_file(DET6D_SLOPED_CFG)
+    return build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, EVAL_BATCH,
+                            root_path=str(SLOPEDKITTI_DIR), training=False,
+                            workers=workers)
+
+
+# the SlopedKITTI true-positive scores (ATS, ASS, AOS) and the ODS average
+# per-match errors, which move by at most the detections' own difference:
+# held to PARITY_TOL; AOS (percent) averages (1 + cos d yaw) / 2 over the
+# matches: held to 50 * max |d yaw|, as the KITTI eval's; every other AP
+# entry must be equal
+SLOPED_SCORE_KEYS = ("_ats/", "_ass/", "_aoe_score/", "_ods/")
+
+
+def det6d_eval_parity(dev, kernels=None):
+    """``eval_one_epoch`` of Det6D in fp32 from the trained weights over the
+    50 val frames of ``data/slopedkitti`` at batch 8, every sampling call
+    given the JAX eval's picks (:func:`forced_sampling`), against
+    ``det6d_eval_jax_ref.npz``: each call's own picks equal the
+    reference's or part at a certified near-tie; frame order, per-frame
+    counts and labels equal, boxes (9 columns) and scores within
+    :data:`PARITY_TOL`; recall counters equal; every AP entry of the
+    SlopedKITTI result dict equal and its true-positive scores and ODS
+    within :data:`PARITY_TOL`. Returns the report."""
+    import numpy as np
+
+    from de6d_tpu_torch.train.eval_utils import eval_one_epoch
+
+    tag = "eval / det6d_slopedkitti"
+    ref = dict(np.load(DET6D_EVAL_REF))
+    n_batches = sum(k.endswith("_picks_0") for k in ref)
+    picks = [ref[f"b{b}_picks_{k}"] for b in range(n_batches)
+             for k in range(3)]
+    ds, loader = slopedkitti_val_loader()
+    model, mc, _ = build_model("float32", dev, DET6D_SLOPED_CFG,
+                               DET6D_PARAMS)
+    with forced_sampling(picks) as calls:
+        ret, annos = eval_one_epoch(model, loader, ds, mc, ds.class_names)
+    loader.close()
+    if len(calls) != len(picks):
+        fail(f"{tag}: {len(calls)} sampling calls, reference {len(picks)}")
+    partings = []
+    for i, call in enumerate(calls):
+        b, k = divmod(i, 3)
+        partings += certify_sampling_call(
+            tag, i, call, None if k == 0 else ref[f"b{b}_scores_{k - 1}"],
+            0.0)
+    got = {
+        "frame_id": np.array([a["frame_id"] for a in annos]),
+        "count": np.array([len(a["score"]) for a in annos]),
+        "boxes": np.concatenate([np.asarray(a["boxes_lidar"], np.float32)
+                                 .reshape(-1, 9) for a in annos]),
+        "scores": np.concatenate([np.asarray(a["score"], np.float32)
+                                  for a in annos]),
+    }
+    if got["frame_id"].tolist() != ref["frame_id"].tolist():
+        fail(f"{tag}: frame order differs")
+    if not np.array_equal(got["count"], ref["count"]):
+        bad = np.nonzero(got["count"] != ref["count"])[0]
+        fail(f"{tag}: counts differ at frames {bad.tolist()}")
+    if any(n != "Car" for a in annos for n in a["name"]) or not (
+            ref["labels"] == 1).all():
+        fail(f"{tag}: labels differ")
+    d_box = float(np.abs(got["boxes"] - ref["boxes"]).max(initial=0))
+    d_score = float(np.abs(got["scores"] - ref["scores"]).max(initial=0))
+    if max(d_box, d_score) > PARITY_TOL:
+        fail(f"{tag}: max |d box| {d_box}, |d score| {d_score} > "
+             f"{PARITY_TOL}")
+    counts = dict(zip(ref["recall_keys"].tolist(),
+                      ref["recall_counts"].tolist()))
+    if ret["recall_counts"] != counts:
+        fail(f"{tag}: recall {ret['recall_counts']} vs {counts}")
+    d_scores = d_aos = 0.0
+    aos_tol = 50 * float(np.abs(got["boxes"][:, 6] - ref["boxes"][:, 6]).max(
+        initial=0))
+    for k, want in zip(ref["ap_keys"].tolist(), ref["ap_values"].tolist()):
+        v = float(ret[k])
+        if "_aos/" in k:
+            d_aos = max(d_aos, abs(v - want))
+            if abs(v - want) > aos_tol:
+                fail(f"{tag}: {k} {v} vs {want} (> {aos_tol})")
+        elif any(s in k for s in SLOPED_SCORE_KEYS):
+            d_scores = max(d_scores, abs(v - want))
+            if abs(v - want) > PARITY_TOL:
+                fail(f"{tag}: {k} {v} vs {want}")
+        elif v != want:
+            fail(f"{tag}: {k} {v} vs {want}")
+    return {"counts": int(got["count"].sum()), "max_abs_box": d_box,
+            "max_abs_score": d_score, "partings": partings,
+            "max_abs_tp_score": d_scores, "max_abs_aos": d_aos,
+            "aos_tol": aos_tol, "recall": ret["recall_counts"],
+            "ods": float(ret["Car_ods/all_R40"]),
+            "ap_3d_moderate_R40": float(ret["Car_3d/moderate_R40"])}
+
+
+def phase_det6d_eval(report, kernels):
+    """``eval / det6d_slopedkitti``: the fp32 gate (:func:`det6d_eval_parity`),
+    then ``eval_one_epoch`` with the config's dtypes (head bf16): ms per
+    frame and 3 FPS and 1-2 fused-NMS launches a batch."""
+    import torch
+
+    from de6d_tpu_torch.train.eval_utils import eval_one_epoch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parity = det6d_eval_parity("cuda")
+    ds, loader = slopedkitti_val_loader()
+    model, mc, _ = build_model(None, "cuda", DET6D_SLOPED_CFG, DET6D_PARAMS)
+    eval_one_epoch(model, loader, ds, mc, ds.class_names)  # warm
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    ret, _ = eval_one_epoch(model, loader, ds, mc, ds.class_names)
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    n = len(loader)
+    loader.close()
+    want = {k: 3 * n if k == "fps" else 0 for k in kernels}
+    want["nms"] = launches["nms"]
+    if launches != want or not n <= launches["nms"] <= 2 * n:
+        fail(f"eval / det6d_slopedkitti: launches {launches} in {n} "
+             "batches, expected 3 FPS and 1-2 fused NMS a batch")
+    out = {"parity": parity,
+           "bf16_head": {k: v for k, v in ret.items()},
+           "ms_per_frame": ret["sec_per_example"] * 1e3,
+           "steady_ms_per_frame": (ret["steady_sec_per_example"] or 0) * 1e3,
+           "wall_s": wall, "batches": n, "launches": launches}
+    report["eval_det6d"] = out
+    print(f"eval / det6d_slopedkitti: fp32 (TF32 off) eval_one_epoch of the "
+          f"trained weights over the 50 val frames at batch {EVAL_BATCH} "
+          f"matches det6d_eval_jax_ref.npz: {parity['counts']} detections, "
+          f"max |d box| {parity['max_abs_box']:.3g}, |d score| "
+          f"{parity['max_abs_score']:.3g} (tol {PARITY_TOL}), "
+          f"{len(parity['partings'])} certified s-fps partings, recall "
+          f"{parity['recall']} equal, every AP but AOS equal (AOS within "
+          f"{parity['max_abs_aos']:.3g} of the yaw bound "
+          f"{parity['aos_tol']:.3g}), TP scores and ODS within "
+          f"{parity['max_abs_tp_score']:.3g} (ODS "
+          f"{parity['ods']:.4f}, 3D AP moderate R40 "
+          f"{parity['ap_3d_moderate_R40']:.4f}); head bf16 "
+          f"{out['ms_per_frame']:.3f} ms per frame over the epoch (steady "
+          f"p50 {out['steady_ms_per_frame']:.3f}), launches {launches} in "
+          f"{n} batches", flush=True)
 
 
 # ---------------------------------------------------------------------
@@ -4264,6 +4801,10 @@ def main():
         per_batch={"fps": 3, "nms": 1})
     del model
     phase_det6d_parity(report)
+    phase_det6d_train_parity(report)
+    phase_det6d_train(report, every_kernel, profile)
+    phase_det6d_train_slopedkitti(report, every_kernel)
+    phase_det6d_eval(report, every_kernel)
 
     model, mc = phase_rcnn_kernels(report)
     pts, mask = load_rcnn_scans()
@@ -4340,7 +4881,11 @@ def main():
                "pv_rcnn": report["serve_pv_rcnn"]["launches"],
                "pointpillar_train": report["train"]["launches"],
                "pointpillar_train_kitti": report["train_kitti"]["launches"],
-               "pointpillar_eval_kitti": report["eval_kitti"]["launches"]}
+               "pointpillar_eval_kitti": report["eval_kitti"]["launches"],
+               "det6d_train": report["train_det6d"]["launches"],
+               "det6d_train_slopedkitti":
+                   report["train_det6d_slopedkitti"]["launches"],
+               "det6d_eval_slopedkitti": report["eval_det6d"]["launches"]}
     kernels = []
     for key in ("canvas", "canvas_grad", "nms", "nms_mask", "fps",
                 "matrix_fps", "lookup", "neighbor_table", "sparse_conv"):

@@ -1,14 +1,16 @@
 """Point backbones (counterpart of
 ``de6d_tpu/models/backbones_3d/pointnet2_backbone.py``: ``_build_sa_stack``,
 ``_PointNet2Base.run_backbone``, ``PointNet2MSG`` (SA + FP, PointRCNN),
-``PointNet2FSMSG`` (fusion sampling, Det6D)), inference only.
+``PointNet2FSMSG`` (fusion sampling, Det6D)).
 
 Batch keys written:
   point_coords (B, M, 3), point_features (B, M, C) fp32, point_valid
   (B, M), point_scores (B, M) or None, and per SA layer
   point_coords_list / point_scores_list / point_valid_list, plus
   point_sample_idx_list (each layer's picks into the previous layer's
-  points; the JAX package keeps them internal).
+  points; the JAX package keeps them internal). In train mode the
+  scores carry autograd (the SASA loss trains the confidence layers
+  through them); the picks do not.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """PointNet++ set abstraction with fusion sampling and feature
-propagation, eval path (counterpart of
+propagation (counterpart of
 ``de6d_tpu/models/backbones_3d/pointnet2_modules.py``: ``run_sampling``,
 ``PointnetSAModuleFSMSG``, ``PointnetFPModule``).
 
@@ -8,7 +8,10 @@ ball query, grouped offsets) stays fp32; the MLPs run in the compute
 dtype; the confidence head's final Dense is fp32. Where the JAX package
 takes its fused binned path (eval, a pc_range, and a 3x3 window that
 prunes: :meth:`PointnetSAModuleFSMSG._binned_ok`), the port runs the
-folded-BN MLP of ``ops/binned.py``; elsewhere Dense → fp32 BN → ReLU.
+folded-BN MLP of ``ops/binned.py``; elsewhere, and always in train mode,
+it groups every scale's ball (padding slots included, which BatchNorm's
+batch statistics read) through Dense → fp32 BN → ReLU, then max-pools
+the groups with a hit. The sampling picks carry no gradient.
 """
 
 from __future__ import annotations
@@ -58,8 +61,8 @@ def run_sampling(method: str, xyz, features, scores, valid, npoint: int,
 
 
 class PointnetSAModuleFSMSG(nn.Module):
-    """Multi-scale-grouping SA layer with fusion sampling (inference, max
-    pooling; no config sets another pool or a skip connection).
+    """Multi-scale-grouping SA layer with fusion sampling (max pooling; no
+    config sets another pool or a skip connection).
 
     Children follow the flax names: ``SharedMLP_0..S-1`` per scale, then
     the aggregation MLP, then the confidence MLP, and ``Dense_0`` for
@@ -157,7 +160,7 @@ class PointnetSAModuleFSMSG(nn.Module):
         scale_mlps = [getattr(self, f"SharedMLP_{i}")
                       for i in range(self.n_scales)]
         radii, r_ins, nsamples = self._scale_tuples()
-        if self._binned_ok(n):
+        if not self.training and self._binned_ok(n):
             pooled_list, _ = binned.brute_sa_infer(
                 xyz, features, new_xyz, [m.folded() for m in scale_mlps],
                 valid, new_valid, radii, nsamples, r_ins,

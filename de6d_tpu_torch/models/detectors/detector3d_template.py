@@ -135,6 +135,7 @@ class Detector3DTemplate(nn.Module):
                 input_channels=point_in,
                 num_class=1 if head_cfg.get("CLASS_AGNOSTIC", False)
                 else num_class,
+                predict_boxes_when_training="ROI_HEAD" in cfg,
             )
             self.module_names.append("point_head")
         if "ROI_HEAD" in cfg:
@@ -167,13 +168,15 @@ class Detector3DTemplate(nn.Module):
 
     def forward(self, batch_dict):
         """Eval mode: inference, without autograd. Train mode
-        (``model.train()``): autograd on, ``gt_boxes`` (B, M, 8) read by
-        the dense head, which writes its predictions and targets for
-        :meth:`get_training_loss` (PointPillars only so far)."""
+        (``model.train()``): autograd on, ``gt_boxes`` (B, M, 8): 7-DoF
+        box and class, or (B, M, 10): 9-DoF box and class, read by the head
+        that writes its predictions and targets for
+        :meth:`get_training_loss` (the detectors with ``TRAINABLE``:
+        PointPillars, Det6D, 3DSSD)."""
         if self.training and not self.TRAINABLE:
             raise NotImplementedError(
                 f"{type(self).__name__}: training is not ported yet (the "
-                "port trains PointPillars only)")
+                "port trains PointPillars, Det6D and 3DSSD)")
         with torch.set_grad_enabled(self.training):
             batch_dict = self.maybe_voxelize(dict(batch_dict))
             for name in self.module_names:
@@ -181,11 +184,11 @@ class Detector3DTemplate(nn.Module):
         return batch_dict
 
     def get_training_loss(self, batch_dict):
-        """(loss, dict of scalar terms) from a train-mode forward's output.
-        Only PointPillars' is ported (``TRAINABLE``)."""
+        """(loss, dict of scalar terms) from a train-mode forward's output;
+        ported for the detectors with ``TRAINABLE``."""
         raise NotImplementedError(
             f"{type(self).__name__}: training is not ported yet (the port "
-            "trains PointPillars only)")
+            "trains PointPillars, Det6D and 3DSSD)")
 
 
 def rank_candidates(batch_dict, post_cfg):

@@ -1,7 +1,7 @@
 """Rotated BEV overlap and IoU (counterpart of ``de6d_tpu/ops/iou3d.py``:
 ``_pairwise_green_pass``, ``boxes_overlap_bev``, ``boxes_iou_bev``,
-``boxes_iou3d``), and the target assigner's axis-aligned
-``boxes3d_nearest_bev_iou``.
+``boxes_iou3d``), the target assigner's axis-aligned
+``boxes3d_nearest_bev_iou`` and the vote head's ``boxes_aligned_iou3d``.
 
 Sort-free exact method: by Green's theorem the boundary of A∩B is A's
 edges clipped into B plus B's edges clipped into A, and the shoelace
@@ -175,3 +175,18 @@ def boxes3d_nearest_bev_iou(boxes_a, boxes_b):
     union = _fma(b[None, :, 2].expand(shape), b[None, :, 3].expand(shape),
                  area_a) - inter
     return inter / torch.clamp(union, min=EPS)
+
+
+def boxes_aligned_iou3d(boxes_a, boxes_b):
+    """Axis-aligned 3D IoU of matched pairs: (N, 7+) × (N, 7+) → (N,)
+    (the yaw is ignored)."""
+    a_min = boxes_a[:, 0:3] - boxes_a[:, 3:6] / 2
+    a_max = boxes_a[:, 0:3] + boxes_a[:, 3:6] / 2
+    b_min = boxes_b[:, 0:3] - boxes_b[:, 3:6] / 2
+    b_max = boxes_b[:, 0:3] + boxes_b[:, 3:6] / 2
+    whd = torch.clamp(torch.minimum(a_max, b_max)
+                      - torch.maximum(a_min, b_min), min=0.0)
+    inter = whd[:, 0] * whd[:, 1] * whd[:, 2]
+    vol_a = boxes_a[:, 3:6].prod(dim=-1)
+    vol_b = boxes_b[:, 3:6].prod(dim=-1)
+    return inter / torch.clamp(vol_a + vol_b - inter, min=EPS)

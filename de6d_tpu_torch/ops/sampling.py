@@ -38,9 +38,11 @@ def farthest_point_sample(xyz, npoint: int, valid_mask=None):
 def weighted_farthest_point_sample(xyz, weights, npoint: int,
                                    valid_mask=None):
     """s-fps (SASA): (B, N, 3), (B, N) weights → (B, npoint) int32
-    indices, seeded at the first argmax of the weights."""
+    indices, seeded at the first argmax of the weights. The weights reach
+    the kernel detached: the picks carry no gradient (nor do they in the
+    JAX package), whatever the confidence logits' graph."""
     return fps(xyz.float(), _valid(xyz, valid_mask), int(npoint),
-               weights=weights.float())
+               weights=weights.detach().float())
 
 
 @torch.no_grad()

@@ -7,6 +7,7 @@ Usage, from the repository root (on the card by default; without one it
 raises unless ``--device cpu`` is given):
 
   python -m de6d_tpu_torch.tools.test --cfg_file configs/kitti_models/pointpillar.yaml --ckpt <checkpoint>
+  python -m de6d_tpu_torch.tools.test --cfg_file configs/slopedkitti_models/det6d_car.yaml --ckpt <checkpoint>
   python -m de6d_tpu_torch.tools.test --cfg_file ... --eval_all --extra_tag <tag>
 
 A run that recalls no ground-truth box at any threshold exits with an

@@ -6,7 +6,12 @@ Usage, from the repository root (on the card by default; without one it
 raises unless ``--device cpu`` is given):
 
   python -m de6d_tpu_torch.tools.train --cfg_file configs/kitti_models/pointpillar.yaml
+  python -m de6d_tpu_torch.tools.train --cfg_file configs/slopedkitti_models/det6d_car.yaml --epochs 1
   python -m de6d_tpu_torch.tools.train --cfg_file ... --epochs 1 --device cpu
+
+Any detector with a ported loss trains (PointPillars, Det6D, 3DSSD); the
+dataset comes from the config's ``DATA_CONFIG.DATASET`` (KITTI,
+SlopedKITTI). Nothing here depends on the configuration.
 
 The loaders run in their own process, away from the
 GIL of the process that dispatches the training step. Outputs go to

@@ -31,10 +31,11 @@ def create_train_state(model, optimizer, step: int = 0):
 
 
 def make_train_step(model, optimizer):
-    """Returns ``train_step(state, batch) -> (state, metrics)``: the loss
-    terms (``loss``, ``rpn_loss_cls``, ``rpn_loss_loc``, ``rpn_loss_dir``,
-    ``rpn_loss``) and ``grad_norm`` (before the clip), as 0-d tensors on
-    the model's device, not synchronised."""
+    """Returns ``train_step(state, batch) -> (state, metrics)``: the terms
+    of the detector's ``get_training_loss`` (``loss`` and its parts, e.g.
+    PointPillars' ``rpn_loss_*``, Det6D's ``vote_loss_reg``,
+    ``point_loss_*``, ``point_pos_num``) and ``grad_norm`` (before the
+    clip), as 0-d tensors on the model's device, not synchronised."""
 
     def train_step(state: TrainState, batch: dict):
         model.train()

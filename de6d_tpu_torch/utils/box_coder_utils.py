@@ -1,17 +1,33 @@
 """Box coders (counterpart of ``de6d_tpu/utils/box_coder_utils.py``):
-``ResidualCoder`` (anchor heads, RoI heads) and the decodes of
-``PointResidualCoder`` (PointRCNN's first stage),
-``PointBinResidualCoder`` (the 3DSSD / SASA vote head),
-``PointBinResidual6DCoder`` (the Det6D vote head) and
-``PointResidual_BinOri_Coder`` (the IA-SSD head)."""
+``ResidualCoder`` (anchor heads, RoI heads), the decodes of
+``PointResidualCoder`` (PointRCNN's first stage) and
+``PointResidual_BinOri_Coder`` (the IA-SSD head), and both ways of
+``PointBinResidualCoder`` (the 3DSSD / SASA vote head) and
+``PointBinResidual6DCoder`` (the Det6D vote head).
+
+The encodes feed training targets, so the yaw bins and the pitch class
+round as jitted XLA computes the JAX code on the CPU: it multiplies by
+the fp32 reciprocal where the code divides by a constant, and fuses
+``k * width + width / 2`` into one FMA (computed here in float64 and
+rounded once).
+"""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from ..ops.ball_query import _fma
+
 from ..registry import BOX_CODERS
+
+
+def _clamp_sizes(boxes):
+    """Sizes (columns 3-5) clamped at 1e-5."""
+    return torch.cat([boxes[..., :3], torch.clamp(boxes[..., 3:6], min=1e-5),
+                      boxes[..., 6:]], dim=-1)
 
 
 @BOX_CODERS.register
@@ -24,14 +40,8 @@ class ResidualCoder:
 
     def encode(self, boxes, anchors):
         """boxes/anchors: (..., 7+C) → (..., code_size)."""
-        anchors = torch.cat(
-            [anchors[..., :3], torch.clamp(anchors[..., 3:6], min=1e-5),
-             anchors[..., 6:]], dim=-1,
-        )
-        boxes = torch.cat(
-            [boxes[..., :3], torch.clamp(boxes[..., 3:6], min=1e-5),
-             boxes[..., 6:]], dim=-1,
-        )
+        anchors = _clamp_sizes(anchors)
+        boxes = _clamp_sizes(boxes)
         xa, ya, za = anchors[..., 0], anchors[..., 1], anchors[..., 2]
         dxa, dya, dza = anchors[..., 3], anchors[..., 4], anchors[..., 5]
         ra = anchors[..., 6]
@@ -108,6 +118,59 @@ def _point_offsets_decode(offsets, points, mean_size=None,
             torch.exp(dxt) * dxa, torch.exp(dyt) * dya, torch.exp(dzt) * dza]
 
 
+def _point_offsets_encode(gt_boxes, points, mean_size=None,
+                          gt_classes=None):
+    """The six offsets of the point coders: centre residuals and log sizes
+    (relative to the gt class's mean box with ``mean_size``, classes
+    1-based)."""
+    xa, ya, za = points[..., 0], points[..., 1], points[..., 2]
+    if mean_size is None:
+        return [gt_boxes[..., 0] - xa, gt_boxes[..., 1] - ya,
+                gt_boxes[..., 2] - za, torch.log(gt_boxes[..., 3]),
+                torch.log(gt_boxes[..., 4]), torch.log(gt_boxes[..., 5])]
+    anchor = mean_size.to(points.device)[gt_classes.long() - 1]
+    dxa, dya, dza = anchor[..., 0], anchor[..., 1], anchor[..., 2]
+    diag = torch.sqrt(dxa * dxa + dya * dya)
+    return [(gt_boxes[..., 0] - xa) / diag, (gt_boxes[..., 1] - ya) / diag,
+            (gt_boxes[..., 2] - za) / dza, torch.log(gt_boxes[..., 3] / dxa),
+            torch.log(gt_boxes[..., 4] / dya),
+            torch.log(gt_boxes[..., 5] / dza)]
+
+
+def _f32(x):
+    return float(np.float32(x))
+
+
+def _recip32(x):
+    """The fp32 reciprocal of the fp32 constant ``x``, as XLA folds it."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def _mod(x, period: float):
+    """Python's modulus (sign of the divisor): fmod, then + period where
+    the remainder is negative, as ``jnp.mod`` computes it."""
+    r = torch.fmod(x, period)
+    return torch.where(r < 0, r + period, r)
+
+
+def encode_angle_to_bins(angle, num_bins: int):
+    """Angle → (one-hot bin (..., bins), per-bin residual in [-0.5, 0.5]
+    at the hot bin, 0 elsewhere)."""
+    two_pi = _f32(2.0 * math.pi)
+    per = _f32(2.0 * math.pi / num_bins)
+    half = _f32(2.0 * math.pi / num_bins / 2.0)
+    inv = _recip32(per)
+    angle = _mod(angle.float(), two_pi)
+    shifted = _mod(angle + half, two_pi)
+    cls_f = torch.floor(shifted * inv)
+    centre = _fma(cls_f, torch.full_like(cls_f, per),
+                  torch.full_like(cls_f, half))
+    res = (shifted - centre) * inv
+    onehot = torch.nn.functional.one_hot(cls_f.long(), num_bins).to(
+        angle.dtype)
+    return onehot, onehot * res[..., None]
+
+
 def _mean_size(use_mean_size, mean_size):
     """(classes, 3) per-class mean box sizes, or None."""
     if not use_mean_size:
@@ -148,16 +211,27 @@ def decode_angle_from_bins(cls_logits, res):
 
 @BOX_CODERS.register
 class PointBinResidualCoder:
-    """Yaw bin classification + residual point coder (3DSSD / SASA),
-    decode only. Code: [6 offsets | yaw bin cls x B | yaw bin res x B |
-    velocity x 2 (``pred_velo``)]; output (..., 7) plus the columns past
-    the bins."""
+    """Yaw bin classification + residual point coder (3DSSD / SASA).
+    Code: [6 offsets | yaw bin cls x B | yaw bin res x B | velocity x 2
+    (``pred_velo``)]; decode gives (..., 7) plus the columns past the
+    bins."""
 
     def __init__(self, use_mean_size=True, mean_size=None, angle_bin_num=12,
                  pred_velo=False, **kwargs):
         self.mean_size = _mean_size(use_mean_size, mean_size)
         self.angle_bin_num = angle_bin_num
         self.code_size = 6 + 2 * angle_bin_num + (2 if pred_velo else 0)
+
+    def encode(self, gt_boxes, points, gt_classes=None):
+        """gt boxes (..., 7+) at points (..., 3) → (..., code); columns past
+        the yaw pass through."""
+        gt_boxes = _clamp_sizes(gt_boxes)
+        parts = _point_offsets_encode(gt_boxes, points, self.mean_size,
+                                      gt_classes)
+        onehot, res = encode_angle_to_bins(gt_boxes[..., 6],
+                                           self.angle_bin_num)
+        return torch.cat([torch.stack(parts, -1), onehot, res,
+                          gt_boxes[..., 7:]], dim=-1)
 
     def decode(self, encodings, points, pred_classes=None):
         nb = self.angle_bin_num
@@ -197,41 +271,73 @@ class PointResidual_BinOri_Coder:
 
 @BOX_CODERS.register
 class PointBinResidual6DCoder:
-    """Det6D ground-aware full-pose point coder, decode only. Code:
-    [6 offsets | yaw bin cls x B | yaw bin res x B | pitch cls, pitch res
-    (ground aware) or pitch]. Decode zeroes the pitch where
-    sigmoid(pitch cls) < 0.5; roll is always 0. Output (..., 9). The
-    configs that use it set ``use_mean_size: False`` and no ``minus``;
-    those variants are not ported."""
+    """Det6D ground-aware full-pose point coder. Code: [6 offsets | yaw
+    bin cls x B | yaw bin res x B | pitch cls, pitch res (ground aware) or
+    pitch]. Ground-aware encode: a pitch below -threshold (``minus``: a
+    |pitch| above it) is class 1 with residual ``(-threshold - pitch) /
+    factor`` (``minus``: ``pitch / factor``), else class 0 and residual
+    0. Decode zeroes the pitch where sigmoid(pitch cls) < 0.5; roll is
+    always 0. Decode output (..., 9)."""
 
-    def __init__(self, use_mean_size=True, ground_aware=True,
-                 angle_bin_num=12, minus=False, threshold=10, factor=45,
-                 **kwargs):
-        if use_mean_size or minus:
-            raise NotImplementedError(
-                "PointBinResidual6DCoder: mean sizes and minus pitch coding "
-                "are not ported yet")
+    def __init__(self, use_mean_size=True, mean_size=None,
+                 ground_aware=True, angle_bin_num=12, minus=False,
+                 threshold=10, factor=45, **kwargs):
+        self.mean_size = _mean_size(use_mean_size, mean_size)
         self.ground_aware = ground_aware
         self.angle_bin_num = angle_bin_num
-        # radians as Python floats, rounded to float32 where they meet a
-        # tensor (as the JAX package's np.deg2rad constants are)
-        self.ground_threshold = math.radians(threshold)
-        self.ground_factor = math.radians(factor)
+        self.minus = minus
+        # the JAX package's np.deg2rad constants, rounded to float32 where
+        # they meet a tensor
+        self.ground_threshold = float(np.deg2rad(threshold))
+        self.ground_factor = float(np.deg2rad(factor))
         self.code_size = 6 + 2 * angle_bin_num + (2 if ground_aware else 1)
+
+    def encode_pitch(self, pitch):
+        """→ (cls {0, 1}, res) under ground-aware coding, or (pitch,)."""
+        if not self.ground_aware:
+            return (pitch,)
+        thr = _f32(self.ground_threshold)
+        inv = _recip32(self.ground_factor)
+        if self.minus:
+            cls = pitch.abs() > thr
+            res = torch.where(cls, pitch * inv, 0.0)
+        else:
+            cls = pitch < -thr
+            res = torch.where(cls, (-thr - pitch) * inv, 0.0)
+        return cls.to(pitch.dtype), res
 
     def decode_pitch_roll(self, code):
         """code (..., 2 | 1) → (pitch, roll) with inference-time gating."""
         if self.ground_aware:
             cls_logit, res = code[..., 0], code[..., 1]
-            pitch = -self.ground_threshold - res * self.ground_factor
+            if self.minus:
+                pitch = res * self.ground_factor
+            else:
+                pitch = -self.ground_threshold - res * self.ground_factor
             pitch = torch.where(torch.sigmoid(cls_logit) < 0.5, 0.0, pitch)
         else:
             pitch = code[..., 0]
         return pitch, torch.zeros_like(pitch)
 
+    def encode(self, gt_boxes, points, gt_classes=None):
+        """9-DoF gt boxes (..., 9+: the pitch is column 7) at points
+        (..., 3) → (..., code). On 7-column boxes the JAX package's
+        ``gt_boxes[..., 7]`` is clamped to the last column, so the yaw
+        stands in for the pitch; the port reads the same column."""
+        gt_boxes = _clamp_sizes(gt_boxes)
+        parts = _point_offsets_encode(gt_boxes, points, self.mean_size,
+                                      gt_classes)
+        onehot, res = encode_angle_to_bins(gt_boxes[..., 6],
+                                           self.angle_bin_num)
+        pitch = self.encode_pitch(gt_boxes[..., min(7, gt_boxes.shape[-1]
+                                                    - 1)])
+        return torch.cat([torch.stack(parts, -1), onehot, res]
+                         + [p[..., None] for p in pitch], dim=-1)
+
     def decode(self, encodings, points, pred_classes=None):
         nb = self.angle_bin_num
-        out = _point_offsets_decode(encodings, points)
+        out = _point_offsets_decode(encodings, points, self.mean_size,
+                                    pred_classes)
         rz = decode_angle_from_bins(encodings[..., 6:6 + nb],
                                     encodings[..., 6 + nb:6 + 2 * nb])
         pitch, roll = self.decode_pitch_roll(encodings[..., 6 + 2 * nb:])

@@ -1,6 +1,7 @@
-"""Loss functions of the anchor head (counterpart of
+"""Loss functions of the anchor and vote heads (counterpart of
 ``de6d_tpu/utils/loss_utils.py``: ``sigmoid_bce_with_logits``,
-``sigmoid_focal_loss``, ``smooth_l1_loss``, ``softmax_cross_entropy``).
+``sigmoid_focal_loss``, ``smooth_l1_loss``, ``softmax_cross_entropy``,
+``weighted_binary_cross_entropy``, ``get_corner_loss_lidar``).
 
 Every function returns per-element losses; the caller weights and sums
 them, so the normalisation is the JAX package's.
@@ -8,7 +9,11 @@ them, so the normalisation is the JAX package's.
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from ..ops import geometry
 
 
 def sigmoid_bce_with_logits(logits, targets):
@@ -58,3 +63,26 @@ def softmax_cross_entropy(logits, one_hot_targets, weights=None):
     if weights is not None:
         loss = loss * weights
     return loss
+
+
+def weighted_binary_cross_entropy(logits, targets, weights=None):
+    """Sigmoid BCE averaged over the class axis, times ``weights``."""
+    loss = sigmoid_bce_with_logits(logits, targets).mean(dim=-1)
+    if weights is not None:
+        loss = loss * weights
+    return loss
+
+
+def get_corner_loss_lidar(pred_boxes, gt_boxes):
+    """(N, 7) × (N, 7) → (N,): Huber (delta 1) of each corner's distance
+    to the gt box's or to the gt box turned by pi, whichever is nearer,
+    averaged over the 8 corners."""
+    pred = geometry.boxes_to_corners_3d(pred_boxes)
+    gt = geometry.boxes_to_corners_3d(gt_boxes)
+    flipped = torch.cat([gt_boxes[:, :6], gt_boxes[:, 6:7] + math.pi,
+                         gt_boxes[:, 7:]], dim=-1)
+    gt_flip = geometry.boxes_to_corners_3d(flipped)
+    dist = torch.minimum(torch.linalg.norm(pred - gt, dim=-1),
+                         torch.linalg.norm(pred - gt_flip, dim=-1))
+    d = dist.abs()
+    return torch.where(d < 1.0, 0.5 * dist * dist, d - 0.5).mean(dim=1)

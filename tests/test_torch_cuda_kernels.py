@@ -176,6 +176,31 @@ def test_fps_kernel_equals_plain(cuda_device, weighted, n):  # noqa: F811
 
 
 @pytest.mark.cuda
+def test_sfps_weights_with_a_graph(cuda_device):  # noqa: F811
+    """s-fps at Det6D's SA2 shape with weights from requires-grad logits
+    under ``enable_grad`` (the train step's case): the kernel's picks equal
+    the plain version's, carry no graph, and a backward through the
+    weights at the picks reaches the logits only there."""
+    rng = np.random.RandomState(21)
+    xyz = torch.from_numpy(rng.uniform(-40, 70, (8, 4096, 3)).astype(
+        np.float32)).to(cuda_device)
+    valid = torch.ones(8, 4096, dtype=torch.bool, device=cuda_device)
+    logits = torch.nn.Parameter(torch.from_numpy(
+        rng.normal(0, 2, (8, 4096)).astype(np.float32)).to(cuda_device))
+    before = fps.fps.launches
+    with torch.enable_grad():
+        w = torch.sigmoid(logits)
+        got = sampling.weighted_farthest_point_sample(xyz, w, 1024, valid)
+        assert got.grad_fn is None and not got.requires_grad
+        torch.gather(w, 1, got.long()).sum().backward()
+    torch.cuda.synchronize()
+    assert fps.fps.launches == before + 1
+    assert torch.equal(got, fps.fps_plain(xyz, valid, 1024, w.detach()))
+    picked = torch.zeros_like(valid).scatter_(1, got.long(), True)
+    assert torch.equal(logits.grad != 0, picked)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,npoint", [(1, 4), (130, 64), (1000, 333),
                                       (2047, 256), (4096, 512), (5000, 64),
                                       (9000, 32)])

@@ -599,14 +599,16 @@ def test_jax_train_state_resumes_in_the_port(tiny_train):
 
 
 def test_other_detectors_refuse_training():
-    """Only PointPillars trains: another detector raises in train mode,
-    and the head raises on an assigner it does not port."""
+    """A detector whose loss is not ported (SECOND) raises in train mode,
+    naming the ones that train, and the head raises on an assigner it
+    does not port."""
     from de6d_tpu_torch.models.detectors.second_net import SECONDNet
 
     model = SECONDNet.__new__(SECONDNet)
     torch.nn.Module.__init__(model)
     model.train()
-    with pytest.raises(NotImplementedError, match="SECONDNet"):
+    with pytest.raises(NotImplementedError,
+                       match="SECONDNet.*PointPillars, Det6D and 3DSSD"):
         model({"points": torch.zeros(1, 4, 4)})
     with pytest.raises(NotImplementedError, match="SECONDNet"):
         model.get_training_loss({})

@@ -135,8 +135,11 @@ def test_points_in_boxes_mask_equals_jax():
     big = geometry.enlarge_box3d(torch.from_numpy(boxes), (0.2, 0.3, 0.4))
     ref_big = jax_geo.enlarge_box3d(jnp.asarray(boxes), (0.2, 0.3, 0.4))
     np.testing.assert_array_equal(big.numpy(), np.asarray(ref_big))
-    with pytest.raises(NotImplementedError):
-        geometry.points_in_boxes_mask(torch.zeros(5, 3), torch.zeros(2, 9))
+    # 9-DoF boxes (ported with Det6D training) with zero pitch and roll
+    # contain what their 7-DoF boxes contain
+    nine = np.concatenate([boxes, np.zeros((len(boxes), 2), np.float32)], 1)
+    np.testing.assert_array_equal(geometry.points_in_boxes_mask(
+        torch.from_numpy(xyz), torch.from_numpy(nine)).numpy(), ref)
 
 
 def test_rotate_points_along_z_rounds_like_xla():

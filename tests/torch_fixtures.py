@@ -262,32 +262,43 @@ def run_jax_point_detector(jmodel, variables, post_cfg, num_class, pts, mask):
 
 
 KITTI_ROOT = "data/kitti"
+SLOPEDKITTI_ROOT = "data/slopedkitti"
 
 
-def kitti_subtree(dst, n_train=8, n_val=4):
-    """A KITTI tree cut from the repository's ``data/kitti`` into ``dst``:
-    the first ``n_train`` train and ``n_val`` val frames (velodyne, calib,
-    labels), their infos, and the sampling database of those train frames
-    (dbinfos filtered, the object files copied). Returns ``dst``."""
+def slopedkitti_subtree(dst, n_train=8, n_val=4):
+    """:func:`kitti_subtree` of ``data/slopedkitti``, slope planes
+    included."""
+    return kitti_subtree(dst, n_train, n_val, root=SLOPEDKITTI_ROOT,
+                         subdirs=("velodyne", "calib", "label_2",
+                                  "slope_planes"))
+
+
+def kitti_subtree(dst, n_train=8, n_val=4, root=KITTI_ROOT,
+                  subdirs=("velodyne", "calib", "label_2")):
+    """A KITTI tree cut from the repository's ``root`` (``data/kitti``)
+    into ``dst``: the first ``n_train`` train and ``n_val`` val frames
+    (the files of ``subdirs``), their infos, and the sampling database of
+    those train frames (dbinfos filtered, the object files copied).
+    Returns ``dst``."""
     import pickle
     import shutil
     from pathlib import Path
 
-    src = Path(__file__).resolve().parent.parent / KITTI_ROOT
+    src = Path(__file__).resolve().parent.parent / root
     dst = Path(dst)
     (dst / "ImageSets").mkdir(parents=True, exist_ok=True)
     (dst / "gt_database").mkdir(exist_ok=True)
-    for sub in ("velodyne", "calib", "label_2"):
+    for sub in subdirs:
         (dst / "training" / sub).mkdir(parents=True, exist_ok=True)
-    ext = {"velodyne": ".bin", "calib": ".txt", "label_2": ".txt"}
+    ext = {"velodyne": ".bin"}
     for split, n in (("train", n_train), ("val", n_val)):
         with open(src / f"kitti_infos_{split}.pkl", "rb") as f:
             infos = pickle.load(f)[:n]
         ids = [i["point_cloud"]["lidar_idx"] for i in infos]
         (dst / "ImageSets" / f"{split}.txt").write_text("\n".join(ids) + "\n")
         for idx in ids:
-            for sub in ("velodyne", "calib", "label_2"):
-                name = f"training/{sub}/{idx}{ext[sub]}"
+            for sub in subdirs:
+                name = f"training/{sub}/{idx}{ext.get(sub, '.txt')}"
                 shutil.copyfile(src / name, dst / name)
         with open(dst / f"kitti_infos_{split}.pkl", "wb") as f:
             pickle.dump(infos, f)
