@@ -9,9 +9,11 @@ Phases, one status line each; any failure exits non-zero:
 1. build          — compile ``de6d_tpu_torch/csrc/*.cu`` for sm_90a.
    grad guard     — ``scatter_canvas`` on the card returns a gradient
                     (its backward kernel) bit-equal to the CPU plain
-                    version's; ``sparse_conv`` on the card raises on a
-                    requires-grad input under ``enable_grad`` and runs
-                    under ``no_grad``, its CPU plain version backpropagates
+                    version's; ``sparse_conv`` on the card has a
+                    ``grad_fn`` under ``enable_grad``, and its feature and
+                    weight gradients (its backward kernels) on a
+                    submanifold and a strided table equal the CPU plain
+                    autograd's within 1e-5 of each leaf's max
                     (:func:`check_grad_guard`).
 2. kernels        — canvas and NMS against their plain PyTorch versions
                     on the card at PointPillars' shapes (canvas bit-exact
@@ -66,7 +68,11 @@ Phases, one status line each; any failure exits non-zero:
                     falling, exactly 1 canvas forward and 1 backward
                     launch a step and no other kernel, the checkpoint,
                     the post-training eval (1 canvas and 1-2 fused-NMS
-                    launches a batch: the 1024-prefix cascade).
+                    launches a batch: the 1024-prefix cascade); the
+                    anchors' val scores (:func:`anchor_scores`): with the
+                    batch's BatchNorm statistics the foreground anchors'
+                    mean over the background's must exceed the fresh
+                    init's.
 4f. eval / kitti  — the port's KITTI eval on the JAX run's own detections
                     (AP dict exactly, :func:`check_eval_code`; which
                     matcher ran, native or Python); ``eval_one_epoch`` with
@@ -216,6 +222,51 @@ Phases, one status line each; any failure exits non-zero:
                     ``de6d_tpu_torch/testdata/second_jax_ref.npz``
                     (:func:`check_second_parity`: stage keys, candidates,
                     detections).
+19a. kernels / sparse_conv_grad — the sparse conv's backward on the card
+                    against its plain versions at the 12 layers of a
+                    SECOND train step on the fixture's batch (B = 4), fp32
+                    (1e-5 of each result's max) and bf16 (``CONV_TOL``):
+                    the data gradient (the forward kernel on the table's
+                    transpose), the weight-gradient kernel (bit-equal over
+                    two runs), the transpose kernel (equal everywhere, and
+                    on a submanifold table to the mirrored offsets); a
+                    layer without a hit, every row invalid, V = 1, a
+                    non-contiguous cotangent; ms by events and in a CUDA
+                    graph, the plain versions' (autograd through
+                    ``sparse_conv_plain``), the bounds of
+                    ``sparse_conv.work_backward`` and
+                    ``sparse_conv.work_transpose``.
+19b. parity / train_second — SECOND's train step in fp32 (TF32 off) from
+                    ``bench_assets/second_params.npz`` on the batch stored
+                    in ``de6d_tpu_torch/testdata/second_train_jax_ref.npz``
+                    (the JAX loader's first batch of 4 on ``data/kitti``):
+                    stage keys and labels identical; targets, loss terms,
+                    gradient norm, gradients, ``MaskedBatchNorm``
+                    statistics and 3 Adam steps within
+                    :data:`SECOND_TRAIN_TOL`; this card's fp32 step within
+                    :data:`SECOND_TRAIN_F64` of its float64 step
+                    (:func:`check_second_train_parity`).
+19c. train / second — ``train_model`` with ``second.yaml`` as shipped
+                    (fp32, cuDNN's TF32 off as ``tools/train.py`` sets
+                    it) at batch 4 on the fixture's frames,
+                    :data:`TRAIN_STEPS` steps: step ms, steps/s, frames/s,
+                    device ms and idle share (5-step profiler window),
+                    peak memory, the loss falling, exactly 8 neighbour
+                    tables, 12 conv forwards, 11 data gradients, 12
+                    weight gradients and 11 transposes a step and no
+                    other kernel launch.
+19d. train / second_kitti — ``tools/train.py`` on ``second.yaml`` for one
+                    epoch of ``data/kitti`` at batch 4 from the fresh
+                    init, as phase 4e: steps/s, the loader's share, the
+                    loss falling, the launches of 19c a step, the
+                    checkpoint; the post-training eval with 8 neighbour
+                    tables, 12 convs and 1-2 fused-NMS launches a batch.
+19e. eval / second_kitti — as phase 4f with SECOND: the trained weights
+                    over the 100 val frames at batch 8, fp32 against
+                    ``de6d_tpu_torch/testdata/second_eval_jax_ref.npz``;
+                    bf16 ms per frame with 8 neighbour tables, 12 convs
+                    and 1-2 fused-NMS launches a batch; ``tools/test.py
+                    --ckpt`` on 19d's checkpoint.
 
 20. kernels / pv_rcnn — from one bf16 forward of the served PV-RCNN model
                     (``configs/kitti_models/pv_rcnn.yaml``, weights drawn
@@ -713,14 +764,16 @@ def phase_nms_case(label, model, mc, pts, mask, report):
 def check_grad_guard(report):
     """On the card, ``scatter_canvas`` on a requires-grad input returns a
     tensor with a ``grad_fn`` whose gradient (the backward kernel) equals
-    the CPU plain version's bit for bit (fp32); ``sparse_conv``, whose
-    backward comes with SECOND's training, still refuses a requires-grad
-    input under ``enable_grad`` and runs under ``no_grad``; its CPU plain
-    version stays differentiable."""
+    the CPU plain version's bit for bit (fp32); so does ``sparse_conv``
+    under ``enable_grad``, on a submanifold and a strided table, whose
+    feature and weight gradients (its backward kernels) equal the CPU
+    plain autograd's within 1e-5 of each leaf's largest |entry| (fp32,
+    sums in another order)."""
     import numpy as np
     import torch
 
-    from de6d_tpu_torch.ops.kernels import canvas, sparse_conv
+    from de6d_tpu_torch.ops import sparse
+    from de6d_tpu_torch.ops.kernels import canvas
 
     rng = np.random.RandomState(3)
     ny, nx, v, c = 6, 5, 12, 8
@@ -743,44 +796,56 @@ def check_grad_guard(report):
         fail("grad guard: the canvas gradient on the card differs from the "
              "CPU plain version's")
 
-    q, k, cin, cout = 7, 3, 8, 16
-    conv_in = (
-        torch.from_numpy(rng.standard_normal((1, v, cin)).astype(np.float32)),
-        torch.from_numpy(rng.randint(0, v, (1, q, k)).astype(np.int32)),
-        torch.from_numpy(rng.random_sample((1, q, k)) < 0.7),
-        torch.from_numpy(rng.standard_normal((k, cin, cout)).astype(
-            np.float32)),
-        torch.ones(1, q, dtype=torch.bool),
-    )
-    cpu = [a.clone().requires_grad_(i in (0, 3)) for i, a in
-           enumerate(conv_in)]
-    sparse_conv.sparse_conv(*cpu).sum().backward()
-    if cpu[0].grad is None or cpu[3].grad is None:
-        fail("grad guard: the CPU plain sparse_conv lost its gradient")
-    for i in (0, 3):
-        dev = [a.cuda().requires_grad_(j == i) for j, a in enumerate(conv_in)]
+    grid, cin, cout = (5, 8, 7), 8, 16
+    keys = np.full((2, 60), sparse.INVALID, np.int32)
+    for b, n in ((0, 60), (1, 41)):
+        keys[b, :n] = np.sort(rng.choice(np.prod(grid), n, replace=False))
+    keys = torch.from_numpy(keys)
+    out_keys, out_grid = sparse.downsample_coords(keys, grid, (2, 2, 2),
+                                                  (1, 1, 1), 40)
+    feats = torch.from_numpy(rng.standard_normal((2, 60, cin)).astype(
+        np.float32))
+    w = torch.from_numpy((rng.standard_normal((27, cin, cout)) * 0.2).astype(
+        np.float32))
+
+    def grads(device, strided):
+        k = keys.to(device)
+        f = feats.to(device).clone().requires_grad_(True)
+        wt = w.to(device).clone().requires_grad_(True)
         with torch.enable_grad():
-            try:
-                sparse_conv.sparse_conv(*dev)
-            except RuntimeError as err:
-                if "backward" not in str(err):
-                    raise
+            if strided:
+                ok = out_keys.to(device)
+                y = sparse.strided_conv(f, k, grid, wt, (3, 3, 3), (2, 2, 2),
+                                        (1, 1, 1), ok, out_grid)
             else:
-                fail(f"grad guard: sparse_conv on the card took argument {i} "
-                     "requiring grad under enable_grad")
-        with torch.no_grad():
-            got = sparse_conv.sparse_conv(*dev)
-        want = sparse_conv.sparse_conv(*[a.detach() for a in cpu])
-        torch.cuda.synchronize()
-        if not torch.allclose(got.cpu(), want, atol=1e-5, rtol=1e-5):
-            fail("grad guard: sparse_conv under no_grad differs from plain")
+                table = sparse.subm_neighbor_table(k, grid)
+                y = sparse.subm_conv_table(f, *table, wt,
+                                           k != sparse.INVALID)
+            if y.grad_fn is None:
+                fail(f"grad guard: sparse_conv on {device} has no grad_fn")
+            ct = torch.from_numpy(np.random.RandomState(5).standard_normal(
+                tuple(y.shape)).astype(np.float32)).to(device)
+            (y * ct).sum().backward()
+        return f.grad.cpu(), wt.grad.cpu()
+
+    worst = 0.0
+    for strided in (False, True):
+        for got, want in zip(grads("cuda", strided), grads("cpu", strided)):
+            e = rel_err(got, want)
+            if not e <= 1e-5:
+                fail(f"grad guard: the sparse_conv gradient on the card "
+                     f"({'strided' if strided else 'submanifold'}) differs "
+                     f"from the CPU plain autograd's by {e:.3g} of its max")
+            worst = max(worst, e)
     report["grad_guard"] = {"scatter_canvas": "gradient",
-                            "sparse_conv": "refuses"}
+                            "sparse_conv": "gradient",
+                            "sparse_conv_max_rel_err": worst}
     print("grad guard: scatter_canvas on the card returns a gradient (the "
           "backward kernel) bit-equal to the CPU plain version's; "
-          "sparse_conv raises on a requires-grad input under enable_grad "
-          "and runs under no_grad; its CPU plain version backpropagates",
-          flush=True)
+          "sparse_conv on the card has a grad_fn, and its feature and "
+          "weight gradients (the backward kernels) on a submanifold and a "
+          f"strided table are within {worst:.3g} of the CPU plain "
+          "autograd's (of each leaf's max)", flush=True)
 
 
 # ---------------------------------------------------------------------
@@ -1377,13 +1442,13 @@ def phase_train(report, kernels, profile):
 # PointPillars on data/kitti: the host pipeline, tools/train.py, eval
 # ---------------------------------------------------------------------
 
-def kitti_loader(training, batch_size, workers=4):
-    """The port's (dataset, loader) on ``data/kitti`` with
-    ``pointpillar.yaml``'s ``DATA_CONFIG``."""
+def kitti_loader(training, batch_size, workers=4, cfg_path=CFG):
+    """The port's (dataset, loader) on ``data/kitti`` with the
+    ``DATA_CONFIG`` of ``cfg_path`` (``pointpillar.yaml``)."""
     from de6d_tpu_torch.config import cfg_from_yaml_file
     from de6d_tpu_torch.datasets import build_dataloader
 
-    cfg = cfg_from_yaml_file(CFG)
+    cfg = cfg_from_yaml_file(cfg_path)
     return build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
                             root_path=str(KITTI_DIR), training=training,
                             workers=workers)
@@ -1502,17 +1567,27 @@ def read_launches(kernels):
     return {k: fn.launches for k, fn in kernels.items()}
 
 
-def phase_train_kitti(report, kernels):
+def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
+                      key="train_kitti", per_step=(("canvas", 1),
+                                                   ("canvas_grad", 1)),
+                      eval_per_batch=(("canvas", 1),)):
     """``train / kitti``: ``tools/train.py``'s entry (its ``prepare``,
-    ``train`` and ``evaluate``, as ``main`` runs them) with
-    ``pointpillar.yaml`` in bf16 at batch 4 for one epoch of ``data/kitti``
-    from the fresh init (``--fix_random_seed``), 4 loader workers: step ms,
-    steps/s, frames/s, the share of the loop's wall time spent waiting on
-    the loader; the loss finite and falling (mean of the last 10 steps
-    below the first 10); exactly one canvas forward and one backward
-    launch a step and no other kernel; the checkpoint written; the
-    post-training eval over the val split with one canvas and one or two
-    fused-NMS launches a batch. Returns the checkpoint's path."""
+    ``train`` and ``evaluate``, as ``main`` runs them) with ``cfg_path``
+    (``pointpillar.yaml``, bf16) as shipped at batch 4 for one epoch of
+    ``data/kitti`` from the fresh init (``--fix_random_seed``), 4 loader
+    workers: step ms, steps/s, frames/s, the share of the loop's wall time
+    spent waiting on the loader; the loss finite and falling (mean of the
+    last 10 steps below the first 10); exactly ``per_step`` launches a
+    step (one canvas forward and one backward) and no other kernel; the
+    checkpoint written; the post-training eval over the val split with
+    ``eval_per_batch`` (one canvas) and one or two fused-NMS launches a
+    batch; the anchors' val scores (:func:`anchor_scores`): with the
+    batch's BatchNorm statistics the trained weights' foreground anchors'
+    mean score over the background's must exceed the fresh init's (in
+    eval mode the running statistics, moved 75 times at momentum 0.99,
+    still hold 0.99^75 = 47 % of their initial zero mean and unit
+    variance). Returns the checkpoint's path."""
+    import copy
     import shutil
 
     import numpy as np
@@ -1520,15 +1595,17 @@ def phase_train_kitti(report, kernels):
 
     from de6d_tpu_torch.tools import train as train_cli
 
-    tag = "chip_smoke"
-    shutil.rmtree(ROOT / "output/kitti_models/pointpillar" / tag,
+    extra = "chip_smoke"
+    cfg_path = Path(cfg_path)
+    shutil.rmtree(ROOT / "output/kitti_models" / cfg_path.stem / extra,
                   ignore_errors=True)
-    argv = ["--cfg_file", str(CFG), "--epochs", "1", "--batch_size", "4",
-            "--workers", "4", "--extra_tag", tag, "--fix_random_seed",
+    argv = ["--cfg_file", str(cfg_path), "--epochs", "1", "--batch_size",
+            "4", "--workers", "4", "--extra_tag", extra, "--fix_random_seed",
             "--set", "DATA_CONFIG.DATA_PATH", str(KITTI_DIR)]
     t0 = time.perf_counter()
     run = train_cli.prepare(argv)
     prep_s = time.perf_counter() - t0
+    init_model = copy.deepcopy(run.model)
     reset_launches(kernels)
     t0 = time.perf_counter()
     train_cli.train(run)
@@ -1536,20 +1613,18 @@ def phase_train_kitti(report, kernels):
     wall = time.perf_counter() - t0
     launches = read_launches(kernels)
     steps = len(run.step_log)
-    want = {k: steps if k in ("canvas", "canvas_grad") else 0
-            for k in kernels}
+    want = {k: steps * dict(per_step).get(k, 0) for k in kernels}
     if steps != len(run.train_loader) or launches != want:
-        fail(f"train / kitti: {steps} steps, launches {launches}, "
-             f"expected {want}")
+        fail(f"{tag}: {steps} steps, launches {launches}, expected {want}")
     losses = np.array([float(x[2]) for x in run.step_log])
     if not np.isfinite(losses).all():
-        fail(f"train / kitti: non-finite losses {losses}")
+        fail(f"{tag}: non-finite losses {losses}")
     if not losses[-10:].mean() < losses[:10].mean():
-        fail(f"train / kitti: the loss did not fall: first 10 "
+        fail(f"{tag}: the loss did not fall: first 10 "
              f"{losses[:10].mean()}, last 10 {losses[-10:].mean()}")
     ckpt = run.ckpt_dir / "checkpoint_epoch_1"
     if not ckpt.is_file():
-        fail(f"train / kitti: no checkpoint at {ckpt}")
+        fail(f"{tag}: no checkpoint at {ckpt}")
     data_s = np.array([x[0] for x in run.step_log])
     step_s = np.array([x[1] for x in run.step_log])
     iter_ms = (data_s + step_s) * 1e3
@@ -1561,15 +1636,24 @@ def phase_train_kitti(report, kernels):
     n_eval = -(-100 // 4)
     # the fused NMS runs on the 1024-candidate prefix, and again on all
     # 4096 where the prefix does not decide a batch (ops/nms.py cascade)
-    want = {k: n_eval if k == "canvas" else 0 for k in kernels}
+    want = {k: n_eval * dict(eval_per_batch).get(k, 0) for k in kernels}
     want["nms"] = eval_launches["nms"]
     if eval_launches != want or not n_eval <= want["nms"] <= 2 * n_eval:
-        fail(f"train / kitti: post-training eval launches {eval_launches} "
-             f"in {n_eval} batches, expected 1 canvas and 1-2 NMS a batch")
+        fail(f"{tag}: post-training eval launches {eval_launches} in "
+             f"{n_eval} batches, expected {dict(eval_per_batch)} and 1-2 "
+             "NMS a batch")
     if not (run.output_dir / "eval/eval_with_train/result.pkl").is_file():
-        fail("train / kitti: the post-training eval wrote no result.pkl")
+        fail(f"{tag}: the post-training eval wrote no result.pkl")
+    scores = anchor_scores({"init": init_model, "trained": run.model},
+                           cfg_path)
+    del init_model
+    sep = {k: r["fg_mean"] / r["bg_mean"] for k, r in scores.items()}
+    if not sep["trained_batch_stats"] > sep["init"]:
+        fail(f"{tag}: the foreground anchors' val scores did not rise over "
+             f"the background's: {scores}")
     out = {
-        "steps": steps, "batch": 4, "compute_dtype": "bfloat16",
+        "steps": steps, "batch": 4,
+        "compute_dtype": run.cfg.MODEL.get("COMPUTE_DTYPE", "float32"),
         "prepare_s": prep_s, "wall_s": wall,
         "median_step_ms": float(np.median(iter_ms)),
         "step_ms_iqr": [float(x) for x in np.percentile(iter_ms, [25, 75])],
@@ -1582,10 +1666,12 @@ def phase_train_kitti(report, kernels):
         "launches": launches, "eval_launches": eval_launches,
         "eval_s": eval_s,
         "eval_recall": {k: ret[k] for k in ret if k.startswith("recall/")},
+        "val_anchor_scores": scores, "fg_over_bg": sep,
         "checkpoint": str(ckpt),
     }
-    report["train_kitti"] = out
-    print(f"train / kitti: tools/train.py, pointpillar.yaml bf16, batch 4, "
+    report[key] = out
+    print(f"{tag}: tools/train.py, {cfg_path.name} "
+          f"{out['compute_dtype']}, batch 4, "
           f"1 epoch of data/kitti ({steps} steps) from the fresh init: "
           f"median step {out['median_step_ms']:.2f} ms (IQR "
           f"{out['step_ms_iqr'][0]:.2f}-{out['step_ms_iqr'][1]:.2f}; host "
@@ -1597,17 +1683,87 @@ def phase_train_kitti(report, kernels):
           f"{out['last10_loss']:.4f}; launches {launches}; checkpoint "
           f"{out['checkpoint']}; post-training eval {eval_s:.1f} s, "
           f"launches {eval_launches}, recall {out['eval_recall']} "
-          f"(prepare {prep_s:.1f} s)", flush=True)
+          f"(prepare {prep_s:.1f} s); val anchor scores, fresh init / "
+          f"trained with the running BatchNorm statistics / trained with "
+          f"the batch's: foreground mean over background mean "
+          f"{sep['init']:.4g} / {sep['trained']:.4g} / "
+          f"{sep['trained_batch_stats']:.4g}, largest "
+          f"{scores['init']['max']:.4g} / {scores['trained']['max']:.4g} / "
+          f"{scores['trained_batch_stats']['max']:.4g}, anchors at or "
+          f"above SCORE_THRESH {scores['init']['thresh']} "
+          f"{scores['init']['above_thresh']} / "
+          f"{scores['trained']['above_thresh']} / "
+          f"{scores['trained_batch_stats']['above_thresh']}", flush=True)
     return ckpt
 
 
-def eval_annos_from_arrays(ref):
+def anchor_scores(models, cfg_path=CFG):
+    """{name: the anchors' class scores over the val split of
+    ``cfg_path``} for each of ``models`` (anchor-head detectors on the
+    card) in eval mode, and for ``models["trained"]`` again with every
+    BatchNorm normalising by the batch's statistics (on a copy, as
+    ``trained_batch_stats``): the largest score, the mean score of the
+    anchors the target assigner labels foreground (of their class) and
+    the mean largest score of those it labels background, the foreground
+    anchors' count, and the anchors at or above
+    ``POST_PROCESSING.SCORE_THRESH``."""
+    import copy
+
+    import torch
+
+    from de6d_tpu_torch.models.dense_heads.axis_aligned_assigner import (
+        assign_targets,
+    )
+    from de6d_tpu_torch.models.model_utils.layers import BatchNorm
+    from de6d_tpu_torch.train.train_loop import device_batch
+
+    _, loader = kitti_loader(False, EVAL_BATCH, 4, cfg_path)
+    loader.set_epoch(0)
+    batches = [device_batch(b, torch.device("cuda")) for b in loader]
+    loader.close()
+    runs = dict(models)
+    runs["trained_batch_stats"] = copy.deepcopy(models["trained"])
+    out = {}
+    for name, model in runs.items():
+        model.eval()
+        if name == "trained_batch_stats":
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.train()
+        head = model.dense_head
+        thresh = float(model.model_cfg["POST_PROCESSING"]["SCORE_THRESH"])
+        top = fg_sum = bg_sum = 0.0
+        fg_n = bg_n = above = 0
+        for batch in batches:
+            with torch.no_grad():
+                res = model(dict(batch))
+                s = torch.sigmoid(res["batch_cls_preds"].float())
+                lab = assign_targets(
+                    head.anchors, head.anchor_group, head.matched_thr,
+                    head.unmatched_thr, batch["gt_boxes"],
+                    head.box_coder)["box_cls_labels"].long()
+            best = s.amax(-1)
+            fg, bg = lab > 0, lab == 0
+            own = torch.gather(s, 2, (lab.clamp(min=1) - 1)[..., None])[..., 0]
+            top = max(top, float(best.max()))
+            fg_sum += float(own[fg].sum())
+            fg_n += int(fg.sum())
+            bg_sum += float(best[bg].sum())
+            bg_n += int(bg.sum())
+            above += int((best >= thresh).sum())
+        out[name] = {"max": top, "fg_mean": fg_sum / max(fg_n, 1),
+                     "bg_mean": bg_sum / max(bg_n, 1), "fg_anchors": fg_n,
+                     "above_thresh": above, "thresh": thresh}
+    return out
+
+
+def eval_annos_from_arrays(ref, cfg_path=CFG):
     """The fixture's per-frame detections as KITTI annos, built by the
     port's ``generate_prediction_dicts`` with each val frame's
     calibration."""
     import numpy as np
 
-    ds, loader = kitti_loader(False, EVAL_BATCH, 4)
+    ds, loader = kitti_loader(False, EVAL_BATCH, 4, cfg_path)
     starts = np.concatenate([[0], np.cumsum(ref["count"])])
     annos, i = [], 0
     loader.set_epoch(0)
@@ -1624,22 +1780,22 @@ def eval_annos_from_arrays(ref):
     return ds, annos
 
 
-def check_eval_code():
+def check_eval_code(ref_path=EVAL_REF, cfg_path=CFG, tag="eval / kitti"):
     """The port's KITTI eval on the JAX run's own detections (the eval
     fixture) must give the stored AP dict exactly."""
     import numpy as np
 
-    with np.load(EVAL_REF) as raw:
+    with np.load(ref_path) as raw:
         ref = dict(raw)
-    ds, annos = eval_annos_from_arrays(ref)
+    ds, annos = eval_annos_from_arrays(ref, cfg_path)
     _, ap = ds.evaluation(annos, ds.class_names)
     keys = ref["ap_keys"].tolist()
     got = np.array([float(ap[k]) for k in keys])
     if sorted(ap) != sorted(keys):
-        fail(f"eval / kitti: AP keys {sorted(ap)}")
+        fail(f"{tag}: AP keys {sorted(ap)}")
     if not np.array_equal(got, ref["ap_values"]):
         bad = [k for k, a, b in zip(keys, got, ref["ap_values"]) if a != b]
-        fail(f"eval / kitti: the port's KITTI eval on the JAX detections "
+        fail(f"{tag}: the port's KITTI eval on the JAX detections "
              f"differs at {bad}")
     from de6d_tpu_torch.native import native_eval
 
@@ -1661,8 +1817,11 @@ def _best_iou(gt, boxes):
     return iou.amax(dim=1).numpy()
 
 
-def check_eval_parity(ret, annos, tol=PARITY_TOL):
-    """The port's eval (fp32) against ``pointpillar_eval_jax_ref.npz``:
+def check_eval_parity(ret, annos, tol=PARITY_TOL, ref_path=None,
+                      cfg_path=CFG, tag="eval / kitti"):
+    """The port's eval (fp32) against ``ref_path`` (:data:`EVAL_REF`,
+    ``pointpillar_eval_jax_ref.npz``; the val split read with the
+    ``DATA_CONFIG`` of ``cfg_path``):
     frame ids, per-frame counts and labels equal, boxes and scores within
     ``tol``; each recall counter equal, or parted only at ground-truth
     boxes whose best 3D IoU lies within :data:`PARTING_IOU` of the
@@ -1673,7 +1832,7 @@ def check_eval_parity(ret, annos, tol=PARITY_TOL):
     (:func:`certify_ap`). Returns the report."""
     import numpy as np
 
-    with np.load(EVAL_REF) as raw:
+    with np.load(ref_path or EVAL_REF) as raw:
         ref = dict(raw)
     names = ["Car", "Pedestrian", "Cyclist"]
     got = {
@@ -1688,17 +1847,17 @@ def check_eval_parity(ret, annos, tol=PARITY_TOL):
                                   for a in annos]),
     }
     if got["frame_id"].tolist() != ref["frame_id"].tolist():
-        fail("eval / kitti: frame order differs")
+        fail(f"{tag}: frame order differs")
     if not np.array_equal(got["count"], ref["count"]):
         bad = np.nonzero(got["count"] != ref["count"])[0]
-        fail(f"eval / kitti: counts differ at frames {bad.tolist()}: "
+        fail(f"{tag}: counts differ at frames {bad.tolist()}: "
              f"{got['count'][bad]} vs {ref['count'][bad]}")
     if not np.array_equal(got["labels"], ref["labels"]):
-        fail("eval / kitti: labels differ")
+        fail(f"{tag}: labels differ")
     d_box = float(np.abs(got["boxes"] - ref["boxes"]).max(initial=0))
     d_score = float(np.abs(got["scores"] - ref["scores"]).max(initial=0))
     if max(d_box, d_score) > tol:
-        fail(f"eval / kitti: max |d box| {d_box}, |d score| {d_score} > "
+        fail(f"{tag}: max |d box| {d_box}, |d score| {d_score} > "
              f"{tol}")
     # recall counters
     counts = dict(zip(ref["recall_keys"].tolist(),
@@ -1707,9 +1866,9 @@ def check_eval_parity(ret, annos, tol=PARITY_TOL):
     gt_by_frame = None
     if ret["recall_counts"] != counts:
         if ret["recall_counts"].get("gt") != counts["gt"]:
-            fail(f"eval / kitti: {ret['recall_counts']['gt']} gt boxes, "
+            fail(f"{tag}: {ret['recall_counts']['gt']} gt boxes, "
                  f"reference {counts['gt']}")
-        gt_by_frame = eval_gt_boxes()
+        gt_by_frame = eval_gt_boxes(cfg_path)
         starts = np.concatenate([[0], np.cumsum(ref["count"])])
         for k, want in counts.items():
             if k == "gt" or ret["recall_counts"][k] == want:
@@ -1721,14 +1880,14 @@ def check_eval_parity(ret, annos, tol=PARITY_TOL):
                 br = _best_iou(gt, ref["boxes"][s:e])
                 for j in np.nonzero((bg > t) != (br > t))[0]:
                     if max(abs(bg[j] - t), abs(br[j] - t)) > PARTING_IOU:
-                        fail(f"eval / kitti: {k} parts at frame {f} gt {j} "
+                        fail(f"{tag}: {k} parts at frame {f} gt {j} "
                              f"(best IoU {bg[j]} vs {br[j]}), not within "
                              f"{PARTING_IOU} of {t}")
                     partings.append((k, f, int(j), float(bg[j]),
                                      float(br[j])))
             net = sum(1 if p[3] > t else -1 for p in partings if p[0] == k)
             if ret["recall_counts"][k] - want != net:
-                fail(f"eval / kitti: {k} {ret['recall_counts'][k]} vs {want}"
+                fail(f"{tag}: {k} {ret['recall_counts'][k]} vs {want}"
                      f" not explained by the certified partings")
     # AP
     keys = ref["ap_keys"].tolist()
@@ -1739,24 +1898,24 @@ def check_eval_parity(ret, annos, tol=PARITY_TOL):
     d_aos = max((abs(a - b) for k, a, b in zip(keys, ap, ref["ap_values"])
                  if "_aos/" in k), default=0.0)
     if d_aos > aos_tol:
-        fail(f"eval / kitti: AOS differs by {d_aos} > {aos_tol}")
+        fail(f"{tag}: AOS differs by {d_aos} > {aos_tol}")
     ap_diff = [k for k, a, b in zip(keys, ap, ref["ap_values"])
                if a != b and "_aos/" not in k]
     certified_ap = []
     if ap_diff:
-        certified_ap = certify_ap(got, ref, ap_diff)
+        certified_ap = certify_ap(got, ref, ap_diff, cfg_path, tag)
     return {"counts": int(got["count"].sum()), "max_abs_box": d_box,
             "max_abs_score": d_score, "recall_partings": partings,
             "max_abs_aos": d_aos, "aos_tol": aos_tol,
             "ap_differs_at": ap_diff, "ap_certified_by": certified_ap}
 
 
-def eval_gt_boxes():
+def eval_gt_boxes(cfg_path=CFG):
     """Each val frame's gt boxes (valid rows) as the eval batches carry
     them."""
     import numpy as np
 
-    _, loader = kitti_loader(False, EVAL_BATCH, 4)
+    _, loader = kitti_loader(False, EVAL_BATCH, 4, cfg_path)
     out = []
     loader.set_epoch(0)
     for b in loader:
@@ -1765,7 +1924,7 @@ def eval_gt_boxes():
     return out
 
 
-def certify_ap(got, ref, ap_diff):
+def certify_ap(got, ref, ap_diff, cfg_path=CFG, tag="eval / kitti"):
     """Replace the port's detections that lie at a threshold by the
     reference's: a 3D or BEV IoU with a gt box within :data:`PARTING_IOU`
     of 0.25, 0.5 or 0.7 in either run, or a score whose order against
@@ -1777,7 +1936,7 @@ def certify_ap(got, ref, ap_diff):
 
     from de6d_tpu_torch.ops import iou3d
 
-    gt_by_frame = eval_gt_boxes()
+    gt_by_frame = eval_gt_boxes(cfg_path)
     starts = np.concatenate([[0], np.cumsum(ref["count"])])
     near = np.zeros(len(ref["scores"]), bool)
     for f, gt in enumerate(gt_by_frame):
@@ -1797,40 +1956,44 @@ def certify_ap(got, ref, ap_diff):
     hybrid = {k: v.copy() for k, v in got.items()}
     hybrid["boxes"][near] = ref["boxes"][near]
     hybrid["scores"][near] = ref["scores"][near]
-    ds, annos = eval_annos_from_arrays(hybrid)
+    ds, annos = eval_annos_from_arrays(hybrid, cfg_path)
     _, ap = ds.evaluation(annos, ds.class_names)
     keys = [k for k in ref["ap_keys"].tolist() if "_aos/" not in k]
     want = dict(zip(ref["ap_keys"].tolist(), ref["ap_values"].tolist()))
     if any(float(ap[k]) != want[k] for k in keys):
-        fail(f"eval / kitti: AP differs at {ap_diff}, not explained by the "
+        fail(f"{tag}: AP differs at {ap_diff}, not explained by the "
              f"{int(near.sum())} detections at a threshold")
     return np.nonzero(near)[0].tolist()
 
 
-def phase_eval_kitti(report, kernels, ckpt):
+def phase_eval_kitti(report, kernels, ckpt, cfg_path=CFG, params=PARAMS,
+                     ref_path=EVAL_REF, tag="eval / kitti", key="eval_kitti",
+                     per_batch=(("canvas", 1),), nms_per_batch=(1, 1)):
     """``eval / kitti``: the port's KITTI eval on the JAX detections;
-    ``eval_one_epoch`` of PointPillars with the trained weights over the
-    100 val frames at batch 8: fp32 (TF32 off) against
-    ``pointpillar_eval_jax_ref.npz`` (:func:`check_eval_parity`), recall
-    above 0; bf16 ms per frame with one canvas and one fused-NMS launch a
-    batch; then ``tools/test.py --ckpt`` on ``train / kitti``'s
-    checkpoint."""
+    ``eval_one_epoch`` of ``cfg_path`` (PointPillars) with the trained
+    ``params`` over the 100 val frames at batch 8: fp32 (TF32 off) against
+    ``ref_path`` (``pointpillar_eval_jax_ref.npz``,
+    :func:`check_eval_parity`), recall above 0; bf16 ms per frame with
+    ``per_batch`` launches (one canvas) and ``nms_per_batch`` fused-NMS
+    launches a batch (one); then ``tools/test.py --ckpt`` on ``train /
+    kitti``'s checkpoint."""
     import torch
 
     from de6d_tpu_torch.tools import test as test_cli
     from de6d_tpu_torch.train.eval_utils import eval_one_epoch
 
-    code = check_eval_code()
-    ds, loader = kitti_loader(False, EVAL_BATCH, 4)
+    code = check_eval_code(ref_path, cfg_path, tag)
+    ds, loader = kitti_loader(False, EVAL_BATCH, 4, cfg_path)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model, mc, _ = build_model("float32", "cuda")
+    model, mc, _ = build_model("float32", "cuda", cfg_path, params)
     ret32, annos = eval_one_epoch(model, loader, ds, mc, ds.class_names)
-    parity = check_eval_parity(ret32, annos)
+    parity = check_eval_parity(ret32, annos, ref_path=ref_path,
+                               cfg_path=cfg_path, tag=tag)
     if not ret32["recall/recalled_0.3"] > 0:
-        fail(f"eval / kitti: recall {ret32['recall_counts']}")
+        fail(f"{tag}: recall {ret32['recall_counts']}")
     del model
-    model, mc, _ = build_model("bfloat16", "cuda")
+    model, mc, _ = build_model("bfloat16", "cuda", cfg_path, params)
     eval_one_epoch(model, loader, ds, mc, ds.class_names)  # warm
     reset_launches(kernels)
     t0 = time.perf_counter()
@@ -1839,20 +2002,24 @@ def phase_eval_kitti(report, kernels, ckpt):
     launches = read_launches(kernels)
     n = len(loader)
     loader.close()
-    want = {k: n if k in ("canvas", "nms") else 0 for k in kernels}
-    if launches != want:
-        fail(f"eval / kitti: launches {launches}, expected {want}")
+    want = {k: n * dict(per_batch).get(k, 0) for k in kernels}
+    want["nms"] = launches["nms"]
+    lo, hi = nms_per_batch
+    if launches != want or not lo * n <= launches["nms"] <= hi * n:
+        fail(f"{tag}: launches {launches} in {n} batches, expected "
+             f"{dict(per_batch)} and {lo}-{hi} fused NMS a batch")
     del model
-    argv = ["--cfg_file", str(CFG), "--ckpt", str(ckpt), "--extra_tag",
+    argv = ["--cfg_file", str(cfg_path), "--ckpt", str(ckpt), "--extra_tag",
             "chip_smoke", "--batch_size", str(EVAL_BATCH), "--workers", "4",
             "--allow-zero-recall", "--set", "DATA_CONFIG.DATA_PATH",
             str(KITTI_DIR)]
     t0 = time.perf_counter()
     ret_cli = test_cli.main(argv)
     cli_s = time.perf_counter() - t0
-    out_dir = ROOT / "output/kitti_models/pointpillar/chip_smoke/eval/single"
+    out_dir = (ROOT / "output/kitti_models" / Path(cfg_path).stem
+               / "chip_smoke/eval/single")
     if not (out_dir / "result.pkl").is_file():
-        fail("eval / kitti: tools/test.py wrote no result.pkl")
+        fail(f"{tag}: tools/test.py wrote no result.pkl")
 
     def ap_line(r):
         return {c: (round(r[f"{c}_3d/moderate"], 4),
@@ -1870,12 +2037,12 @@ def phase_eval_kitti(report, kernels, ckpt):
         "test_cli_s": cli_s,
         "test_cli": {k: v for k, v in ret_cli.items()},
     }
-    report["eval_kitti"] = out
-    print(f"eval / kitti: the port's KITTI eval on the JAX run's detections "
+    report[key] = out
+    print(f"{tag}: the port's KITTI eval on the JAX run's detections "
           f"gives its AP dict exactly (native matcher: "
           f"{code['native_matcher']}); fp32 (TF32 off) eval_one_epoch of "
           f"the trained weights over the 100 val frames at batch "
-          f"{EVAL_BATCH} matches pointpillar_eval_jax_ref.npz: "
+          f"{EVAL_BATCH} matches {Path(ref_path).name}: "
           f"{parity['counts']} detections, max |d box| "
           f"{parity['max_abs_box']:.3g}, |d score| "
           f"{parity['max_abs_score']:.3g} (tol {PARITY_TOL}), recall "
@@ -1885,7 +2052,7 @@ def phase_eval_kitti(report, kernels, ckpt):
           f"{out['bf16_ms_per_frame']:.3f} ms per frame over the epoch "
           f"(steady p50 {out['bf16_steady_ms_per_frame']:.3f}), launches "
           f"{launches} in {n} batches; tools/test.py --ckpt on the "
-          f"train / kitti checkpoint ran in {cli_s:.1f} s, recall "
+          f"train checkpoint ran in {cli_s:.1f} s, recall "
           f"{ret_cli['recall_counts']}", flush=True)
 
 
@@ -3805,8 +3972,8 @@ def second_stage_keys(out):
 @contextlib.contextmanager
 def recorded_sparse_calls():
     """Within the block every neighbour-table and sparse-conv call of
-    ``de6d_tpu_torch.ops.sparse`` is recorded with its inputs, in call
-    order, and then run as usual."""
+    ``de6d_tpu_torch.ops.sparse`` is recorded with its inputs (args,
+    kwargs), in call order, and then run as usual."""
     from de6d_tpu_torch.ops import sparse as sp
 
     calls = {"neighbor_table": [], "sparse_conv": []}
@@ -3816,9 +3983,9 @@ def recorded_sparse_calls():
         calls["neighbor_table"].append((args, kwargs))
         return orig[0](*args, **kwargs)
 
-    def conv(*args):
-        calls["sparse_conv"].append(args)
-        return orig[1](*args)
+    def conv(*args, **kwargs):
+        calls["sparse_conv"].append((args, kwargs))
+        return orig[1](*args, **kwargs)
 
     sp.neighbor_table, sp.sparse_conv = table, conv
     try:
@@ -4207,7 +4374,7 @@ def phase_second_kernels(report):
                            counts.clamp(max=CASCADE_K0))},
         float(nms_cfg["NMS_THRESH"]), int(nms_cfg["NMS_POST_MAXSIZE"])))
 
-    convs = dict(zip(SECOND_CONVS, calls["sparse_conv"]))
+    convs = dict(zip(SECOND_CONVS, (a for a, _ in calls["sparse_conv"])))
     f3, i3, h3, w3, v3 = convs["subm_s3a"]
 
     def weights(k, cin, cout):
@@ -4396,6 +4563,519 @@ def check_second_parity(out, post, ref, post_cfg, tol=PARITY_TOL):
     return {"counts": got["pred_count"].tolist(), "stage_sites": stages,
             "candidates_live": live.tolist(),
             "candidates_swapped": swapped, "max_abs_diff": diffs}
+
+
+# ---------------------------------------------------------------------
+# SECOND training: the sparse-conv backward, parity, train_model,
+# tools/train.py, the eval
+# ---------------------------------------------------------------------
+
+SECOND_TRAIN_REF = ROOT / "de6d_tpu_torch/testdata/second_train_jax_ref.npz"
+SECOND_EVAL_REF = ROOT / "de6d_tpu_torch/testdata/second_eval_jax_ref.npz"
+# a SECOND train step's hand-kernel launches: a table for each stage's
+# submanifold layers and for each strided layer; 12 forward convs; the
+# data gradient of every conv but conv_input (MeanVFE's output needs
+# none), by the forward kernel; 12 weight gradients; a transposed table
+# for each strided layer's data gradient
+SECOND_TRAIN_LAUNCHES = {"neighbor_table": 8, "sparse_conv": 12,
+                         "sparse_conv_dgrad": 11, "sparse_conv_wgrad": 12,
+                         "sparse_conv_transpose": 11}
+# the gradients on the card against their plain versions on the same
+# inputs, relative to each result's largest |entry|: fp32 sums of up to
+# 27 x 64 (data) or 10^5 (weights) products in another order; bf16
+# results are one rounding of an fp32 sum (CONV_TOL)
+GRAD_TOL = {"float32": 1e-5, "bfloat16": CONV_TOL["bfloat16"]}
+# How far an fp32 evaluation of the fixture's full-width SECOND step lies
+# from a float64 evaluation of the same step (the port's, every layer in
+# float64), the larger of the JAX package's and the port's on the CPU
+# (tests/test_torch_second_train.py::test_full_width_gradients_against_
+# float64), rounded up: gradients 9.61e-3 of a leaf's largest |entry|
+# (JAX 9.60e-3 over the fixture's stored entries, the port 1.01e-3),
+# loss terms 7.60e-6 relative (JAX 7.59e-6: the focal loss's fp32 sum over
+# 4 x 211,200 anchors; the port 1.41e-7), the gradient norm 9.57e-5
+# relative (JAX 9.56e-5; the port 1.30e-6).
+SECOND_TRAIN_F64 = {"grad": 9.61e-3, "loss": 7.60e-6, "grad_norm": 9.57e-5}
+# Tolerances of the card's fp32 step against the JAX fp32 step: each fp32
+# evaluation lies within the distance above of the float64 one (the phase
+# checks the card's own distance), so the two lie within twice that of
+# each other. BatchNorm statistics at 2e-4 relative + 1e-5 and regression
+# targets at 1e-5, as in :data:`TRAIN_TOL`; the losses of 3 Adam steps at
+# 1e-4 relative and the parameters after them within the learning rates
+# summed, as there.
+SECOND_TRAIN_TOL = {**{k: 2 * v for k, v in SECOND_TRAIN_F64.items()},
+                    "stats_rtol": 2e-4, "stats_atol": 1e-5,
+                    "reg_targets": 1e-5, "losses": 1e-4}
+
+
+def second_train_batch(dev):
+    """The fixture's batch: the JAX loader's first batch of 4 on
+    ``data/kitti``'s train split (``second.yaml``, one worker)."""
+    import numpy as np
+    import torch
+
+    with np.load(SECOND_TRAIN_REF) as ref:
+        return {k: torch.from_numpy(ref[k]).to(dev)
+                for k in ("points", "points_mask", "gt_boxes")}
+
+
+def second_opt_cfg():
+    from de6d_tpu_torch.config import cfg_from_yaml_file
+
+    return dict(cfg_from_yaml_file(SECOND_CFG).OPTIMIZATION)
+
+
+@contextlib.contextmanager
+def plain_sparse_conv():
+    """Within the block the sparse convs of ``de6d_tpu_torch.ops.sparse``
+    run their plain version under torch's autograd on any device: the
+    float64 reference step on the card, whose kernels take fp32 and bf16
+    only."""
+    from de6d_tpu_torch.ops import sparse as sp
+    from de6d_tpu_torch.ops.kernels.sparse_conv import sparse_conv_plain
+
+    orig = sp.sparse_conv
+
+    def plain(features, idx, hit, weights, valid):
+        return sparse_conv_plain(features, idx, hit, weights, valid)
+
+    sp.sparse_conv = plain
+    try:
+        yield
+    finally:
+        sp.sparse_conv = orig
+
+
+def second_model_f64(dev):
+    """SECOND with the trained weights, every layer computing in float64
+    (the anchors and the assigner's thresholds stay fp32, as the targets
+    read them)."""
+    import torch
+
+    model = build_model("float32", dev, SECOND_CFG, SECOND_PARAMS)[0]
+    model.double()
+    for mod in model.modules():
+        if isinstance(getattr(mod, "dtype", None), torch.dtype):
+            mod.dtype = torch.float64
+    head = model.dense_head
+    for name in ("anchors", "matched_thr", "unmatched_thr"):
+        setattr(head, name, getattr(head, name).float())
+    return model
+
+
+def second_gradients(model, batch):
+    """One train-mode forward and backward: (output, gradients as flat
+    float64 numpy per parameter, loss terms)."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    out = model(dict(batch))
+    loss, tb = model.get_training_loss(out)
+    loss.backward()
+    grads = {n: p.grad.detach().double().cpu().numpy().reshape(-1)
+             for n, p in model.named_parameters()}
+    return out, grads, {k: float(v.detach()) for k, v in tb.items()}
+
+
+def check_second_train_parity(dev, measure_f64=True, steps=3):
+    """SECOND's train step in fp32 from the trained weights on the
+    fixture's batch against the JAX step stored in
+    ``second_train_jax_ref.npz``: every stage's site keys identical;
+    labels identical; regression targets, the loss terms, the gradient
+    norm, every gradient (against its leaf's largest |entry|) and the
+    ``MaskedBatchNorm`` statistics after the step within
+    :data:`SECOND_TRAIN_TOL`; the losses of ``steps`` Adam steps and the
+    parameters after them; with ``measure_f64``, this device's own fp32
+    step no farther from its float64 step than :data:`SECOND_TRAIN_F64`
+    (the tolerances' premise). Returns a report; raises RuntimeError where
+    a check fails."""
+    import numpy as np
+
+    from de6d_tpu_torch.ops.sparse import INVALID
+    from de6d_tpu_torch.train import (
+        build_optimizer_and_schedule, create_train_state, make_train_step,
+    )
+
+    tol = SECOND_TRAIN_TOL
+    tag = "parity / train_second"
+    ref = dict(np.load(SECOND_TRAIN_REF))
+    batch = second_train_batch(dev)
+    model = build_model("float32", dev, SECOND_CFG, SECOND_PARAMS)[0]
+    opt, sched = build_optimizer_and_schedule(second_opt_cfg(), model, 1)
+    state = create_train_state(model, opt)
+    out, grads, metrics = second_gradients(model, batch)
+    metrics["grad_norm"] = float(opt.step())
+    state.step += 1
+    losses = [metrics["loss"]]
+    stats = {n: b.cpu().numpy().copy() for n, b in model.named_buffers()
+             if "running" in n}
+    for s, keys in enumerate(second_stage_keys(out)):
+        if not np.array_equal(keys.cpu().numpy(), ref[f"keys_{s + 1}"]):
+            raise RuntimeError(f"{tag}: stage {s + 1}'s site keys differ")
+    labels = out["box_cls_labels"].reshape(-1).cpu().numpy()
+    nz = np.flatnonzero(labels)
+    if not (np.array_equal(nz, ref["labels_idx"])
+            and np.array_equal(labels[nz], ref["labels_val"])):
+        raise RuntimeError(f"{tag}: labels differ ({nz.size} non-zero vs "
+                           f"{ref['labels_idx'].size})")
+    reg = out["box_reg_targets"].detach().reshape(-1, 7).cpu().numpy()[
+        ref["fg_idx"]]
+    d_reg = float(np.abs(reg - ref["reg_targets_fg"]).max(initial=0))
+    if d_reg > tol["reg_targets"]:
+        raise RuntimeError(f"{tag}: regression targets off by {d_reg}")
+    rel = {}
+    for k, v in metrics.items():
+        want = float(ref[f"metric/{k}"])
+        rel[k] = abs(v - want) / max(abs(want), 1e-12)
+        if rel[k] > tol["grad_norm" if k == "grad_norm" else "loss"]:
+            raise RuntimeError(f"{tag}: {k} {v} vs {want} ({rel[k]:.3g} "
+                               "relative)")
+    grad_err = 0.0
+    g32 = {n: g.astype(np.float32) for n, g in grads.items()}
+    for name, (err, scale) in leaf_report(ref, "grad", g32,
+                                          tol["grad"]).items():
+        e = float(err.max(initial=0)) / max(scale, 1e-30)
+        if e > tol["grad"]:
+            raise RuntimeError(f"{tag}: gradient {name} off by {e:.3g} of "
+                               f"its leaf's max {scale}")
+        grad_err = max(grad_err, e)
+    stat_err = 0.0
+    for name, b in stats.items():
+        want = ref[f"stats/{name}"]
+        if not np.allclose(b, want, rtol=tol["stats_rtol"],
+                           atol=tol["stats_atol"]):
+            raise RuntimeError(f"{tag}: {name} after the step off by "
+                               f"{np.abs(b - want).max()}")
+        stat_err = max(stat_err, float(np.abs(b - want).max()))
+    step = make_train_step(model, opt)
+    for _ in range(steps - 1):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    loss_rel = np.abs(np.asarray(losses) / ref["losses"] - 1)
+    if loss_rel.max() > tol["losses"]:
+        raise RuntimeError(f"{tag}: losses {losses} vs "
+                           f"{ref['losses'].tolist()}")
+    params = {n: p.detach().cpu().numpy().reshape(-1)
+              for n, p in model.named_parameters()}
+    lr_sum = sum(sched(k) for k in range(steps))
+    worst = 0.0
+    for name, (err, _) in leaf_report(ref, "params3", params).items():
+        if err.max(initial=0) > lr_sum:
+            raise RuntimeError(f"{tag}: parameters {name} after {steps} "
+                               f"steps off by {err.max()} (learning rates "
+                               f"summed {lr_sum})")
+        worst = max(worst, float(err.max(initial=0)))
+    f64 = None
+    if measure_f64:
+        # the bound's premise: this device's fp32 step lies no farther
+        # from the float64 step than the CPU runs did
+        fresh = build_model("float32", dev, SECOND_CFG, SECOND_PARAMS)[0]
+        _, g32_own, m32 = second_gradients(fresh, batch)
+        del fresh
+        with plain_sparse_conv():
+            _, g64, m64 = second_gradients(second_model_f64(dev), batch)
+        f64 = f64_distances(g32_own, m32, g64, m64)
+        for k, v in f64.items():
+            if v > SECOND_TRAIN_F64[k]:
+                raise RuntimeError(
+                    f"{tag}: the {k} of this device's fp32 step lies "
+                    f"{v:.3g} from the float64 step, more than the CPU "
+                    f"runs' {SECOND_TRAIN_F64[k]:.3g} the tolerance rests "
+                    "on")
+    return {"f64_distance": f64, "labels_nonzero": int(nz.size),
+            "positives": int((labels > 0).sum()),
+            "stage_sites": [int((k != INVALID).sum())
+                            for k in second_stage_keys(out)],
+            "max_reg_target_diff": d_reg, "metrics": metrics,
+            "metrics_rel_diff": rel, "losses": losses,
+            "losses_rel_diff": loss_rel.tolist(),
+            "max_grad_diff_of_leaf_max": grad_err,
+            "max_batch_stats_diff": stat_err, "params3_max_diff": worst,
+            "lr_sum": lr_sum}
+
+
+def phase_second_train_parity(report):
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        r = check_second_train_parity("cuda")
+    except RuntimeError as e:
+        fail(str(e))
+    report["second_train_parity"] = r
+    print(f"parity / train_second: fp32 (TF32 off) step on the fixture's "
+          f"batch matches the JAX step: stage keys identical (sites "
+          f"{r['stage_sites']}), {r['labels_nonzero']} labelled anchors "
+          f"({r['positives']} positive) identical, regression targets "
+          f"{r['max_reg_target_diff']:.3g}; loss terms and grad_norm within "
+          f"{max(r['metrics_rel_diff'].values()):.3g} relative (loss "
+          f"{r['metrics']['loss']:.6f}, grad_norm "
+          f"{r['metrics']['grad_norm']:.6f}), gradients within "
+          f"{r['max_grad_diff_of_leaf_max']:.3g} of their leaf's max, "
+          f"MaskedBatchNorm and BatchNorm statistics "
+          f"{r['max_batch_stats_diff']:.3g}; losses of 3 Adam steps "
+          f"{[round(x, 6) for x in r['losses']]} (within "
+          f"{max(r['losses_rel_diff']):.3g}), parameters after them within "
+          f"{r['params3_max_diff']:.3g} (learning rates summed "
+          f"{r['lr_sum']:.3g}); tolerances "
+          f"{ {k: SECOND_TRAIN_TOL[k] for k in SECOND_TRAIN_F64} }; this "
+          f"card's fp32 step from its float64 step: "
+          f"{ {k: float(f'{v:.3g}') for k, v in r['f64_distance'].items()} }",
+          flush=True)
+
+
+def rel_err(got, want):
+    """Largest |got - want| relative to want's largest |entry|; inf where
+    want is all zero and got is not."""
+    d = float((got.float() - want.float()).abs().max()) if want.numel() else 0
+    scale = float(want.float().abs().max()) if want.numel() else 0
+    return d / scale if scale > 0 else (0.0 if d == 0 else float("inf"))
+
+
+def check_sparse_conv_grad(cases):
+    """cases: {label: (features, idx, hit, weights, valid, grad_out)} →
+    a result per case: the data gradient (the forward kernel on the
+    table's transpose) and the weight gradient on the card, each within
+    :data:`GRAD_TOL` of its plain version's largest |entry|; the weight
+    gradient bit-equal over two runs; the transpose kernel equal to its
+    plain version everywhere and, on a submanifold table (offset K-1-k
+    the negation of offset k), to the table through the mirrored
+    offsets."""
+    import torch
+
+    from de6d_tpu_torch.ops.kernels import sparse_conv as sc
+
+    lines = {}
+    for label, (f, idx, hit, w, valid, dy) in cases.items():
+        v = f.shape[1]
+        tol = GRAD_TOL[str(f.dtype).split(".")[-1]]
+        dg = sc.sparse_conv_dgrad(dy, idx, hit, w, valid, v)
+        wg = sc.sparse_conv_wgrad(f, dy, idx, hit, valid)
+        wg2 = sc.sparse_conv_wgrad(f, dy, idx, hit, valid)
+        tr = sc.sparse_conv_transpose(idx, hit, valid, v)
+        tr_plain = sc.sparse_conv_transpose_plain(idx, hit, valid, v)
+        want = {"dgrad": sc.sparse_conv_dgrad_plain(dy, idx, hit, w, valid,
+                                                    v),
+                "wgrad": sc.sparse_conv_wgrad_plain(f, dy, idx, hit, valid)}
+        got = {"dgrad": dg, "wgrad": wg}
+        torch.cuda.synchronize()
+        err = {k: rel_err(got[k], want[k]) for k in got}
+        abs_err = {k: float((got[k].float() - want[k].float()).abs().max())
+                   for k in got}
+        for k, e in err.items():
+            if not e <= tol:
+                fail(f"kernels / sparse_conv_grad {label}: {k} differs from "
+                     f"the plain version by {e:.3g} of its max (tol {tol})")
+        if not torch.equal(wg, wg2):
+            fail(f"kernels / sparse_conv_grad {label}: two runs of the "
+                 "weight-gradient kernel differ")
+        if not all(torch.equal(a, b) for a, b in zip(tr, tr_plain)):
+            fail(f"kernels / sparse_conv_grad {label}: the transpose kernel "
+                 "differs from its plain version")
+        if label.startswith("subm") and not (
+                torch.equal(tr[1], hit.flip(-1) & valid[..., None])
+                and torch.equal(tr[0], torch.where(tr[1], idx.flip(-1), 0))):
+            fail(f"kernels / sparse_conv_grad {label}: the transpose of a "
+                 "submanifold table is not the table through the mirrored "
+                 "offsets")
+        lines[label] = {"max_rel_err": err, "max_abs_err": abs_err,
+                        "hits": int((hit & valid[..., None]).sum()),
+                        "shape": f"{str(f.dtype).split('.')[-1]} feats "
+                                 f"{tuple(f.shape)}, table "
+                                 f"{tuple(idx.shape)}, W {tuple(w.shape)}"}
+    return lines
+
+
+def time_sparse_conv_grad(layers):
+    """layers: {label: (features, idx, hit, weights, valid, grad_out)} of
+    the train step (fp32) → per layer and kernel (dgrad and the transpose
+    it runs on but for conv_input, wgrad): ms by events and in a CUDA
+    graph, the plain version's ms (autograd through ``sparse_conv_plain``:
+    the feature or the weight gradient), the bound from
+    :func:`sparse_conv.work_backward` / :func:`sparse_conv.work_transpose`.
+    """
+    import torch
+
+    from de6d_tpu_torch.ops.kernels import sparse_conv as sc
+
+    rows = {"dgrad": {}, "wgrad": {}, "transpose": {}}
+    for label, (f, idx, hit, w, valid, dy) in layers.items():
+        v = f.shape[1]
+        work = sc.work_backward(f, idx, hit, w, valid)
+        fp = f.clone().requires_grad_(True)
+        wp = w.clone().requires_grad_(True)
+        with torch.enable_grad():
+            out = sc.sparse_conv_plain(fp, idx, hit, wp, valid)
+        fns = {
+            "wgrad": (lambda: sc.sparse_conv_wgrad(f, dy, idx, hit, valid),
+                      lambda: torch.autograd.grad(out, wp, dy,
+                                                  retain_graph=True)),
+        }
+        if label != "subm_s1_in":
+            fns["dgrad"] = (
+                lambda: sc.sparse_conv_dgrad(dy, idx, hit, w, valid, v),
+                lambda: torch.autograd.grad(out, fp, dy, retain_graph=True))
+        for kind, (fn, plain) in fns.items():
+            nbytes, ops = work[kind]
+            t_ops, t_bytes = ops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+            rows[kind][label] = {
+                "ms": time_ms(fn, 10), "graph_ms": graph_ms(fn),
+                "plain_ms": time_ms(plain, 3),
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                "bytes": nbytes, "flops": ops}
+        if label != "subm_s1_in":
+            nbytes = sc.work_transpose(idx, hit, valid, v)
+            rows["transpose"][label] = {
+                "ms": time_ms(lambda: sc.sparse_conv_transpose(
+                    idx, hit, valid, v), 10),
+                "graph_ms": graph_ms(lambda: sc.sparse_conv_transpose(
+                    idx, hit, valid, v)),
+                "plain_ms": time_ms(lambda: sc.sparse_conv_transpose_plain(
+                    idx, hit, valid, v), 3),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "bytes": nbytes}
+        del out, fp, wp
+    return rows
+
+
+def recorded_second_train_convs(dev):
+    """The 12 convs of one fp32 train-mode forward of SECOND (trained
+    weights) on the fixture's batch, in call order, as (features, idx,
+    hit, weights, valid) with the tensors detached."""
+    import torch
+
+    model = build_model("float32", dev, SECOND_CFG, SECOND_PARAMS)[0]
+    model.train()
+    with torch.enable_grad(), recorded_sparse_calls() as calls:
+        out = model(dict(second_train_batch(dev)))
+    if len(calls["sparse_conv"]) != 12:
+        fail(f"kernels / sparse_conv_grad: {len(calls['sparse_conv'])} convs "
+             "in one forward, expected 12")
+    convs = {}
+    for label, (args, _) in zip(SECOND_CONVS, calls["sparse_conv"]):
+        convs[label] = tuple(a.detach() for a in args)
+    return convs
+
+
+def phase_sparse_conv_grad(report):
+    """``kernels / sparse_conv_grad``: the data gradient (the forward
+    kernel on the table's transpose), the weight-gradient
+    kernel and the transpose kernel against their plain versions on the
+    card at the 12 layers of a SECOND train step on the fixture's batch (B
+    = 4, a seeded cotangent), fp32 and bf16; the edge cases: a layer
+    without a hit, every row invalid, V = 1, a non-contiguous cotangent;
+    ms by events and in a CUDA graph, the plain versions' ms, the
+    bounds."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    convs = recorded_second_train_convs("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    layers = {}
+    for label, (f, idx, hit, w, valid) in convs.items():
+        dy = torch.randn((*idx.shape[:2], w.shape[2]), generator=gen,
+                         device="cuda")
+        layers[label] = (f, idx, hit, w, valid, dy)
+    cases = dict(layers)
+    cases.update({f"{k}_bf16": tuple(
+        a.bfloat16() if torch.is_tensor(a) and a.is_floating_point() else a
+        for a in c) for k, c in layers.items()})
+    f, idx, hit, w, valid, dy = layers["subm_s3a"]
+    rng = np.random.RandomState(4)
+    one = (torch.from_numpy(rng.randn(4, 1, 16).astype(np.float32)).cuda(),
+           torch.zeros((4, 1, 27), dtype=torch.int32, device="cuda"),
+           torch.zeros((4, 1, 27), dtype=torch.bool, device="cuda"),
+           torch.from_numpy(rng.randn(27, 16, 16).astype(np.float32)).cuda(),
+           torch.ones((4, 1), dtype=torch.bool, device="cuda"),
+           torch.from_numpy(rng.randn(4, 1, 16).astype(np.float32)).cuda())
+    one[2][:, :, 13] = True  # a site is its own neighbour at the centre
+    edges = {
+        "no_hit": (f, idx, torch.zeros_like(hit), w, valid, dy),
+        "all_invalid": (f, idx, hit, w, torch.zeros_like(valid), dy),
+        "v1": one,
+        "noncontiguous_dy": (f, idx, hit, w, valid, dy.transpose(
+            1, 2).contiguous().transpose(1, 2)),
+    }
+    cases.update(edges)
+    cases.update({f"{k}_bf16": tuple(
+        a.bfloat16() if torch.is_tensor(a) and a.is_floating_point() else a
+        for a in c) for k, c in edges.items()})
+    lines = check_sparse_conv_grad(cases)
+    rows = time_sparse_conv_grad(layers)
+    name = {"dgrad": "sparse_conv_dgrad", "wgrad": "sparse_conv_wgrad",
+            "transpose": "sparse_conv_transpose"}
+    note = {"dgrad": "csrc/sparse_conv.cu (the forward kernel on a "
+                     "transposed table)",
+            "wgrad": "csrc/sparse_conv.cu", "transpose": "csrc/sparse_conv.cu"}
+    for kind, per in rows.items():
+        # over the train step's layers (fp32, its dtype)
+        err = max((lines[k]["max_abs_err"][kind] for k in layers
+                   if kind in lines[k]["max_abs_err"]), default=0.0)
+        report[name[kind]] = {
+            "name": name[kind], "route": "cuda",
+            "source": "de6d_tpu_torch/" + note[kind].split(" ")[0],
+            # what JAX differentiates: the XLA gather-GEMM, no TPU kernel
+            "replaces": "de6d_tpu/ops/sparse.py:149",
+            "max_abs_err": 0.0 if kind == "transpose" else err,
+            **{k: sum(r[k] for r in per.values())
+               for k in ("ms", "graph_ms", "plain_ms", "bound_ms")},
+            "bound_by": "operations" if any(
+                r["bound_by"] == "operations" for r in per.values())
+            else "bytes",
+            "library_ms": None,
+            "layers": per, "note": note[kind],
+        }
+    report["sparse_conv_grad_cases"] = lines
+    d, w_, t = (report[name[k]] for k in ("dgrad", "wgrad", "transpose"))
+    print(f"kernels / sparse_conv_grad: {len(cases)} cases (the 12 train-"
+          f"step layers and the edge cases {sorted(edges)}, fp32 and bf16) "
+          f"within {GRAD_TOL} of the plain versions, the weight gradient "
+          f"bit-equal over two runs, the submanifold tables' transposes "
+          f"equal to their mirrored offsets; a train step's 11 data "
+          f"gradients "
+          f"{d['ms']:.4f} ms by events, {d['graph_ms']:.4f} in a graph "
+          f"(plain {d['plain_ms']:.3f}, bound {d['bound_ms']:.5f}); 12 "
+          f"weight gradients {w_['ms']:.4f} / {w_['graph_ms']:.4f} ms "
+          f"(plain {w_['plain_ms']:.3f}, bound {w_['bound_ms']:.5f}); 11 "
+          f"transposes {t['ms']:.4f} / {t['graph_ms']:.4f} ms (plain "
+          f"{t['plain_ms']:.3f}, bound {t['bound_ms']:.5f})", flush=True)
+    for kind, per in rows.items():
+        print(f"kernels / sparse_conv_grad {kind} by layer (ms, graph ms, "
+              f"bound ms): " + ", ".join(
+                  f"{k} {r['ms']:.4f}/{r['graph_ms']:.4f}/"
+                  f"{r['bound_ms']:.5f}" for k, r in per.items()),
+              flush=True)
+
+
+def phase_train_second(report, kernels, profile):
+    """``train / second``: :func:`measure_train` with ``second.yaml`` as
+    shipped (fp32, cuDNN's TF32 off as ``tools/train.py`` sets it) at
+    batch 4 from the trained weights over the fixture's frames: exactly
+    :data:`SECOND_TRAIN_LAUNCHES` a step and no other kernel launch."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(None, "cuda", SECOND_CFG, SECOND_PARAMS)[0]
+    out, rows = measure_train(
+        "train / second", model, second_train_batch("cuda"),
+        second_opt_cfg(), kernels, SECOND_TRAIN_LAUNCHES)
+    ours = {k: sum(us for name, us, _ in rows if k in name)
+            for k in ("neighbor_table_kernel", "sparse_conv_kernel",
+                      "sparse_conv_wgrad", "sparse_conv_transpose")}
+    out.update(compute_dtype="float32 (second.yaml; TF32 off)",
+               kernels_device_us_per_step=ours,
+               profile_top=[list(r) for r in rows[:25]])
+    report["train_second"] = out
+    print(train_line("train / second", out, "(fp32, second.yaml, TF32 "
+                     "off) at full width through train_model")
+          + "; hand-written "
+          f"kernels { {k: f'{us:.1f} us' for k, us in ours.items()}}",
+          flush=True)
+    for name, us, c in rows[:12 if profile else 6]:
+        print(f"train / second profile: {us:10.1f} us  x{c:6.1f}  "
+              f"{name[:90]}")
 
 
 # ---------------------------------------------------------------------
@@ -4787,7 +5467,11 @@ def main():
                     "matrix_fps": matrix_fps.matrix_fps,
                     "lookup": lookup.lookup,
                     "neighbor_table": lookup.neighbor_table,
-                    "sparse_conv": sparse_conv.sparse_conv}
+                    "sparse_conv": sparse_conv.sparse_conv,
+                    "sparse_conv_dgrad": sparse_conv.sparse_conv_dgrad,
+                    "sparse_conv_wgrad": sparse_conv.sparse_conv_wgrad,
+                    "sparse_conv_transpose":
+                        sparse_conv.sparse_conv_transpose}
     phase_train(report, every_kernel, profile)
     phase_pipeline(report)
     ckpt = phase_train_kitti(report, every_kernel)
@@ -4848,6 +5532,17 @@ def main():
         serve_s=2.0)
     del model
     phase_second_parity(report)
+    phase_sparse_conv_grad(report)
+    phase_second_train_parity(report)
+    phase_train_second(report, every_kernel, profile)
+    second_eval = (("neighbor_table", 8), ("sparse_conv", 12))
+    ckpt = phase_train_kitti(report, every_kernel, SECOND_CFG,
+                             "train / second_kitti", "train_second_kitti",
+                             tuple(SECOND_TRAIN_LAUNCHES.items()),
+                             second_eval)
+    phase_eval_kitti(report, every_kernel, ckpt, SECOND_CFG, SECOND_PARAMS,
+                     SECOND_EVAL_REF, "eval / second_kitti",
+                     "eval_second_kitti", second_eval, (1, 2))
 
     model, mc, nc = phase_pvrcnn_kernels(report)
     pts, mask = load_pvrcnn_scans()
@@ -4885,10 +5580,16 @@ def main():
                "det6d_train": report["train_det6d"]["launches"],
                "det6d_train_slopedkitti":
                    report["train_det6d_slopedkitti"]["launches"],
-               "det6d_eval_slopedkitti": report["eval_det6d"]["launches"]}
+               "det6d_eval_slopedkitti": report["eval_det6d"]["launches"],
+               "second_train": report["train_second"]["launches"],
+               "second_train_kitti":
+                   report["train_second_kitti"]["launches"],
+               "second_eval_kitti": report["eval_second_kitti"]["launches"]}
     kernels = []
     for key in ("canvas", "canvas_grad", "nms", "nms_mask", "fps",
-                "matrix_fps", "lookup", "neighbor_table", "sparse_conv"):
+                "matrix_fps", "lookup", "neighbor_table", "sparse_conv",
+                "sparse_conv_dgrad", "sparse_conv_wgrad",
+                "sparse_conv_transpose"):
         k = {f: report[key][f] for f in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}

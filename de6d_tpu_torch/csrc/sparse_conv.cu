@@ -670,6 +670,184 @@ cudaError_t launch_gather_piece(int piece, const Plan& p, const void* feat,
   }
 }
 
+
+// ---- backward: the weight gradient and the table transpose ----------------
+//
+// The data gradient is the forward kernel itself on a transposed table
+// (ops/kernels/sparse_conv.py:sparse_conv_dgrad). The weight gradient
+//
+//   dW[k] = sum over (b, q) with hit[b, q, k] and valid[b, q] of
+//           feat[b, idx[b, q, k]]^T (x) dy[b, q]          (Cin x Cout)
+//
+// has no TPU kernel behind it (JAX differentiates the XLA gather-GEMM); it
+// is the port's own, so that the convolution trains on the card. Bound:
+// bytes (the table once, the referenced feature rows, dy's valid rows,
+// dW written once) against 2 * Cin * Cout operations per live pair, which
+// on SECOND's layers is a few hundred MFLOP, far below the fp32 SIMT rate.
+// A simple design that is right, deterministic and without atomics:
+//   * one block per (Cin x Cout tile of 64 x 64, offset k, slice of rows);
+//     256 threads, each 4 x 4 fp32 accumulators (input channel ty + 16 i,
+//     output channel tx + 16 j: a warp reads two input and 16 consecutive
+//     output channels from shared memory, no bank conflicts);
+//   * the block scans its slice 256 candidate rows at a time, compacts the
+//     live ones (a ballot and a prefix over the 8 warps, in row order), and
+//     gathers 32 of them at a time into shared memory (feature rows by idx,
+//     dy rows), as fp32; the products are explicit __fmaf_rn in row order;
+//   * each block writes its partial sums; a second kernel adds the slices
+//     in slice order and rounds once to the features' dtype. Two runs give
+//     bit-equal gradients.
+// Tensor cores, TMA and wgmma are not used: later work.
+constexpr int kWgTile = 64;      // channels of a block's tile, each side
+constexpr int kWgThreads = 256;  // 16 x 16
+constexpr int kWgScan = 256;     // candidate rows scanned at once
+constexpr int kWgRows = 32;      // live rows staged at once
+constexpr int kWgPer = 4;        // accumulators a thread, each side
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void from_f32(float v, float* out) { *out = v; }
+__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) {
+  *out = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWgThreads)
+sparse_conv_wgrad_kernel(const T* __restrict__ feat, const T* __restrict__ dy,
+                         const int* __restrict__ idx,
+                         const uint8_t* __restrict__ hit,
+                         const uint8_t* __restrict__ valid,
+                         float* __restrict__ partial, int V, int Q, int K,
+                         int Cin, int Cout, int co_tiles, long long rows,
+                         long long rows_per_slice) {
+  __shared__ float xs[kWgRows][kWgTile];
+  __shared__ float ds[kWgRows][kWgTile];
+  __shared__ long long src_s[kWgScan];  // feature row (b * V + idx)
+  __shared__ long long dst_s[kWgScan];  // dy row (b * Q + q)
+  __shared__ int warp_n[kWgThreads / 32];
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int tx = tid % 16, ty = tid / 16;
+  const int ci0 = (blockIdx.x / co_tiles) * kWgTile;
+  const int co0 = (blockIdx.x % co_tiles) * kWgTile;
+  const int k = blockIdx.y;
+  const long long begin = blockIdx.z * rows_per_slice;
+  const long long end = begin + rows_per_slice < rows ? begin + rows_per_slice
+                                                      : rows;
+  float acc[kWgPer][kWgPer];
+#pragma unroll
+  for (int i = 0; i < kWgPer; ++i) {
+#pragma unroll
+    for (int j = 0; j < kWgPer; ++j) acc[i][j] = 0.0f;
+  }
+  for (long long base = begin; base < end; base += kWgScan) {
+    const long long r = base + tid;
+    bool live = false;
+    long long src = 0;
+    if (r < end && valid[r]) {
+      const long long e = r * K + k;
+      if (hit[e]) {
+        live = true;
+        src = (r / Q) * V + idx[e];
+      }
+    }
+    const unsigned ballot = __ballot_sync(kFull, live);
+    if (lane == 0) warp_n[warp] = __popc(ballot);
+    __syncthreads();
+    int offset = 0, n_live = 0;
+#pragma unroll
+    for (int w = 0; w < kWgThreads / 32; ++w) {
+      offset += w < warp ? warp_n[w] : 0;
+      n_live += warp_n[w];
+    }
+    if (live) {
+      const int at = offset + __popc(ballot & ((1u << lane) - 1u));
+      src_s[at] = src;
+      dst_s[at] = r;
+    }
+    __syncthreads();
+    for (int c0 = 0; c0 < n_live; c0 += kWgRows) {
+      const int n = n_live - c0 < kWgRows ? n_live - c0 : kWgRows;
+      for (int e = tid; e < kWgRows * kWgTile; e += kWgThreads) {
+        const int rr = e / kWgTile, c = e % kWgTile;
+        float x = 0.0f, d = 0.0f;
+        if (rr < n) {
+          if (ci0 + c < Cin) x = to_f32(feat[src_s[c0 + rr] * Cin + ci0 + c]);
+          if (co0 + c < Cout) d = to_f32(dy[dst_s[c0 + rr] * Cout + co0 + c]);
+        }
+        xs[rr][c] = x;
+        ds[rr][c] = d;
+      }
+      __syncthreads();
+      for (int rr = 0; rr < n; ++rr) {
+        float a[kWgPer], bv[kWgPer];
+#pragma unroll
+        for (int i = 0; i < kWgPer; ++i) a[i] = xs[rr][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < kWgPer; ++j) bv[j] = ds[rr][tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < kWgPer; ++i) {
+#pragma unroll
+          for (int j = 0; j < kWgPer; ++j) {
+            acc[i][j] = __fmaf_rn(a[i], bv[j], acc[i][j]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  float* out = partial + (static_cast<size_t>(blockIdx.z) * K + k) * Cin * Cout;
+#pragma unroll
+  for (int i = 0; i < kWgPer; ++i) {
+    const int ci = ci0 + ty + 16 * i;
+    if (ci >= Cin) continue;
+#pragma unroll
+    for (int j = 0; j < kWgPer; ++j) {
+      const int co = co0 + tx + 16 * j;
+      if (co < Cout) out[static_cast<size_t>(ci) * Cout + co] = acc[i][j];
+    }
+  }
+}
+
+// dW = the slices' partial sums added in slice order, rounded once
+template <typename T>
+__global__ void sparse_conv_wgrad_reduce(const float* __restrict__ partial,
+                                         T* __restrict__ dw, int slices,
+                                         int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.0f;
+  for (int t = 0; t < slices; ++t) {
+    s = __fadd_rn(s, partial[static_cast<size_t>(t) * n + i]);
+  }
+  from_f32(s, dw + i);
+}
+
+// The transpose of a strided layer's table: for each live pair (q, k),
+// tidx[b, idx[b, q, k], k] = q and thit there 1, and tvalid[b, v] = 1 for
+// every input row v that a live pair references. For a fixed k the map
+// q -> idx is injective (distinct outputs, one offset), so no two pairs
+// write one entry. One thread per (b, q, k); bytes-bound.
+__global__ void sparse_conv_transpose_kernel(
+    const int* __restrict__ idx, const uint8_t* __restrict__ hit,
+    const uint8_t* __restrict__ valid, int* __restrict__ tidx,
+    uint8_t* __restrict__ thit, uint8_t* __restrict__ tvalid, int V, int Q,
+    int K, long long total) {
+  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (e >= total) return;
+  const long long r = e / K;  // b * Q + q
+  if (!hit[e] || !valid[r]) return;
+  const int v = idx[e];
+  if (v < 0 || v >= V) return;
+  const long long row = (r / Q) * V + v;
+  const long long t = row * K + e % K;
+  tidx[t] = static_cast<int>(r % Q);
+  thit[t] = 1;
+  tvalid[row] = 1;
+}
+
 }  // namespace
 
 // The plan for (Cin, Cout, K) in dtype 0 (fp32) or 1 (bf16), or the forced
@@ -733,4 +911,79 @@ extern "C" int de6d_sparse_conv(const void* feat, const void* idx,
       : launch_gather_piece<false>(piece, p, feat, idx, hit, w, valid, out,
                                    B, V, Q, K, Cin, Cout, vec_w, s);
   return static_cast<int>(err);
+}
+
+// The weight gradient: feat (B, V, Cin), dy (B, Q, Cout) of the features'
+// dtype (0 fp32, 1 bf16), the forward's idx / hit (B, Q, K) and valid
+// (B, Q) -> dw (K, Cin, Cout) in that dtype, through `partial` (slices, K,
+// Cin, Cout) fp32 scratch: slice s takes rows [s * rows_per_slice, ...) of
+// the B * Q rows. Returns a cudaError_t.
+extern "C" int de6d_sparse_conv_wgrad(const void* feat, const void* dy,
+                                      const void* idx, const void* hit,
+                                      const void* valid, void* partial,
+                                      void* dw, int B, int V, int Q, int K,
+                                      int Cin, int Cout, int slices,
+                                      long long rows_per_slice, int dtype,
+                                      void* stream) {
+  const long long rows = static_cast<long long>(B) * Q;
+  if (B < 1 || V < 1 || Q < 1 || K < 1 || Cin < 1 || Cout < 1 ||
+      slices < 1 || slices > 65535 || K > 65535 || rows_per_slice < 1 ||
+      (slices - 1) * rows_per_slice >= rows || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int co_tiles = (Cout + kWgTile - 1) / kWgTile;
+  const dim3 grid(((Cin + kWgTile - 1) / kWgTile) * co_tiles, K, slices);
+  auto* part = static_cast<float*>(partial);
+  const int n = K * Cin * Cout;
+  const int blocks = (n + 255) / 256;
+  if (dtype == 0) {
+    sparse_conv_wgrad_kernel<float><<<grid, kWgThreads, 0, s>>>(
+        static_cast<const float*>(feat), static_cast<const float*>(dy),
+        static_cast<const int*>(idx), static_cast<const uint8_t*>(hit),
+        static_cast<const uint8_t*>(valid), part, V, Q, K, Cin, Cout,
+        co_tiles, rows, rows_per_slice);
+    sparse_conv_wgrad_reduce<float><<<blocks, 256, 0, s>>>(
+        part, static_cast<float*>(dw), slices, n);
+  } else {
+    sparse_conv_wgrad_kernel<__nv_bfloat16><<<grid, kWgThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(feat),
+        static_cast<const __nv_bfloat16*>(dy), static_cast<const int*>(idx),
+        static_cast<const uint8_t*>(hit), static_cast<const uint8_t*>(valid),
+        part, V, Q, K, Cin, Cout, co_tiles, rows, rows_per_slice);
+    sparse_conv_wgrad_reduce<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+        part, static_cast<__nv_bfloat16*>(dw), slices, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The transpose of the table idx / hit (B, Q, K) over the valid (B, Q)
+// rows onto V input rows: tidx (B, V, K) int32 (0 where no pair), thit
+// (B, V, K) and tvalid (B, V) uint8. Returns a cudaError_t.
+extern "C" int de6d_sparse_conv_transpose(const void* idx, const void* hit,
+                                          const void* valid, void* tidx,
+                                          void* thit, void* tvalid, int B,
+                                          int V, int Q, int K, void* stream) {
+  if (B < 0 || V < 1 || Q < 0 || K < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const size_t entries = static_cast<size_t>(B) * V * K;
+  cudaError_t err = cudaMemsetAsync(tidx, 0, entries * sizeof(int), s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(thit, 0, entries, s);
+  if (err == cudaSuccess) {
+    err = cudaMemsetAsync(tvalid, 0, static_cast<size_t>(B) * V, s);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = static_cast<long long>(B) * Q * K;
+  if (total == 0) return 0;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  sparse_conv_transpose_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                                 s>>>(
+      static_cast<const int*>(idx), static_cast<const uint8_t*>(hit),
+      static_cast<const uint8_t*>(valid), static_cast<int*>(tidx),
+      static_cast<uint8_t*>(thit), static_cast<uint8_t*>(tvalid), V, Q, K,
+      total);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Sparse voxel backbones, inference only (counterpart of
+"""Sparse voxel backbones (counterpart of
 ``de6d_tpu/models/backbones_3d/spconv_backbone.py``): ``VoxelBackBone8x``
 (submanifold and strided sparse convs, 8x downsampling, a final (3, 1, 1)
 z-strided conv to ``encoded_spconv_tensor``) and ``VoxelResBackBone8x``
@@ -7,7 +7,10 @@ z-strided conv to ``encoded_spconv_tensor``) and ``VoxelResBackBone8x``
 Every sample keeps a static-capacity site list sorted by key; each stage
 builds its submanifold neighbour table once (one lookup launch) and every
 conv layer is one launch of the gather-GEMM kernel for the whole batch.
-Module and parameter names follow the flax modules so that
+In train mode (``self.training``) the convolutions backpropagate (their
+data gradient on the same kernel, their weight gradient on its own) and
+``MaskedBatchNorm`` takes the batch's statistics over the sites. Module
+and parameter names follow the flax modules so that
 ``weights.flax_to_torch`` carries the trained variables across.
 """
 
@@ -23,15 +26,33 @@ from ..model_utils.layers import BatchNorm, normal
 
 
 class MaskedBatchNorm(BatchNorm):
-    """flax ``MaskedBatchNorm`` in eval mode: :class:`BatchNorm`'s
-    parameters and statistics, zero outside ``mask``, cast back to the
-    input's dtype. It multiplies in the flax module's order, ``(x - mean)
-    * rsqrt(var + eps)`` and then ``* scale + bias``, which rounds
-    otherwise than ``BatchNorm``'s ``rsqrt(var + eps) * scale``."""
+    """flax ``MaskedBatchNorm``: :class:`BatchNorm`'s parameters and
+    statistics, zero outside ``mask``, cast back to the input's dtype. In
+    train mode (``self.training``) the statistics are the batch's over
+    the masked rows only (every sample), in fp32: ``cnt = max(Σ mask,
+    1)``, the mean, and the two-pass variance ``Σ mask (x - mean)² / cnt``
+    (not :class:`BatchNorm`'s ``E[x²] - E[x]²``); the running statistics
+    move to ``0.99 · running + 0.01 · batch``. It multiplies in the flax
+    module's order, ``(x - mean) * rsqrt(var + eps)`` and then ``* scale
+    + bias``, which rounds otherwise than ``BatchNorm``'s ``rsqrt(var +
+    eps) * scale``."""
 
     def forward(self, x, mask):
-        y = (x.float() - self.running_mean) * torch.rsqrt(
-            self.running_var + self.eps)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            w = mask.to(xf.dtype)[..., None]
+            axes = tuple(range(x.ndim - 1))
+            cnt = torch.clamp(w.sum(), min=1.0)
+            mean = (xf * w).sum(dim=axes) / cnt
+            var = (w * (xf - mean) ** 2).sum(dim=axes) / cnt
+            with torch.no_grad():
+                m = self.MOMENTUM
+                self.running_mean.copy_(
+                    m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight + self.bias
         return torch.where(mask[..., None], y, 0.0).to(x.dtype)
 
@@ -68,8 +89,8 @@ class SubMConvLayer(_SparseConv):
 
     def forward(self, feats, keys, table):
         mask = keys != sparse.INVALID
-        out = sparse.sparse_conv(feats, table[0], table[1],
-                                 self.weight.to(feats.dtype), mask)
+        out = sparse.subm_conv_table(feats, table[0], table[1],
+                                     self.weight.to(feats.dtype), mask)
         out = self.MaskedBatchNorm_0(out, mask)
         return torch.relu(out) if self.use_relu else out
 

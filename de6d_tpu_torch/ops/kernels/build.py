@@ -25,8 +25,6 @@ import threading
 import time
 from pathlib import Path
 
-import torch
-
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
@@ -165,6 +163,15 @@ def lib() -> ctypes.CDLL:
             handle.de6d_sparse_conv_plan.restype = i
             handle.de6d_sparse_conv_last_variant.argtypes = []
             handle.de6d_sparse_conv_last_variant.restype = i
+            handle.de6d_sparse_conv_wgrad.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_longlong,
+                i, p,
+            ]
+            handle.de6d_sparse_conv_wgrad.restype = i
+            handle.de6d_sparse_conv_transpose.argtypes = [
+                p, p, p, p, p, p, i, i, i, i, p,
+            ]
+            handle.de6d_sparse_conv_transpose.restype = i
             _lib = handle
     return _lib
 
@@ -174,13 +181,3 @@ def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
-
-def refuse_grad(what: str, *tensors) -> None:
-    """Raise where autograd would record a kernel launch: the kernels write
-    through ctypes into ``torch.empty`` buffers, so their outputs have no
-    ``grad_fn`` and every gradient below them would be lost silently."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{what}: the CUDA kernel has no backward yet (it comes with "
-            "that model's training slice); call it under torch.no_grad() or "
-            "pass inputs that do not require grad")

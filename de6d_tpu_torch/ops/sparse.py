@@ -6,9 +6,11 @@ capacity V: ``keys`` are z-major linear coordinates sorted ascending per
 sample, ``INVALID`` (int32 max) for empty slots. Neighbour lookup is a
 search in the sorted table (``ops/kernels/lookup.py``); every
 convolution, submanifold or strided, is a gather-GEMM from a neighbour
-table (``ops/kernels/sparse_conv.py``); both tables come from one
-neighbour-table launch that generates the neighbour keys itself. Every
-function returns what the JAX function returns, vmapped over B.
+table (``ops/kernels/sparse_conv.py``, differentiable in the features
+and the weights); both tables come from one neighbour-table launch that
+generates the neighbour keys itself. Every function returns what the JAX
+function returns, vmapped over B, and its gradient what ``jax.grad``
+gives.
 """
 
 from __future__ import annotations
@@ -41,10 +43,11 @@ def subm_neighbor_table(keys_sorted, grid, kernel=(3, 3, 3), valid=None):
     return neighbor_table(keys_sorted, ask, grid, grid, kernel)
 
 
-# The JAX package's name for the table-driven (submanifold) conv:
-# features (B, V, Cin), table (B, Q, K), weights (K, Cin, Cout), valid
-# (B, Q) → (B, Q, Cout).
-subm_conv_table = sparse_conv
+def subm_conv_table(features, table_idx, table_hit, weights, valid):
+    """Submanifold conv from a stage's table: features (B, V, Cin), the
+    :func:`subm_neighbor_table` of the sites (B, V, K), weights (K, Cin,
+    Cout), valid (B, V) = the sites → (B, V, Cout)."""
+    return sparse_conv(features, table_idx, table_hit, weights, valid)
 
 
 def downsample_coords(keys_sorted, grid, stride, padding, max_out: int,

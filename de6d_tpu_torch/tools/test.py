@@ -8,6 +8,7 @@ raises unless ``--device cpu`` is given):
 
   python -m de6d_tpu_torch.tools.test --cfg_file configs/kitti_models/pointpillar.yaml --ckpt <checkpoint>
   python -m de6d_tpu_torch.tools.test --cfg_file configs/slopedkitti_models/det6d_car.yaml --ckpt <checkpoint>
+  python -m de6d_tpu_torch.tools.test --cfg_file configs/kitti_models/second.yaml --ckpt <checkpoint>
   python -m de6d_tpu_torch.tools.test --cfg_file ... --eval_all --extra_tag <tag>
 
 A run that recalls no ground-truth box at any threshold exits with an
@@ -21,6 +22,8 @@ import datetime
 import re
 import time
 from pathlib import Path
+
+import torch
 
 from .. import resolve_device
 from ..config import cfg_from_list, cfg_from_yaml_file
@@ -110,6 +113,7 @@ def main(argv=None):
     found nothing to evaluate)."""
     args, cfg = parse_config(argv)
     resolve_device(args.device)
+    torch.backends.cudnn.allow_tf32 = False  # fp32 is fp32, as in training
     output_dir = (
         Path("output") / cfg.EXP_GROUP_PATH / cfg.TAG / args.extra_tag
     )

@@ -7,11 +7,14 @@ raises unless ``--device cpu`` is given):
 
   python -m de6d_tpu_torch.tools.train --cfg_file configs/kitti_models/pointpillar.yaml
   python -m de6d_tpu_torch.tools.train --cfg_file configs/slopedkitti_models/det6d_car.yaml --epochs 1
+  python -m de6d_tpu_torch.tools.train --cfg_file configs/kitti_models/second.yaml --epochs 1
   python -m de6d_tpu_torch.tools.train --cfg_file ... --epochs 1 --device cpu
 
-Any detector with a ported loss trains (PointPillars, Det6D, 3DSSD); the
-dataset comes from the config's ``DATA_CONFIG.DATASET`` (KITTI,
-SlopedKITTI). Nothing here depends on the configuration.
+Any detector with a ported loss trains (PointPillars, Det6D, 3DSSD,
+SECOND); the dataset comes from the config's ``DATA_CONFIG.DATASET``
+(KITTI, SlopedKITTI). Nothing here depends on the configuration.
+cuDNN's convolutions run in fp32 where the config computes in fp32
+(PyTorch's default TF32 is turned off).
 
 The loaders run in their own process, away from the
 GIL of the process that dispatches the training step. Outputs go to
@@ -109,6 +112,10 @@ def prepare(argv=None) -> Run:
     ``--pretrained_model``."""
     args, cfg = parse_config(argv)
     device = resolve_device(args.device)
+    # PyTorch runs cuDNN's fp32 convolutions in TF32 by default; a config
+    # states fp32 or bf16, and a TF32 step of second.yaml lies farther from
+    # the JAX package's fp32 step than an fp32 step does
+    torch.backends.cudnn.allow_tf32 = False
     generator = torch.Generator()
     if args.fix_random_seed:
         set_random_seed(666)

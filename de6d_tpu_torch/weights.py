@@ -18,6 +18,7 @@ Layout mapping, by the layer's ``FLAX_KIND``:
   * BatchNorm: params scale/bias and batch_stats mean/var → weight, bias,
     running_mean, running_var.
 
+``torch_to_flax`` goes the other way.
 ``flax_params_to_torch`` maps a params-only flat dict (``params/...``
 keys: a flax gradient tree, or Adam's ``mu`` / ``nu``, which have the
 params' shape) by the same converters onto the model's parameters (BN
@@ -137,6 +138,38 @@ def flax_train_state_to_torch(model: torch.nn.Module, params: dict,
              "mu": flax_params_to_torch(mu, model),
              "nu": flax_params_to_torch(nu, model)}
     return state, named
+
+
+# the inverse of each kind's kernel converter in _flax_entries
+_KERNEL_TO_FLAX = {
+    "SparseConv": lambda t: t,
+    "Dense": lambda t: t.T,
+    "Conv": lambda t: t.transpose(2, 3, 1, 0),
+    "ConvTranspose": lambda t: t.transpose(2, 3, 0, 1)[::-1, ::-1],
+}
+
+
+def torch_to_flax(model: torch.nn.Module, params_only: bool = False) -> dict:
+    """The other way: ``model``'s parameters and BatchNorm statistics (with
+    ``params_only``, its parameters) as the flat flax dict that
+    :func:`flax_to_torch` reads (float32 numpy), so that a port state
+    goes back into the JAX package's ``params`` / ``batch_stats``."""
+    state = (dict(model.named_parameters()) if params_only
+             else model.state_dict())
+    flat = {}
+    for name, module in model.named_modules():
+        kind = getattr(module, "FLAX_KIND", None)
+        if kind is None:
+            continue
+        for attr, key, conv in _flax_entries(kind, flax_path(name)):
+            tname = f"{name}.{attr}" if name else attr
+            if tname not in state:
+                continue
+            a = state[tname].detach().float().cpu().numpy()
+            if conv is not None:
+                a = _KERNEL_TO_FLAX[kind](a)
+            flat[key] = np.ascontiguousarray(a, np.float32)
+    return flat
 
 
 def load_into(model: torch.nn.Module, flat: dict) -> torch.nn.Module:

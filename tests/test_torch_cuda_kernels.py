@@ -567,8 +567,10 @@ def test_nms_mask_kernel_on_adversarial_boxes(cuda_device, thresh):  # noqa: F81
 def test_grad_guard_on_the_card(cuda_device):  # noqa: F811
     """scatter_canvas on a requires-grad input returns a tensor with a
     grad_fn whose gradient (the backward kernel) equals the CPU plain
-    version's bit for bit; sparse_conv still raises on a requires-grad
-    input under enable_grad and runs under no_grad."""
+    version's bit for bit; sparse_conv under enable_grad has a grad_fn
+    and its gradients come from its backward kernels (the data gradient
+    by the forward kernel, the weight gradient by its own), within 1e-5
+    of the CPU plain autograd's."""
     feats, lins = canvas_inputs(np.random.RandomState(1), 1, 32, 48, (20,))
     ct = torch.from_numpy(np.random.RandomState(2).standard_normal(
         (1, 6, 8, 64)).astype(np.float32))
@@ -586,16 +588,102 @@ def test_grad_guard_on_the_card(cuda_device):  # noqa: F811
     assert torch.equal(out.detach().cpu(), canvas.scatter_canvas_plain(
         cpu.detach(), torch.from_numpy(lins), 6, 8))
     assert torch.equal(f.grad.cpu(), cpu.grad)
-    args = list(conv_inputs(np.random.RandomState(2), 2, 40, 30, 27, 8, 16,
-                            torch.float32, cuda_device))
-    for i in (0, 3):  # features, weights
-        grad_args = [a.requires_grad_(j == i) if j in (0, 3) else a
-                     for j, a in enumerate(args)]
-        with torch.enable_grad(), pytest.raises(RuntimeError,
-                                                match="backward"):
-            sparse_conv.sparse_conv(*grad_args)
-        with torch.no_grad():
-            sparse_conv.sparse_conv(*grad_args)
+
+    keys = torch.from_numpy(sparse_site_keys(
+        np.random.RandomState(3), (9, 14, 12), 300, (300, 200)))
+    feats = torch.from_numpy(np.random.RandomState(4).standard_normal(
+        (2, 300, 8)).astype(np.float32))
+    w = torch.from_numpy(np.random.RandomState(5).standard_normal(
+        (27, 8, 16)).astype(np.float32) * 0.2)
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        k = keys.to(dev)
+        fd = feats.to(dev).clone().requires_grad_(True)
+        wd = w.to(dev).clone().requires_grad_(True)
+        before = (sparse_conv.sparse_conv_dgrad.launches,
+                  sparse_conv.sparse_conv_wgrad.launches)
+        with torch.enable_grad():
+            y = sparse.subm_conv_table(fd, *sparse.subm_neighbor_table(
+                k, (9, 14, 12)), wd, k != sparse.INVALID)
+            assert y.grad_fn is not None
+            y.square().sum().backward()
+        grads.append((fd.grad.cpu(), wd.grad.cpu()))
+        launched = (sparse_conv.sparse_conv_dgrad.launches - before[0],
+                    sparse_conv.sparse_conv_wgrad.launches - before[1])
+        assert launched == ((1, 1) if dev.type == "cuda" else (0, 0))
+    for got, want in zip(*grads):
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
+def conv_grad_inputs(rng, strided, dtype, device, cin=16, cout=32):
+    """A SECOND-like layer on sites of a (21, 80, 70) grid: (features,
+    idx, hit, weights, valid, grad_out, V)."""
+    grid = (21, 80, 70)
+    keys = torch.from_numpy(sparse_site_keys(rng, grid, 8000,
+                                             (8000, 5000, 0)))
+    v = keys.shape[1]
+    if strided:
+        out_keys, out_grid = sparse.downsample_coords(keys, grid, (2, 2, 2),
+                                                      (1, 1, 1), 4000)
+        idx, hit = sparse.strided_neighbor_table(
+            keys, out_keys, grid, out_grid, (3, 3, 3), (2, 2, 2), (1, 1, 1))
+        valid = out_keys != sparse.INVALID
+    else:
+        idx, hit = sparse.subm_neighbor_table(keys, grid)
+        valid = keys != sparse.INVALID
+    q = idx.shape[1]
+    f = torch.from_numpy(rng.standard_normal((3, v, cin)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((27, cin, cout))
+                          / np.sqrt(27 * cin)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((3, q, cout)).astype(
+        np.float32))
+    return (f.to(device, dtype), idx.to(device), hit.to(device),
+            w.to(device, dtype), valid.to(device), dy.to(device, dtype), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [False, True], ids=["subm", "strided"])
+def test_sparse_conv_backward_kernels_equal_plain(cuda_device, dtype,  # noqa: F811
+                                                  strided):
+    """The data gradient (the forward kernel on the table's transpose),
+    the weight-gradient kernel (bit-equal over two runs) and the transpose
+    kernel (equal everywhere; on a submanifold table, the table through
+    the mirrored offsets) against their plain versions, each launch
+    counted once; fp32 within
+    1e-5 and bf16 within 1e-2 of each result's largest |entry|."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f, idx, hit, w, valid, dy, v = conv_grad_inputs(
+        np.random.RandomState(7), strided, dtype, cuda_device)
+    counts = (sparse_conv.sparse_conv_dgrad.launches,
+              sparse_conv.sparse_conv_wgrad.launches,
+              sparse_conv.sparse_conv_transpose.launches)
+    dg = sparse_conv.sparse_conv_dgrad(dy, idx, hit, w, valid, v)
+    wg = sparse_conv.sparse_conv_wgrad(f, dy, idx, hit, valid)
+    wg2 = sparse_conv.sparse_conv_wgrad(f, dy, idx, hit, valid)
+    torch.cuda.synchronize()
+    assert (sparse_conv.sparse_conv_dgrad.launches - counts[0],
+            sparse_conv.sparse_conv_wgrad.launches - counts[1],
+            sparse_conv.sparse_conv_transpose.launches - counts[2]) == (
+        1, 2, 1)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, want in (
+            (dg, sparse_conv.sparse_conv_dgrad_plain(dy, idx, hit, w, valid,
+                                                     v)),
+            (wg, sparse_conv.sparse_conv_wgrad_plain(f, dy, idx, hit,
+                                                     valid))):
+        assert got.dtype == dtype and got.shape == want.shape
+        d = float((got.float() - want.float()).abs().max())
+        assert d <= tol * float(want.float().abs().max()), d
+    assert torch.equal(wg, wg2)
+    assert not dg[2].any()  # the empty sample
+    tr = sparse_conv.sparse_conv_transpose(idx, hit, valid, v)
+    for a, b in zip(tr, sparse_conv.sparse_conv_transpose_plain(idx, hit,
+                                                                valid, v)):
+        assert torch.equal(a, b)
+    if not strided:
+        assert torch.equal(tr[1], hit.flip(-1))
 
 
 @pytest.mark.cuda

@@ -1,9 +1,8 @@
-"""The kernel wrappers never cut autograd: ``build.refuse_grad`` (the
-sparse conv's CUDA path, whose backward comes with SECOND's training)
-and the gradients of the two kernels whose JAX counterparts are
-differentiable (the canvas scatter's custom VJP, the sparse conv's plain
-XLA), which must equal the JAX package's. The card side (the canvas's
-CUDA backward, the sparse conv raising under ``enable_grad``) is in
+"""The kernel wrappers never cut autograd: the gradients of the two
+kernels whose JAX counterparts are differentiable (the canvas scatter's
+custom VJP, the sparse conv's plain XLA, submanifold and strided) must
+equal the JAX package's, through a ``grad_fn`` on the wrapper's output.
+The card side (the canvas's and the sparse conv's CUDA backward) is in
 ``tests/test_torch_cuda_kernels.py``."""
 
 import jax
@@ -14,30 +13,9 @@ import torch
 
 from de6d_tpu.ops import sparse as jax_sparse
 from de6d_tpu.ops.pallas.canvas import scatter_canvas as jax_scatter_canvas
-from de6d_tpu_torch.ops.kernels import build, canvas, sparse_conv
-from torch_fixtures import canvas_inputs
-
-
-@pytest.mark.parametrize("grad_enabled,requires,raises", [
-    (True, (True,), True),
-    (True, (False, True), True),
-    (True, (False, False), False),
-    (False, (True,), False),
-    (False, (True, True), False),
-])
-def test_refuse_grad(grad_enabled, requires, raises):
-    tensors = [torch.zeros(2, requires_grad=r) for r in requires]
-    with torch.set_grad_enabled(grad_enabled):
-        if raises:
-            with pytest.raises(RuntimeError, match="no backward"):
-                build.refuse_grad("kernel_x", *tensors)
-        else:
-            build.refuse_grad("kernel_x", *tensors)
-
-
-def test_refuse_grad_names_the_kernel():
-    with pytest.raises(RuntimeError, match="^sparse_conv: .*training"):
-        build.refuse_grad("sparse_conv", torch.ones(1, requires_grad=True))
+from de6d_tpu_torch.ops import sparse
+from de6d_tpu_torch.ops.kernels import canvas, sparse_conv
+from torch_fixtures import canvas_inputs, sparse_site_keys
 
 
 def test_plain_canvas_backward_equals_jax_vjp():
@@ -84,7 +62,44 @@ def test_plain_sparse_conv_backward_equals_jax():
         out = sparse_conv.sparse_conv(f, torch.from_numpy(idx),
                                       torch.from_numpy(hit), w,
                                       torch.from_numpy(valid))
+        assert out.grad_fn is not None
         (out * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(f.grad.numpy(), np.asarray(want_f),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(w.grad.numpy(), np.asarray(want_w),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("padding", [(1, 1, 1), (0, 1, 1)])
+def test_plain_strided_conv_backward_equals_jax(padding):
+    """Gradients of ``ops.sparse.strided_conv`` (its table's scattered
+    transpose carries the data gradient) against ``jax.grad`` of the JAX
+    package's per sample, fp32 within 1e-5."""
+    grid, stride, kernel = (7, 10, 9), (2, 2, 2), (3, 3, 3)
+    rng = np.random.RandomState(10)
+    keys = sparse_site_keys(rng, grid, 120, (120, 70))
+    out_keys, out_grid = sparse.downsample_coords(
+        torch.from_numpy(keys), grid, stride, padding, 80, kernel)
+    feats = rng.standard_normal((2, 120, 6)).astype(np.float32)
+    weights = (rng.standard_normal((27, 6, 7)) * 0.2).astype(np.float32)
+    ct = rng.standard_normal((2, 80, 7)).astype(np.float32)
+
+    def loss(f, w):
+        outs = [jax_sparse.strided_conv(
+            f[i], jnp.asarray(keys[i]), grid, w, kernel, stride, padding,
+            jnp.asarray(out_keys[i].numpy()), out_grid) for i in range(2)]
+        return jnp.sum(jnp.stack(outs) * ct)
+
+    want_f, want_w = jax.grad(loss, argnums=(0, 1))(jnp.asarray(feats),
+                                                    jnp.asarray(weights))
+    f = torch.from_numpy(feats).requires_grad_(True)
+    w = torch.from_numpy(weights).requires_grad_(True)
+    with torch.enable_grad():
+        out = sparse.strided_conv(f, torch.from_numpy(keys), grid, w, kernel,
+                                  stride, padding, out_keys, out_grid)
+        assert out.grad_fn is not None
+        (out * torch.from_numpy(ct)).sum().backward()
+    assert float(np.abs(np.asarray(want_f)).max()) > 0
     np.testing.assert_allclose(f.grad.numpy(), np.asarray(want_f),
                                atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(w.grad.numpy(), np.asarray(want_w),

@@ -599,18 +599,18 @@ def test_jax_train_state_resumes_in_the_port(tiny_train):
 
 
 def test_other_detectors_refuse_training():
-    """A detector whose loss is not ported (SECOND) raises in train mode,
+    """A detector whose loss is not ported (PV-RCNN) raises in train mode,
     naming the ones that train, and the head raises on an assigner it
     does not port."""
-    from de6d_tpu_torch.models.detectors.second_net import SECONDNet
+    from de6d_tpu_torch.models.detectors.pv_rcnn import PVRCNN
 
-    model = SECONDNet.__new__(SECONDNet)
+    model = PVRCNN.__new__(PVRCNN)
     torch.nn.Module.__init__(model)
     model.train()
     with pytest.raises(NotImplementedError,
-                       match="SECONDNet.*PointPillars, Det6D and 3DSSD"):
+                       match="PVRCNN.*PointPillars, Det6D, 3DSSD and SECOND"):
         model({"points": torch.zeros(1, 4, 4)})
-    with pytest.raises(NotImplementedError, match="SECONDNet"):
+    with pytest.raises(NotImplementedError, match="PVRCNN"):
         model.get_training_loss({})
 
     head = anchor_head.AnchorHeadSingle(

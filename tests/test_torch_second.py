@@ -299,6 +299,7 @@ def test_voxel_res_backbone_matches_jax():
     feats, coords = bd["voxel_features"], bd["voxel_coords"]
     cfg = dict(TINY_BACKBONE, NUM_FILTERS=[8, 8, 16, 16, 16])
     tmod = spconv_backbone.VoxelResBackBone8x(cfg, 4, grid_size=TINY_GRID)
+    tmod.eval()  # against JAX's train=False: the running statistics
     flat = weights.seeded_flax(tmod, 3)
     weights.load_into(tmod, flat)
     with torch.no_grad():
