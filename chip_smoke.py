@@ -235,7 +235,9 @@ Phases, one status line each; any failure exits non-zero:
                     graph, the plain versions' (autograd through
                     ``sparse_conv_plain``), the bounds of
                     ``sparse_conv.work_backward`` and
-                    ``sparse_conv.work_transpose``.
+                    ``sparse_conv.work_transpose``; the fp32 forward at
+                    the same 12 layers (ms, graph ms, plain ms, the bound
+                    of ``sparse_conv.work``).
 19b. parity / train_second — SECOND's train step in fp32 (TF32 off) from
                     ``bench_assets/second_params.npz`` on the batch stored
                     in ``de6d_tpu_torch/testdata/second_train_jax_ref.npz``
@@ -4887,25 +4889,29 @@ def check_sparse_conv_grad(cases):
 
 def time_sparse_conv_grad(layers):
     """layers: {label: (features, idx, hit, weights, valid, grad_out)} of
-    the train step (fp32) → per layer and kernel (dgrad and the transpose
-    it runs on but for conv_input, wgrad): ms by events and in a CUDA
-    graph, the plain version's ms (autograd through ``sparse_conv_plain``:
-    the feature or the weight gradient), the bound from
-    :func:`sparse_conv.work_backward` / :func:`sparse_conv.work_transpose`.
+    the train step (fp32) → per layer and kernel (the forward, dgrad and
+    the transpose it runs on but for conv_input, wgrad): ms by events and
+    in a CUDA graph, the plain version's ms (``sparse_conv_plain``;
+    autograd through it for the feature or the weight gradient), the
+    bound from :func:`sparse_conv.work` / :func:`sparse_conv.work_backward`
+    / :func:`sparse_conv.work_transpose`.
     """
     import torch
 
     from de6d_tpu_torch.ops.kernels import sparse_conv as sc
 
-    rows = {"dgrad": {}, "wgrad": {}, "transpose": {}}
+    rows = {"forward": {}, "dgrad": {}, "wgrad": {}, "transpose": {}}
     for label, (f, idx, hit, w, valid, dy) in layers.items():
         v = f.shape[1]
         work = sc.work_backward(f, idx, hit, w, valid)
+        work["forward"] = sc.work(f, idx, hit, w, valid)
         fp = f.clone().requires_grad_(True)
         wp = w.clone().requires_grad_(True)
         with torch.enable_grad():
             out = sc.sparse_conv_plain(fp, idx, hit, wp, valid)
         fns = {
+            "forward": (lambda: sc.sparse_conv(f, idx, hit, w, valid),
+                        lambda: sc.sparse_conv_plain(f, idx, hit, w, valid)),
             "wgrad": (lambda: sc.sparse_conv_wgrad(f, dy, idx, hit, valid),
                       lambda: torch.autograd.grad(out, wp, dy,
                                                   retain_graph=True)),
@@ -4965,9 +4971,13 @@ def phase_sparse_conv_grad(report):
     = 4, a seeded cotangent), fp32 and bf16; the edge cases: a layer
     without a hit, every row invalid, V = 1, a non-contiguous cotangent;
     ms by events and in a CUDA graph, the plain versions' ms, the
-    bounds."""
+    bounds; the same timings of the fp32 forward at those 12 layers
+    (``sparse_conv_fp32`` in the kernels line, with its max |d| against
+    the plain version)."""
     import numpy as np
     import torch
+
+    from de6d_tpu_torch.ops.kernels import sparse_conv as sc
 
     torch.backends.cuda.matmul.allow_tf32 = False
     convs = recorded_second_train_convs("cuda")
@@ -5003,20 +5013,30 @@ def phase_sparse_conv_grad(report):
         for a in c) for k, c in edges.items()})
     lines = check_sparse_conv_grad(cases)
     rows = time_sparse_conv_grad(layers)
-    name = {"dgrad": "sparse_conv_dgrad", "wgrad": "sparse_conv_wgrad",
+    name = {"forward": "sparse_conv_fp32", "dgrad": "sparse_conv_dgrad",
+            "wgrad": "sparse_conv_wgrad",
             "transpose": "sparse_conv_transpose"}
-    note = {"dgrad": "csrc/sparse_conv.cu (the forward kernel on a "
+    note = {"forward": "csrc/sparse_conv.cu (fp32, variant simt, at a "
+                       "train step's layers)",
+            "dgrad": "csrc/sparse_conv.cu (the forward kernel on a "
                      "transposed table)",
             "wgrad": "csrc/sparse_conv.cu", "transpose": "csrc/sparse_conv.cu"}
     for kind, per in rows.items():
         # over the train step's layers (fp32, its dtype)
-        err = max((lines[k]["max_abs_err"][kind] for k in layers
-                   if kind in lines[k]["max_abs_err"]), default=0.0)
+        if kind == "forward":
+            err = max(float((sc.sparse_conv(*layers[k][:5])
+                             - sc.sparse_conv_plain(*layers[k][:5])).abs()
+                            .max()) for k in layers)
+        else:
+            err = max((lines[k]["max_abs_err"][kind] for k in layers
+                       if kind in lines[k]["max_abs_err"]), default=0.0)
         report[name[kind]] = {
             "name": name[kind], "route": "cuda",
             "source": "de6d_tpu_torch/" + note[kind].split(" ")[0],
-            # what JAX differentiates: the XLA gather-GEMM, no TPU kernel
-            "replaces": "de6d_tpu/ops/sparse.py:149",
+            # the forward replaces the Pallas gather-GEMM; the gradients
+            # what JAX differentiates, the XLA gather-GEMM, no TPU kernel
+            "replaces": "de6d_tpu/ops/pallas/sparse_gather.py:161"
+            if kind == "forward" else "de6d_tpu/ops/sparse.py:149",
             "max_abs_err": 0.0 if kind == "transpose" else err,
             **{k: sum(r[k] for r in per.values())
                for k in ("ms", "graph_ms", "plain_ms", "bound_ms")},
@@ -5027,12 +5047,16 @@ def phase_sparse_conv_grad(report):
             "layers": per, "note": note[kind],
         }
     report["sparse_conv_grad_cases"] = lines
-    d, w_, t = (report[name[k]] for k in ("dgrad", "wgrad", "transpose"))
+    fw, d, w_, t = (report[name[k]]
+                    for k in ("forward", "dgrad", "wgrad", "transpose"))
     print(f"kernels / sparse_conv_grad: {len(cases)} cases (the 12 train-"
           f"step layers and the edge cases {sorted(edges)}, fp32 and bf16) "
           f"within {GRAD_TOL} of the plain versions, the weight gradient "
           f"bit-equal over two runs, the submanifold tables' transposes "
-          f"equal to their mirrored offsets; a train step's 11 data "
+          f"equal to their mirrored offsets; a train step's 12 fp32 "
+          f"forwards {fw['ms']:.4f} ms by events, {fw['graph_ms']:.4f} in a "
+          f"graph (plain {fw['plain_ms']:.3f}, bound {fw['bound_ms']:.5f}, "
+          f"max |d| {fw['max_abs_err']:.3g}); 11 data "
           f"gradients "
           f"{d['ms']:.4f} ms by events, {d['graph_ms']:.4f} in a graph "
           f"(plain {d['plain_ms']:.3f}, bound {d['bound_ms']:.5f}); 12 "
@@ -5062,7 +5086,7 @@ def phase_train_second(report, kernels, profile):
         "train / second", model, second_train_batch("cuda"),
         second_opt_cfg(), kernels, SECOND_TRAIN_LAUNCHES)
     ours = {k: sum(us for name, us, _ in rows if k in name)
-            for k in ("neighbor_table_kernel", "sparse_conv_kernel",
+            for k in ("neighbor_table_kernel", "sparse_conv_gather_kernel",
                       "sparse_conv_wgrad", "sparse_conv_transpose")}
     out.update(compute_dtype="float32 (second.yaml; TF32 off)",
                kernels_device_us_per_step=ours,
@@ -5586,14 +5610,22 @@ def main():
                    report["train_second_kitti"]["launches"],
                "second_eval_kitti": report["eval_second_kitti"]["launches"]}
     kernels = []
+    # the sparse conv's launches split by dtype: the train paths run it in
+    # fp32 (second.yaml), the others in bf16
+    fp32_paths = ("second_train", "second_train_kitti")
     for key in ("canvas", "canvas_grad", "nms", "nms_mask", "fps",
                 "matrix_fps", "lookup", "neighbor_table", "sparse_conv",
-                "sparse_conv_dgrad", "sparse_conv_wgrad",
+                "sparse_conv_fp32", "sparse_conv_dgrad", "sparse_conv_wgrad",
                 "sparse_conv_transpose"):
         k = {f: report[key][f] for f in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}
-        per = {p: n[key] for p, n in by_path.items() if key in n}
+        if key == "sparse_conv_fp32":
+            per = {p: by_path[p]["sparse_conv"] for p in fp32_paths}
+        else:  # sparse_conv: the bf16 paths' launches
+            per = {p: n[key] for p, n in by_path.items()
+                   if key in n and not (key == "sparse_conv"
+                                        and p in fp32_paths)}
         k["launches"] = sum(per.values())
         k["launches_by_path"] = per
         kernels.append(k)

@@ -168,6 +168,8 @@ def lib() -> ctypes.CDLL:
                 i, p,
             ]
             handle.de6d_sparse_conv_wgrad.restype = i
+            handle.de6d_sparse_conv_wgrad_plan.argtypes = [i, i, i, p]
+            handle.de6d_sparse_conv_wgrad_plan.restype = i
             handle.de6d_sparse_conv_transpose.argtypes = [
                 p, p, p, p, p, p, i, i, i, i, p,
             ]

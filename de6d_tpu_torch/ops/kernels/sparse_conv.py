@@ -5,16 +5,17 @@ Replaces the TPU kernel ``de6d_tpu/ops/pallas/sparse_gather.py:
 subm_conv_slab`` and carries every submanifold and strided layer of the
 voxel backbones. The CUDA kernels are in ``csrc/sparse_conv.cu``; the
 (Q, K, Cin) gathered tensor is never formed. Any Cin and K, Cout <= 128.
-bf16 runs on the tensor cores (``mma.sync``) in persistent blocks that
-walk tiles of 128 output rows: each tile's neighbour table is read once,
-the offsets without a hit are dropped, and the hit rows of the next step
-are gathered by ``cp.async`` into a 2-stage shared-memory ring while the
-current step's products run (a miss is masked in registers, not copied).
-:func:`plan` gives the variant: weights resident in shared memory for the
-block's life where that costs no block an SM ("resident"), else streamed
-beside the rows ("streamed"); fp32 takes the SIMT kernel with exact fp32
-FMAs ("simt"), the parity path. :func:`tile_stats` counts what the tiles
-see on a table.
+Both dtypes run one kernel in persistent blocks that walk tiles of 128
+output rows: each tile's neighbour table is read once, the offsets
+without a hit are dropped, and the hit rows of the next step are gathered
+by ``cp.async`` into a 2-stage shared-memory ring while the current
+step's products run. bf16 multiplies on the tensor cores (``mma.sync``; a
+miss is masked in registers, not copied); fp32 on the SIMT cores with
+exact fp32 FMAs in the order of a dense walk, skipping the rows without a
+hit ("simt", the parity path). :func:`plan` gives the variant and whether
+the weights stay resident in shared memory for the block's life (where
+that costs no block an SM) or are streamed beside the rows. :func:`tile_stats`
+counts what the tiles see on a table.
 
 ``sparse_conv`` is differentiable in the features and the weights (a
 ``torch.autograd.Function``), giving what ``jax.grad`` gives of the JAX
@@ -22,9 +23,9 @@ package's ``subm_conv_table`` / ``strided_conv``. On the card its
 backward launches only hand kernels: the data gradient is this same
 forward kernel on the table's transpose (:func:`sparse_conv_transpose`)
 with transposed weights (:func:`sparse_conv_dgrad`), the weight gradient
-is its own kernel
-(:func:`sparse_conv_wgrad`, deterministic). CPU tensors take the plain
-versions, forward and backward.
+is its own kernel (:func:`sparse_conv_wgrad`, channel tiles sized by the
+layer's widths, one offset a warp, deterministic). CPU tensors take the
+plain versions, forward and backward.
 """
 
 from __future__ import annotations
@@ -38,70 +39,95 @@ from . import build
 
 MAX_COUT = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# csrc/sparse_conv.cu's plan(): variant codes and the bf16 kernel's shapes
+# csrc/sparse_conv.cu's plan(): variant codes and the kernel's shapes
 VARIANTS = {"simt": 1, "resident": 2, "streamed": 3}
 TILE_ROWS = 128  # output rows per tile, 8 warps x 16
 OFFSET_BLOCK = 32  # offsets whose table a tile holds at once
-MAX_CHUNK = 64  # input channels per step
-STAGES = 2  # ring stages of both bf16 variants
+MAX_CHUNK = 64  # input channels per step, bf16
+MAX_CHUNK_F32 = 32  # input channels per step, fp32
+STAGES = 2  # ring stages, every variant
 SMEM_LIMIT = 232_448  # shared memory a block may use on sm_90
 SMEM_PER_SM = 228 * 1024  # an SM's shared memory, 1 KB reserved a block
 RESIDENT_WEIGHT_BYTES = 32 * 1024  # the largest (padded) resident weights
 
 
-def blocks_per_sm(cout: int) -> int:
-    """Blocks an SM that the bf16 kernel's registers allow for Cout: its
-    accumulators are 4 fp32 registers a thread per n8 tile of Cout,
-    rounded up to 2, 4, 8 or 16 tiles (``__launch_bounds__``)."""
+def blocks_per_sm(cout: int, dtype=torch.bfloat16) -> int:
+    """Blocks an SM that the kernel's registers allow for Cout
+    (``__launch_bounds__``): its accumulators are 4 fp32 registers a
+    thread per n8 tile of Cout, rounded up to 2, 4, 8 or 16 tiles; the
+    fp32 back end also holds a quad's gathered values and its weights, so
+    it takes a larger budget (3 blocks up to Cout 32, then 2)."""
     nt = -(-cout // 8)
+    if dtype == torch.float32:
+        return 3 if nt <= 4 else 2
     return 4 if nt <= 4 else 3 if nt <= 8 else 2
 
 
-def resident_limit(cout: int) -> int:
+def resident_limit(cout: int, dtype=torch.bfloat16) -> int:
     """The most shared memory a resident-weights block may take without
     costing a block an SM."""
-    return SMEM_PER_SM // blocks_per_sm(cout) - 1024
+    return SMEM_PER_SM // blocks_per_sm(cout, dtype) - 1024
 
 
 class Plan(NamedTuple):
     variant: str
     stages: int
     smem_bytes: int
+    resident: bool  # the weights stay in shared memory for the block's life
 
 
 def plan(cin: int, cout: int, k: int, dtype=torch.bfloat16,
          variant: str | None = None):
     """The kernel variant ``sparse_conv`` launches for (Cin, Cout, K) in
-    ``dtype`` and its dynamic shared memory, as ``csrc/sparse_conv.cu:
-    plan`` decides: fp32 → "simt"; bf16 → "resident" when the K·Cin16·
-    (Cout8 + 8)·2 bytes of weights are at most
-    :data:`RESIDENT_WEIGHT_BYTES` and, with a 2-stage ring of 128-row
-    stages and the table, fit in :func:`resident_limit` (resident weights
-    never cost a block an SM), else "streamed" (2 stages of rows and one
-    64-channel weight chunk each). ``variant`` asks for one, which may use up to
-    :data:`SMEM_LIMIT`; None where it does not take the shape."""
-    if dtype == torch.float32:
-        return Plan("simt", 0, 0) if variant in (None, "simt") else None
-    cin_pad = -(-cin // 16) * 16
-    kc = min(MAX_CHUNK, cin_pad)
-    cout8 = -(-cout // 8) * 8
-    astr, wstr = kc + 8, cout8 + 8
+    ``dtype``, its dynamic shared memory and whether its weights stay
+    resident, as ``csrc/sparse_conv.cu:plan`` decides. Both dtypes take
+    the same rule: a 2-stage ring of 128-row stages (rows of Cin padded to
+    16 and chunks of 64 channels for bf16; to 8 and 32 for fp32), the
+    table (fp32 adds a 128-byte row of zeros), and the weights (rows of
+    Cout8 + 8 bf16 or 8·NT fp32, NT the accumulator tiles of
+    :func:`blocks_per_sm`) either resident (when they
+    take at most :data:`RESIDENT_WEIGHT_BYTES` and the block fits in
+    :func:`resident_limit`: resident weights never cost a block an SM) or
+    streamed, one chunk a stage. bf16 names the two "resident" and
+    "streamed" (``variant`` asks for one, which may use up to
+    :data:`SMEM_LIMIT`); fp32 is "simt" either way. On an NVIDIA H100
+    80GB HBM3 at 700 W (``sparse_conv_ab.py``, parent and change in turns
+    in one call) the fp32 redesign took SECOND's 12 forwards at batch 8
+    from 6.60–6.62 ms (the SIMT kernel that walked all K offsets of a
+    64-row block) to 1.78–1.81 ms, bit-equal, every layer below its plain
+    version; a train step's 11 data gradients with their transposes from
+    5.70–5.74 to 1.73–1.74 ms in a CUDA graph. None where the variant does
+    not take the shape."""
+    f32 = dtype == torch.float32
+    if (variant not in (None, "simt")) if f32 else variant == "simt":
+        return None
+    size = 4 if f32 else 2
+    cin_pad = -(-cin // (8 if f32 else 16)) * (8 if f32 else 16)
+    kc = min(MAX_CHUNK_F32 if f32 else MAX_CHUNK, cin_pad)
+    nt = -(-cout // 8)
+    nt = 2 if nt <= 2 else 4 if nt <= 4 else 8 if nt <= 8 else 16
+    astr = kc + (4 if f32 else 8)
+    wstr = 8 * nt if f32 else -(-cout // 8) * 8 + 8
     kb = min(k, OFFSET_BLOCK)
     # padded source rows, live masks, hit counts, the offset list and its
-    # length, the hit rows (bytes)
-    table = (kb * (TILE_ROWS + 1) + 3 * OFFSET_BLOCK + 1) * 4 + kb * TILE_ROWS
-    a_stage = TILE_ROWS * astr * 2
-    resident = k * cin_pad * wstr * 2 + STAGES * a_stage + table
-    streamed = STAGES * (a_stage + kc * wstr * 2) + table
-    weights = k * cin_pad * wstr * 2
-    if (variant is None and resident <= resident_limit(cout)
-            and weights <= RESIDENT_WEIGHT_BYTES) or (
+    # length, the hit rows (bytes); fp32 reads missed rows from a zero row
+    table = ((kb * (TILE_ROWS + 1) + 3 * OFFSET_BLOCK + 1) * 4 + kb * TILE_ROWS
+             + (MAX_CHUNK_F32 * 4 if f32 else 0))
+    a_stage = TILE_ROWS * astr * size
+    weights = k * cin_pad * wstr * size
+    resident = weights + STAGES * a_stage + table
+    streamed = STAGES * (a_stage + kc * wstr * size) + table
+    fits = (resident <= resident_limit(cout, dtype)
+            and weights <= RESIDENT_WEIGHT_BYTES)
+    if f32:
+        return Plan("simt", STAGES, resident if fits else streamed, fits)
+    if (variant is None and fits) or (
             variant == "resident" and resident <= SMEM_LIMIT):
-        return Plan("resident", STAGES, resident)
+        return Plan("resident", STAGES, resident, True)
     if variant == "resident":
         return None
     if variant in (None, "streamed") and streamed <= SMEM_LIMIT:
-        return Plan("streamed", STAGES, streamed)
+        return Plan("streamed", STAGES, streamed, False)
     return None
 
 
@@ -346,29 +372,96 @@ def sparse_conv_dgrad(grad_out, idx, hit, weights, valid, v: int):
 
 sparse_conv_dgrad.launches = 0
 
-WGRAD_TILE = 64  # csrc/sparse_conv.cu: a block's Cin x Cout tile, each side
-WGRAD_SCAN = 256  # candidate rows a block scans at once
-WGRAD_WAVES = 4  # blocks an SM the slices aim at
+# csrc/sparse_conv.cu's wgrad_plan(): the channel tiles (Cin x Cout side)
+WGRAD_TILES = ((16, 16), (16, 32), (32, 32), (32, 64))
+WGRAD_ROWS = 128  # rows of a chunk: a slice is a whole number of them
+WGRAD_OFFSETS = 8  # offsets of a block, one a warp
+WGRAD_RING = 512  # elements of a warp's ring stage (512 / CI rows)
+WGRAD_WAVES = 2  # the waves of resident blocks the slices aim at
+
+
+class WgradPlan(NamedTuple):
+    ci: int
+    co: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def wgrad_plan(cin: int, cout: int, dtype=torch.float32) -> WgradPlan:
+    """The weight-gradient kernel's channel tile for (Cin, Cout), as
+    ``csrc/sparse_conv.cu:wgrad_plan`` chooses it: of
+    :data:`WGRAD_TILES`, the one that pads Cin x Cout least, the larger
+    on a tie; its dynamic shared memory (a chunk's dy rows, 8 warps' 2-stage
+    rings, the table block's source rows and hit lists) and the blocks an
+    SM its registers allow (TI x TJ fp32 accumulators a lane)."""
+    best = None
+    for ci, co in WGRAD_TILES:
+        area = -(-cin // ci) * ci * -(-cout // co) * co
+        if best is None or area <= best[0]:
+            best = (area, ci, co)
+    _, ci, co = best
+    size = 4 if dtype == torch.float32 else 2
+    smem = ((WGRAD_ROWS * co + WGRAD_OFFSETS * 2 * WGRAD_RING) * size
+            + WGRAD_OFFSETS * WGRAD_ROWS * 5)
+    elems = ci * co
+    return WgradPlan(ci, co, smem, 4 if elems <= 512 else 3 if elems <= 1024
+                     else 2)
+
+
+def wgrad_blocks(cin: int, cout: int, k: int) -> int:
+    """Blocks of one slice: the channel tiles times the offset groups."""
+    p = wgrad_plan(cin, cout)
+    return (-(-cin // p.ci) * -(-cout // p.co)
+            * -(-k // WGRAD_OFFSETS))
 
 
 def wgrad_slices(rows: int, k: int, cin: int, cout: int, sms: int):
-    """(slices, rows a slice) of the weight-gradient kernel: enough blocks
-    for :data:`WGRAD_WAVES` an SM, each slice a whole number of
-    :data:`WGRAD_SCAN` rows and none empty."""
-    tiles = -(-cin // WGRAD_TILE) * -(-cout // WGRAD_TILE)
-    want = -(-WGRAD_WAVES * sms // (k * tiles))
-    slices = max(1, min(want, -(-rows // WGRAD_SCAN), 65535))
-    per = -(-(-(-rows // slices)) // WGRAD_SCAN) * WGRAD_SCAN
+    """(slices, rows a slice) of the weight-gradient kernel over the B·Q
+    rows. A block takes (a slice, a channel tile of :func:`wgrad_plan`, 8
+    offsets, one a warp) and walks its slice in chunks of
+    :data:`WGRAD_ROWS` rows: per chunk it reads the (rows × 8 offsets)
+    table block once, each warp lists its offset's hit rows in order and
+    gathers their feature rows by ``cp.async`` into a ring of its own,
+    and multiplies them against the chunk's dy rows. The slices aim at
+    :data:`WGRAD_WAVES` waves of resident blocks on ``sms`` SMs, each a
+    whole number of chunks and none empty; every live (row, offset) pair
+    falls in exactly one block per channel tile (:func:`wgrad_partition`).
+    """
+    want = -(-WGRAD_WAVES * sms * wgrad_plan(cin, cout).blocks_per_sm
+             // wgrad_blocks(cin, cout, k))
+    slices = max(1, min(want, -(-rows // WGRAD_ROWS)))
+    per = -(-(-(-rows // slices)) // WGRAD_ROWS) * WGRAD_ROWS
     return -(-rows // per), per
+
+
+def wgrad_partition(idx, hit, valid, cin: int, cout: int, sms: int):
+    """What the weight-gradient kernel's blocks see on this table: a
+    (slices, offset groups, warps) int64 array of the live (row, offset)
+    pairs each warp of each block multiplies (the same for every channel
+    tile), from :func:`wgrad_slices`'s partition of the B·Q rows."""
+    b, q, k = idx.shape
+    slices, per = wgrad_slices(b * q, k, cin, cout, sms)
+    live = (hit & valid[..., None]).reshape(b * q, k).to(torch.int64)
+    groups = -(-k // WGRAD_OFFSETS)
+    pad_rows, pad_k = slices * per - b * q, groups * WGRAD_OFFSETS - k
+    live = torch.nn.functional.pad(live, (0, pad_k, 0, pad_rows))
+    return live.reshape(slices, per, groups, WGRAD_OFFSETS).sum(1)
 
 
 def sparse_conv_wgrad(features, grad_out, idx, hit, valid):
     """The weight gradient of :func:`sparse_conv` (K, Cin, Cout) in the
     features' dtype (``sparse_conv_wgrad_plain``'s function). CPU tensors
     take the plain version; CUDA tensors launch ``csrc/sparse_conv.cu``'s
-    weight-gradient kernel (per (tile, offset, slice of rows) partial sums
-    in fp32, added in a fixed order: deterministic), counted in
-    ``sparse_conv_wgrad.launches``."""
+    weight-gradient kernel over :func:`wgrad_slices`' partition: fp32
+    partial sums per (slice, offset, channel tile), each over its rows in
+    order, then a second kernel adds the slices in a fixed order and
+    rounds once, so two runs are bit-equal. Counted in
+    ``sparse_conv_wgrad.launches``. On an NVIDIA H100 80GB HBM3 at 700 W
+    (``sparse_conv_ab.py``, one call) the redesign (tiles by the widths,
+    the table read once a chunk, one offset a warp) took SECOND's 12
+    weight gradients of a train step from 2.92–2.97 ms in a CUDA graph (a
+    64 × 64 tile whatever the widths, every offset rescanning the table)
+    to 0.98 ms."""
     if _on_cpu(features, grad_out, idx, hit, valid):
         return sparse_conv_wgrad_plain(features, grad_out, idx, hit, valid)
     b, v, cin = features.shape
@@ -425,7 +518,7 @@ def library_plan(cin: int, cout: int, k: int, dtype=torch.bfloat16,
                  variant: str | None = None):
     """:func:`plan` as the library computes it (for holding the two
     equal on the card)."""
-    info = (ctypes.c_int * 3)()
+    info = (ctypes.c_int * 4)()
     code = build.lib().de6d_sparse_conv_plan(
         int(cin), int(cout), int(k), _DTYPE_CODE[dtype],
         0 if variant is None else VARIANTS[variant],
@@ -433,7 +526,18 @@ def library_plan(cin: int, cout: int, k: int, dtype=torch.bfloat16,
     if code < 0:
         return None
     name = {c: n for n, c in VARIANTS.items()}[code]
-    return Plan(name, info[1], info[2])
+    return Plan(name, info[1], info[2], bool(info[3]))
+
+
+def library_wgrad_plan(cin: int, cout: int, dtype=torch.float32):
+    """:func:`wgrad_plan` as the library computes it."""
+    info = (ctypes.c_int * 4)()
+    code = build.lib().de6d_sparse_conv_wgrad_plan(
+        int(cin), int(cout), _DTYPE_CODE[dtype],
+        ctypes.cast(info, ctypes.c_void_p))
+    if code < 0:
+        return None
+    return WgradPlan(info[0], info[1], info[2], info[3])
 
 
 def tile_stats(idx, hit, valid, tile_rows: int = TILE_ROWS):

@@ -843,8 +843,10 @@ def test_sparse_conv_every_variant_equals_plain(cuda_device, table, cin,  # noqa
 
 @pytest.mark.cuda
 def test_sparse_conv_plan_equals_the_library(cuda_device):  # noqa: F811
-    """The Python mirror of the variant rule gives what the library
-    computes, for every variant, both dtypes and edge shapes."""
+    """The Python mirrors of the variant rule (fp32 "simt" with its
+    weights resident or streamed, bf16 "resident" / "streamed") and of the
+    weight gradient's tile give what the library computes, for every
+    variant, both dtypes and edge shapes."""
     for cin in (1, 3, 4, 16, 32, 48, 64, 65, 128, 160, 512):
         for cout in (1, 8, 16, 40, 64, 127, 128):
             for k in (1, 3, 5, 27, 33, 125):
@@ -854,6 +856,10 @@ def test_sparse_conv_plan_equals_the_library(cuda_device):  # noqa: F811
                             cin, cout, k, dtype, variant) == sparse_conv.plan(
                             cin, cout, k, dtype, variant), (
                             cin, cout, k, dtype, variant)
+            for dtype in (torch.float32, torch.bfloat16):
+                assert sparse_conv.library_wgrad_plan(
+                    cin, cout, dtype) == sparse_conv.wgrad_plan(
+                    cin, cout, dtype), (cin, cout, dtype)
 
 
 @pytest.mark.cuda
@@ -876,6 +882,182 @@ def test_sparse_conv_edge_tiles(cuda_device):  # noqa: F811
         assert not got[:, :128].any() and not got[:, 131:256].any()
         d = (got - ref).abs()
         assert bool((d <= 1e-2 * (1 + ref.abs())).all()), (name, float(d.max()))
+
+
+# (Cin, Cout, K) of SECOND's 12 layers (7 distinct shapes), and edge
+# shapes: Cin 1, 4, 48, 65; Cout 1, 40, 128; K 1, 3, 5, 27
+SECOND_CONV_SHAPES = [(4, 16, 27), (16, 16, 27), (16, 32, 27), (32, 32, 27),
+                      (32, 64, 27), (64, 64, 27), (64, 128, 3)]
+CONV_EDGE_SHAPES = [(1, 16, 27), (4, 1, 27), (48, 40, 27), (65, 128, 27),
+                    (16, 40, 1), (48, 1, 3), (65, 40, 5), (1, 128, 5)]
+
+
+def fma32(a, w, acc):
+    """fp32 ``fma(a, w, acc)`` (one rounding) from float64 operations: the
+    product of two fp32 values is exact in float64, the sum's rounding
+    error is recovered exactly (TwoSum), and a float64 sum that lies
+    exactly halfway between two fp32 values is moved to the side of its
+    error before the tie would be broken to even."""
+    s = a.double() * w.double()
+    t = acc.double()
+    total = s + t
+    bb = total - s
+    err = (s - (total - bb)) + (t - bb)
+    r = total.float()
+    back = r.double()
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    down = torch.nextafter(r, torch.full_like(r, float("-inf")))
+    tie_up = (total - back) * 2 == up.double() - back
+    tie_down = (back - total) * 2 == back - down.double()
+    r = torch.where(tie_up & (err > 0), up, r)
+    return torch.where(tie_down & (err < 0), down, r)
+
+
+def fma_chain(features, idx, hit, weights, valid):
+    """What the fp32 kernel computes, exactly: each output element's sum as
+    one sequence of fp32 FMAs, live offsets ascending, then input channels
+    ascending (a dense walk that multiplies misses by zero adds nothing)."""
+    cin = features.shape[2]
+    acc = features.new_zeros((*idx.shape[:2], weights.shape[2]))
+    rows = torch.where(hit, idx, 0).long()
+    for k in range(idx.shape[2]):
+        g = torch.gather(features, 1,
+                         rows[:, :, k, None].expand(-1, -1, cin))
+        live = (hit[:, :, k] & valid)[..., None]
+        for c in range(cin):
+            acc = torch.where(live, fma32(g[..., c, None], weights[k, c],
+                                          acc), acc)
+    return torch.where(valid[..., None], acc, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,k", SECOND_CONV_SHAPES + CONV_EDGE_SHAPES)
+def test_sparse_conv_fp32_is_the_dense_fma_chain(cuda_device, cin, cout,  # noqa: F811
+                                                 k):
+    """The fp32 kernel skips the rows without a hit, and still rounds every
+    output element as the dense walk of the first SIMT kernel did: equal,
+    bit for bit, to :func:`fma_chain`; within 1e-5 of the plain version;
+    one counted launch of the planned variant, with a misaligned feature
+    view (4-byte copies) giving the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(cin * 1009 + cout * 31 + k)
+    args = sorted_key_conv_inputs(rng, 3, 600, cin, cout, k, torch.float32,
+                                  cuda_device)
+    before = sparse_conv.sparse_conv.launches
+    got = sparse_conv.sparse_conv(*args)
+    torch.cuda.synchronize()
+    assert sparse_conv.sparse_conv.launches == before + 1
+    assert sparse_conv.launched_variant() == "simt"
+    want = fma_chain(*args)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    ref = sparse_conv.sparse_conv_plain(*args)
+    assert bool(((got - ref).abs() <= 1e-5 * (1 + ref.abs())).all())
+    f = args[0]
+    spare = torch.empty(f.numel() + 1, device=cuda_device)[1:]
+    shifted = spare.view(f.shape).copy_(f)
+    assert shifted.data_ptr() % 8 == 4
+    got2 = sparse_conv.sparse_conv(shifted, *args[1:])
+    assert torch.equal(got2, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,k", SECOND_CONV_SHAPES + CONV_EDGE_SHAPES)
+def test_sparse_conv_gradients_at_every_tile(cuda_device, dtype, cin, cout,  # noqa: F811
+                                             k):
+    """The data gradient (the forward kernel on the transposed table) and
+    the weight gradient (the tile of ``wgrad_plan`` for the widths) within
+    1e-5 (fp32) / 1e-2 (bf16) of each plain version's largest |entry|, on
+    a non-contiguous cotangent; the weight gradient bit-equal over two
+    runs and its plan the library's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(cin * 7 + cout * 3 + k)
+    f, idx, hit, w, valid = sorted_key_conv_inputs(rng, 3, 600, cin, cout,
+                                                   k, dtype, cuda_device)
+    dy = torch.from_numpy(rng.standard_normal(
+        (3, idx.shape[1], 2 * cout)).astype(np.float32)).to(
+        cuda_device, dtype)[..., ::2]
+    assert not dy.is_contiguous()
+    v = f.shape[1]
+    dg = sparse_conv.sparse_conv_dgrad(dy, idx, hit, w, valid, v)
+    wg = sparse_conv.sparse_conv_wgrad(f, dy, idx, hit, valid)
+    wg2 = sparse_conv.sparse_conv_wgrad(f, dy, idx, hit, valid)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, want in (
+            (dg, sparse_conv.sparse_conv_dgrad_plain(dy, idx, hit, w, valid,
+                                                     v)),
+            (wg, sparse_conv.sparse_conv_wgrad_plain(f, dy, idx, hit,
+                                                     valid))):
+        assert got.dtype == dtype and got.shape == want.shape
+        d = float((got.float() - want.float()).abs().max())
+        assert d <= tol * float(want.float().abs().max()), d
+    assert torch.equal(wg, wg2)
+    assert sparse_conv.library_wgrad_plan(cin, cout, dtype) == \
+        sparse_conv.wgrad_plan(cin, cout, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_conv_edge_cases_forward_and_gradients(cuda_device, dtype):  # noqa: F811
+    """A tile without a hit next to one with a single hit, every row
+    invalid, V = 1, a misaligned feature view and a non-contiguous
+    cotangent: the forward (every variant of the dtype), the data gradient
+    and the weight gradient against their plain versions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(21)
+    f, idx, hit, w, valid = sorted_key_conv_inputs(rng, 2, 1000, 16, 32, 27,
+                                                   dtype, cuda_device)
+    no_hit = hit.clone()
+    no_hit[:, :256] = False
+    no_hit[:, 130, 13] = True
+    idx_one = idx.clone()
+    idx_one[:, 130, 13] = 0
+    spare = torch.empty(f.numel() + 1, dtype=dtype, device=cuda_device)[1:]
+    shifted = spare.view(f.shape).copy_(f)
+    one = (torch.from_numpy(rng.standard_normal((2, 1, 16)).astype(
+        np.float32)).to(cuda_device, dtype),
+        torch.zeros((2, 1, 27), dtype=torch.int32, device=cuda_device),
+        torch.zeros((2, 1, 27), dtype=torch.bool, device=cuda_device), w,
+        torch.ones((2, 1), dtype=torch.bool, device=cuda_device))
+    one[2][:, :, 13] = True
+    cases = {
+        "no_hit_tile": (f, idx_one, no_hit, w, valid),
+        "all_invalid": (f, idx, hit, w, torch.zeros_like(valid)),
+        "v1": one,
+        "misaligned": (shifted, idx, hit, w, valid),
+    }
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    names = ["simt"] if dtype == torch.float32 else ["resident", "streamed"]
+    for label, args in cases.items():
+        ref = sparse_conv.sparse_conv_plain(*args).float()
+        for name in names:
+            got = sparse_conv.sparse_conv_variant(*args, variant=name).float()
+            torch.cuda.synchronize()
+            d = (got - ref).abs()
+            assert bool((d <= tol * (1 + ref.abs())).all()), (label, name)
+        if label == "no_hit_tile":
+            assert not got[:, :128].any() and not got[:, 131:256].any()
+        if label == "all_invalid":
+            assert not got.any()
+        fz, iz, hz, wz, vz = args
+        dy = torch.from_numpy(rng.standard_normal(
+            (iz.shape[0], iz.shape[1], 2 * wz.shape[2])).astype(
+            np.float32)).to(cuda_device, dtype)[..., ::2]
+        v = fz.shape[1]
+        dg = sparse_conv.sparse_conv_dgrad(dy, iz, hz, wz, vz, v)
+        wg = sparse_conv.sparse_conv_wgrad(fz, dy, iz, hz, vz)
+        torch.cuda.synchronize()
+        for got, want in (
+                (dg, sparse_conv.sparse_conv_dgrad_plain(dy, iz, hz, wz, vz,
+                                                         v)),
+                (wg, sparse_conv.sparse_conv_wgrad_plain(fz, dy, iz, hz,
+                                                         vz))):
+            d = float((got.float() - want.float()).abs().max())
+            assert d <= tol * max(1.0, float(want.float().abs().max())), (
+                label, d)
+        if label == "all_invalid":
+            assert not dg.any() and not wg.any()
 
 
 def tied_matrix(rng, b, n):
