@@ -227,17 +227,23 @@ Phases, one status line each; any failure exits non-zero:
                     SECOND train step on the fixture's batch (B = 4), fp32
                     (1e-5 of each result's max) and bf16 (``CONV_TOL``):
                     the data gradient (the forward kernel on the table's
-                    transpose), the weight-gradient kernel (bit-equal over
-                    two runs), the transpose kernel (equal everywhere, and
-                    on a submanifold table to the mirrored offsets); a
+                    transpose: a submanifold layer's own table through the
+                    mirrored offsets, bit-equal to the kernel on the
+                    scattered transpose; a strided layer's transposed
+                    table), the weight-gradient kernel (bit-equal over two
+                    runs), the transposed-table kernel (equal to its plain
+                    version and to the scatter of the forward table); a
                     layer without a hit, every row invalid, V = 1, a
-                    non-contiguous cotangent; ms by events and in a CUDA
-                    graph, the plain versions' (autograd through
-                    ``sparse_conv_plain``), the bounds of
-                    ``sparse_conv.work_backward`` and
-                    ``sparse_conv.work_transpose``; the fp32 forward at
-                    the same 12 layers (ms, graph ms, plain ms, the bound
-                    of ``sparse_conv.work``).
+                    sample without sites, a non-contiguous cotangent; ms
+                    by events and in a CUDA graph, the plain versions'
+                    (autograd through ``sparse_conv_plain``), the bounds
+                    of ``sparse_conv.work_backward`` and
+                    ``lookup.transposed_bytes``; the step's transposition
+                    (4 strided tables, the submanifold layers 0 launches)
+                    against its bound and its latency floor (an empty
+                    kernel in a graph, 4 times); the fp32 forward at the
+                    same 12 layers (ms, graph ms, plain ms, the bound of
+                    ``sparse_conv.work``).
 19b. parity / train_second — SECOND's train step in fp32 (TF32 off) from
                     ``bench_assets/second_params.npz`` on the batch stored
                     in ``de6d_tpu_torch/testdata/second_train_jax_ref.npz``
@@ -254,9 +260,10 @@ Phases, one status line each; any failure exits non-zero:
                     :data:`TRAIN_STEPS` steps: step ms, steps/s, frames/s,
                     device ms and idle share (5-step profiler window),
                     peak memory, the loss falling, exactly 8 neighbour
-                    tables, 12 conv forwards, 11 data gradients, 12
-                    weight gradients and 11 transposes a step and no
-                    other kernel launch.
+                    tables, 12 conv forwards, 11 data gradients (7 of
+                    them on their own, mirrored table), 12 weight
+                    gradients and 4 transposed tables a step and no other
+                    kernel launch.
 19d. train / second_kitti — ``tools/train.py`` on ``second.yaml`` for one
                     epoch of ``data/kitti`` at batch 4 from the fresh
                     init, as phase 4e: steps/s, the loader's share, the
@@ -4577,11 +4584,33 @@ SECOND_EVAL_REF = ROOT / "de6d_tpu_torch/testdata/second_eval_jax_ref.npz"
 # a SECOND train step's hand-kernel launches: a table for each stage's
 # submanifold layers and for each strided layer; 12 forward convs; the
 # data gradient of every conv but conv_input (MeanVFE's output needs
-# none), by the forward kernel; 12 weight gradients; a transposed table
-# for each strided layer's data gradient
+# none), by the forward kernel, the 7 submanifold ones on their own table
+# through the mirrored offsets; 12 weight gradients; a transposed table
+# for each of the 4 strided layers' data gradients
 SECOND_TRAIN_LAUNCHES = {"neighbor_table": 8, "sparse_conv": 12,
-                         "sparse_conv_dgrad": 11, "sparse_conv_wgrad": 12,
-                         "sparse_conv_transpose": 11}
+                         "sparse_conv_dgrad": 11,
+                         "sparse_conv_dgrad_mirrored": 7,
+                         "sparse_conv_wgrad": 12, "transposed_table": 4}
+
+
+class MirroredDgrad:
+    """``sparse_conv_dgrad.mirrored`` (the data gradients that ran on their
+    own table through the mirrored offsets) read and reset as a
+    ``launches`` count, beside the kernels' own."""
+
+    @property
+    def launches(self):
+        from de6d_tpu_torch.ops.kernels import sparse_conv
+
+        return sparse_conv.sparse_conv_dgrad.mirrored
+
+    @launches.setter
+    def launches(self, n):
+        from de6d_tpu_torch.ops.kernels import sparse_conv
+
+        sparse_conv.sparse_conv_dgrad.mirrored = n
+
+
 # the gradients on the card against their plain versions on the same
 # inputs, relative to each result's largest |entry|: fp32 sums of up to
 # 27 x 64 (data) or 10^5 (weights) products in another order; bf16
@@ -4637,7 +4666,7 @@ def plain_sparse_conv():
 
     orig = sp.sparse_conv
 
-    def plain(features, idx, hit, weights, valid):
+    def plain(features, idx, hit, weights, valid, transpose=None):
         return sparse_conv_plain(features, idx, hit, weights, valid)
 
     sp.sparse_conv = plain
@@ -4834,27 +4863,35 @@ def rel_err(got, want):
 
 
 def check_sparse_conv_grad(cases):
-    """cases: {label: (features, idx, hit, weights, valid, grad_out)} →
-    a result per case: the data gradient (the forward kernel on the
-    table's transpose) and the weight gradient on the card, each within
-    :data:`GRAD_TOL` of its plain version's largest |entry|; the weight
-    gradient bit-equal over two runs; the transpose kernel equal to its
-    plain version everywhere and, on a submanifold table (offset K-1-k
-    the negation of offset k), to the table through the mirrored
-    offsets."""
+    """cases: {label: (features, idx, hit, weights, valid, transpose,
+    grad_out)} → a result per case: the data gradient (the forward kernel
+    on the table's transpose that ``transpose`` gives; for None, a table
+    that is no layer's, on the scattered transpose,
+    ``sparse_conv_transpose_plain`` on the card) and the weight gradient
+    on the card, each within :data:`GRAD_TOL` of its plain version's
+    largest |entry|; the weight gradient bit-equal over two runs; on a
+    submanifold table (``Submanifold``: the table itself through the
+    mirrored offsets) the data gradient bit-equal to the same kernel on
+    the scattered transpose, which is the table through the mirrored
+    offsets; on a strided one the transposed-table kernel equal to its
+    plain version and to the scattered transpose."""
     import torch
 
+    from de6d_tpu_torch.ops.kernels import lookup
     from de6d_tpu_torch.ops.kernels import sparse_conv as sc
 
     lines = {}
-    for label, (f, idx, hit, w, valid, dy) in cases.items():
+    for label, (f, idx, hit, w, valid, tr, dy) in cases.items():
         v = f.shape[1]
         tol = GRAD_TOL[str(f.dtype).split(".")[-1]]
-        dg = sc.sparse_conv_dgrad(dy, idx, hit, w, valid, v)
+        scattered = sc.sparse_conv_transpose_plain(idx, hit, valid, v)
+        on_scattered = sc.sparse_conv(dy, scattered[0], scattered[1],
+                                      w.transpose(1, 2).contiguous(),
+                                      scattered[2])
+        dg = on_scattered if tr is None else sc.sparse_conv_dgrad(
+            dy, idx, hit, w, valid, v, tr)
         wg = sc.sparse_conv_wgrad(f, dy, idx, hit, valid)
         wg2 = sc.sparse_conv_wgrad(f, dy, idx, hit, valid)
-        tr = sc.sparse_conv_transpose(idx, hit, valid, v)
-        tr_plain = sc.sparse_conv_transpose_plain(idx, hit, valid, v)
         want = {"dgrad": sc.sparse_conv_dgrad_plain(dy, idx, hit, w, valid,
                                                     v),
                 "wgrad": sc.sparse_conv_wgrad_plain(f, dy, idx, hit, valid)}
@@ -4870,38 +4907,98 @@ def check_sparse_conv_grad(cases):
         if not torch.equal(wg, wg2):
             fail(f"kernels / sparse_conv_grad {label}: two runs of the "
                  "weight-gradient kernel differ")
-        if not all(torch.equal(a, b) for a, b in zip(tr, tr_plain)):
-            fail(f"kernels / sparse_conv_grad {label}: the transpose kernel "
-                 "differs from its plain version")
-        if label.startswith("subm") and not (
-                torch.equal(tr[1], hit.flip(-1) & valid[..., None])
-                and torch.equal(tr[0], torch.where(tr[1], idx.flip(-1), 0))):
-            fail(f"kernels / sparse_conv_grad {label}: the transpose of a "
-                 "submanifold table is not the table through the mirrored "
-                 "offsets")
-        lines[label] = {"max_rel_err": err, "max_abs_err": abs_err,
-                        "hits": int((hit & valid[..., None]).sum()),
-                        "shape": f"{str(f.dtype).split('.')[-1]} feats "
-                                 f"{tuple(f.shape)}, table "
-                                 f"{tuple(idx.shape)}, W {tuple(w.shape)}"}
+        line = {"max_rel_err": err, "max_abs_err": abs_err,
+                "hits": int((hit & valid[..., None]).sum()),
+                "transpose": type(tr).__name__,
+                "shape": f"{str(f.dtype).split('.')[-1]} feats "
+                         f"{tuple(f.shape)}, table {tuple(idx.shape)}, W "
+                         f"{tuple(w.shape)}"}
+        if isinstance(tr, sc.Submanifold):
+            if not (torch.equal(scattered[1], hit.flip(-1))
+                    and torch.equal(scattered[0], torch.where(
+                        scattered[1], idx.flip(-1), 0))):
+                fail(f"kernels / sparse_conv_grad {label}: the transpose of "
+                     "a submanifold table is not the table through the "
+                     "mirrored offsets")
+            if not torch.equal(dg, on_scattered):
+                fail(f"kernels / sparse_conv_grad {label}: the mirrored data "
+                     "gradient differs from the kernel on the scattered "
+                     "transpose")
+            try:
+                sc.raise_mirror_fault()
+            except ValueError:
+                fail(f"kernels / sparse_conv_grad {label}: the mirrored data "
+                     "gradient's kernel found a fault in a submanifold table")
+            line["mirrored_bit_equal"] = True
+        if isinstance(tr, sc.Strided):
+            table = lookup.transposed_table(*tr)
+            plain = lookup.transposed_table_plain(*tr)
+            if not all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(table, plain, scattered)):
+                fail(f"kernels / sparse_conv_grad {label}: the transposed "
+                     "table differs from its plain version or the "
+                     "scattered transpose")
+            line["transposed_table_equal"] = True
+        lines[label] = line
     return lines
 
 
-def time_sparse_conv_grad(layers):
-    """layers: {label: (features, idx, hit, weights, valid, grad_out)} of
-    the train step (fp32) → per layer and kernel (the forward, dgrad and
-    the transpose it runs on but for conv_input, wgrad): ms by events and
-    in a CUDA graph, the plain version's ms (``sparse_conv_plain``;
-    autograd through it for the feature or the weight gradient), the
-    bound from :func:`sparse_conv.work` / :func:`sparse_conv.work_backward`
-    / :func:`sparse_conv.work_transpose`.
-    """
+def check_mirror_fault(case):
+    """case: a submanifold layer's (features, idx, hit, weights, valid,
+    transpose, grad_out) → {kind: True} for the tables that break the
+    submanifold contract (``valid`` a strict subset of the rows that
+    asked; valid rows that did not ask): the mirrored data gradient's
+    kernel sets its fault word and ``sparse_conv.raise_mirror_fault``
+    raises once the launch has finished, then is clear."""
     import torch
 
     from de6d_tpu_torch.ops.kernels import sparse_conv as sc
 
+    f, idx, hit, w, valid, tr, dy = case
+    subset = valid.clone()
+    subset[:, 1::4] = False
+    unasked = hit.clone()
+    unasked[:, ::3] = False
+    out = {}
+    for kind, (h, rows) in {"valid_subset": (hit, subset),
+                            "valid_not_asking": (unasked, valid)}.items():
+        sc.sparse_conv_dgrad(dy, idx, h, w, rows, f.shape[1], tr)
+        torch.cuda.synchronize()
+        try:
+            sc.raise_mirror_fault()
+        except ValueError:
+            sc.raise_mirror_fault()  # cleared
+            out[kind] = True
+        else:
+            fail(f"kernels / sparse_conv_grad: a table with {kind} rows "
+                 "raised no fault in the mirrored data gradient")
+    return out
+
+
+def time_sparse_conv_grad(layers):
+    """layers: {label: (features, idx, hit, weights, valid, transpose,
+    grad_out)} of the train step (fp32) → (per kind and layer, per step):
+    the forward, dgrad (with its table's transpose: none for a
+    submanifold layer, the transposed table for a strided one; all but
+    conv_input), wgrad and the transposition (``transposed_table`` for a
+    strided layer; 0 launches for a submanifold one): ms by events and in
+    a CUDA graph, the plain version's ms (``sparse_conv_plain``; autograd
+    through it for the feature or the weight gradient;
+    ``transposed_table_plain``), the bound from :func:`sparse_conv.work`
+    / :func:`sparse_conv.work_backward` / :func:`lookup.transposed_bytes`,
+    and the transposition's latency floor (an empty kernel's time in a
+    graph a launch); per step, the 11 data gradients and the
+    transposition each timed as one sequence of launches.
+    """
+    import torch
+
+    from de6d_tpu_torch.ops.kernels import lookup
+    from de6d_tpu_torch.ops.kernels import sparse_conv as sc
+
+    empty_ms = graph_ms(lambda: lookup.empty_kernel("cuda"))
     rows = {"forward": {}, "dgrad": {}, "wgrad": {}, "transpose": {}}
-    for label, (f, idx, hit, w, valid, dy) in layers.items():
+    dgrads, tables = [], []
+    for label, (f, idx, hit, w, valid, tr, dy) in layers.items():
         v = f.shape[1]
         work = sc.work_backward(f, idx, hit, w, valid)
         work["forward"] = sc.work(f, idx, hit, w, valid)
@@ -4917,9 +5014,12 @@ def time_sparse_conv_grad(layers):
                                                   retain_graph=True)),
         }
         if label != "subm_s1_in":
-            fns["dgrad"] = (
-                lambda: sc.sparse_conv_dgrad(dy, idx, hit, w, valid, v),
-                lambda: torch.autograd.grad(out, fp, dy, retain_graph=True))
+            dgrad = (lambda dy=dy, idx=idx, hit=hit, w=w, valid=valid, v=v,
+                     tr=tr: sc.sparse_conv_dgrad(dy, idx, hit, w, valid, v,
+                                                 tr))
+            dgrads.append(dgrad)
+            fns["dgrad"] = (dgrad, lambda: torch.autograd.grad(
+                out, fp, dy, retain_graph=True))
         for kind, (fn, plain) in fns.items():
             nbytes, ops = work[kind]
             t_ops, t_bytes = ops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
@@ -4929,25 +5029,46 @@ def time_sparse_conv_grad(layers):
                 "bound_ms": max(t_ops, t_bytes) * 1e3,
                 "bound_by": "operations" if t_ops > t_bytes else "bytes",
                 "bytes": nbytes, "flops": ops}
-        if label != "subm_s1_in":
-            nbytes = sc.work_transpose(idx, hit, valid, v)
+        if label != "subm_s1_in" and isinstance(tr, sc.Strided):
+            nbytes = lookup.transposed_bytes(tr.keys_sorted,
+                                             tr.out_keys_sorted,
+                                             idx.shape[2])
+            table = (lambda tr=tr: lookup.transposed_table(*tr))
+            tables.append(table)
             rows["transpose"][label] = {
-                "ms": time_ms(lambda: sc.sparse_conv_transpose(
-                    idx, hit, valid, v), 10),
-                "graph_ms": graph_ms(lambda: sc.sparse_conv_transpose(
-                    idx, hit, valid, v)),
-                "plain_ms": time_ms(lambda: sc.sparse_conv_transpose_plain(
-                    idx, hit, valid, v), 3),
+                "launches": 1, "ms": time_ms(table, 10),
+                "graph_ms": graph_ms(table),
+                "plain_ms": time_ms(
+                    lambda: lookup.transposed_table_plain(*tr), 3),
+                "scatter_plain_ms": time_ms(
+                    lambda: sc.sparse_conv_transpose_plain(idx, hit, valid,
+                                                           v), 3),
                 "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "latency_floor_ms": empty_ms,
                 "bound_by": "bytes", "bytes": nbytes}
+        elif label != "subm_s1_in":  # the table itself, mirrored
+            rows["transpose"][label] = dict.fromkeys(
+                ("launches", "ms", "graph_ms", "plain_ms", "scatter_plain_ms",
+                 "bound_ms", "latency_floor_ms", "bytes"), 0)
+            rows["transpose"][label]["bound_by"] = "bytes"
         del out, fp, wp
-    return rows
+
+    def run_all(fns):
+        return lambda: [fn() for fn in fns]
+
+    steps = {kind: {"launches": len(fns), "ms": time_ms(run_all(fns), 10),
+                    "graph_ms": graph_ms(run_all(fns))}
+             for kind, fns in (("dgrad", dgrads), ("transpose", tables))}
+    steps["empty_kernel_graph_ms"] = empty_ms
+    return rows, steps
 
 
 def recorded_second_train_convs(dev):
     """The 12 convs of one fp32 train-mode forward of SECOND (trained
     weights) on the fixture's batch, in call order, as (features, idx,
-    hit, weights, valid) with the tensors detached."""
+    hit, weights, valid, transpose) with the tensors detached; transpose
+    is what the conv hands its backward (``sparse_conv.Submanifold`` /
+    ``Strided``; None from a tree whose convs pass none)."""
     import torch
 
     model = build_model("float32", dev, SECOND_CFG, SECOND_PARAMS)[0]
@@ -4958,20 +5079,25 @@ def recorded_second_train_convs(dev):
         fail(f"kernels / sparse_conv_grad: {len(calls['sparse_conv'])} convs "
              "in one forward, expected 12")
     convs = {}
-    for label, (args, _) in zip(SECOND_CONVS, calls["sparse_conv"]):
-        convs[label] = tuple(a.detach() for a in args)
+    for label, (args, kwargs) in zip(SECOND_CONVS, calls["sparse_conv"]):
+        transpose = kwargs.get("transpose", (args[5:] or (None,))[0])
+        convs[label] = tuple(a.detach() for a in args[:5]) + (transpose,)
     return convs
 
 
 def phase_sparse_conv_grad(report):
     """``kernels / sparse_conv_grad``: the data gradient (the forward
-    kernel on the table's transpose), the weight-gradient
-    kernel and the transpose kernel against their plain versions on the
-    card at the 12 layers of a SECOND train step on the fixture's batch (B
-    = 4, a seeded cotangent), fp32 and bf16; the edge cases: a layer
-    without a hit, every row invalid, V = 1, a non-contiguous cotangent;
-    ms by events and in a CUDA graph, the plain versions' ms, the
-    bounds; the same timings of the fp32 forward at those 12 layers
+    kernel on the table's transpose: a submanifold layer's own table
+    through the mirrored offsets, a strided layer's transposed table),
+    the weight-gradient kernel and the transposed-table kernel against
+    their plain versions on the card at the 12 layers of a SECOND train
+    step on the fixture's batch (B = 4, a seeded cotangent), fp32 and
+    bf16; the mirrored data gradients bit-equal to the kernel on the
+    scattered transpose; the edge cases: a layer without a hit, every row
+    invalid, V = 1, a sample without sites, a non-contiguous cotangent;
+    ms by events and in a CUDA graph, the plain versions' ms, the bounds;
+    the step's transposition and its 11 data gradients each as one
+    sequence; the same timings of the fp32 forward at those 12 layers
     (``sparse_conv_fp32`` in the kernels line, with its max |d| against
     the plain version)."""
     import numpy as np
@@ -4981,46 +5107,63 @@ def phase_sparse_conv_grad(report):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     convs = recorded_second_train_convs("cuda")
+    kinds = {label: type(c[5]).__name__ for label, c in convs.items()}
+    want = {label: "Strided" if label.startswith("down") else "Submanifold"
+            for label in convs}
+    if kinds != want:
+        fail(f"kernels / sparse_conv_grad: the convs hand their backward "
+             f"{kinds}, expected {want}")
     gen = torch.Generator(device="cuda").manual_seed(13)
     layers = {}
-    for label, (f, idx, hit, w, valid) in convs.items():
+    for label, (f, idx, hit, w, valid, tr) in convs.items():
         dy = torch.randn((*idx.shape[:2], w.shape[2]), generator=gen,
                          device="cuda")
-        layers[label] = (f, idx, hit, w, valid, dy)
+        layers[label] = (f, idx, hit, w, valid, tr, dy)
+
+    def bf16(case):
+        return tuple(a.bfloat16() if torch.is_tensor(a)
+                     and a.is_floating_point() else a for a in case)
+
     cases = dict(layers)
-    cases.update({f"{k}_bf16": tuple(
-        a.bfloat16() if torch.is_tensor(a) and a.is_floating_point() else a
-        for a in c) for k, c in layers.items()})
-    f, idx, hit, w, valid, dy = layers["subm_s3a"]
+    cases.update({f"{k}_bf16": bf16(c) for k, c in layers.items()})
+    f, idx, hit, w, valid, tr, dy = layers["subm_s3a"]
     rng = np.random.RandomState(4)
     one = (torch.from_numpy(rng.randn(4, 1, 16).astype(np.float32)).cuda(),
            torch.zeros((4, 1, 27), dtype=torch.int32, device="cuda"),
            torch.zeros((4, 1, 27), dtype=torch.bool, device="cuda"),
            torch.from_numpy(rng.randn(27, 16, 16).astype(np.float32)).cuda(),
            torch.ones((4, 1), dtype=torch.bool, device="cuda"),
+           sc.Submanifold(),
            torch.from_numpy(rng.randn(4, 1, 16).astype(np.float32)).cuda())
     one[2][:, :, 13] = True  # a site is its own neighbour at the centre
-    edges = {
-        "no_hit": (f, idx, torch.zeros_like(hit), w, valid, dy),
-        "all_invalid": (f, idx, hit, w, torch.zeros_like(valid), dy),
+    empty_hit, empty_valid = hit.clone(), valid.clone()
+    empty_hit[1], empty_valid[1] = False, False  # sample 1 without sites
+    edges = {  # tables that are no layer's: no transpose
+        "no_hit": (f, idx, torch.zeros_like(hit), w, valid, None, dy),
+        "all_invalid": (f, idx, hit, w, torch.zeros_like(valid), None, dy),
         "v1": one,
-        "noncontiguous_dy": (f, idx, hit, w, valid, dy.transpose(
+        "empty_sample": (f, idx, empty_hit, w, empty_valid, tr, dy),
+        "noncontiguous_dy": (f, idx, hit, w, valid, tr, dy.transpose(
             1, 2).contiguous().transpose(1, 2)),
     }
     cases.update(edges)
-    cases.update({f"{k}_bf16": tuple(
-        a.bfloat16() if torch.is_tensor(a) and a.is_floating_point() else a
-        for a in c) for k, c in edges.items()})
+    cases.update({f"{k}_bf16": bf16(c) for k, c in edges.items()})
     lines = check_sparse_conv_grad(cases)
-    rows = time_sparse_conv_grad(layers)
+    contract = check_mirror_fault(layers["subm_s3a"])
+    rows, steps = time_sparse_conv_grad(layers)
     name = {"forward": "sparse_conv_fp32", "dgrad": "sparse_conv_dgrad",
-            "wgrad": "sparse_conv_wgrad",
-            "transpose": "sparse_conv_transpose"}
+            "wgrad": "sparse_conv_wgrad", "transpose": "transposed_table"}
     note = {"forward": "csrc/sparse_conv.cu (fp32, variant simt, at a "
                        "train step's layers)",
-            "dgrad": "csrc/sparse_conv.cu (the forward kernel on a "
-                     "transposed table)",
-            "wgrad": "csrc/sparse_conv.cu", "transpose": "csrc/sparse_conv.cu"}
+            "dgrad": "csrc/sparse_conv.cu (the forward kernel on the "
+                     "table's transpose: a submanifold layer's own table "
+                     "through the mirrored offsets, a strided layer's "
+                     "transposed table, whose time it includes)",
+            "wgrad": "csrc/sparse_conv.cu",
+            "transpose": "csrc/lookup.cu (transposed_table_kernel: a "
+                         "strided layer's data-gradient table gathered "
+                         "from its output keys, every entry written once; "
+                         "the submanifold layers launch none)"}
     for kind, per in rows.items():
         # over the train step's layers (fp32, its dtype)
         if kind == "forward":
@@ -5034,9 +5177,11 @@ def phase_sparse_conv_grad(report):
             "name": name[kind], "route": "cuda",
             "source": "de6d_tpu_torch/" + note[kind].split(" ")[0],
             # the forward replaces the Pallas gather-GEMM; the gradients
-            # what JAX differentiates, the XLA gather-GEMM, no TPU kernel
-            "replaces": "de6d_tpu/ops/pallas/sparse_gather.py:161"
-            if kind == "forward" else "de6d_tpu/ops/sparse.py:149",
+            # what JAX differentiates, the XLA gather-GEMM (a strided
+            # layer's for the transposed table), no TPU kernel
+            "replaces": {"forward": "de6d_tpu/ops/pallas/sparse_gather.py:161",
+                         "transpose": "de6d_tpu/ops/sparse.py:299"}.get(
+                kind, "de6d_tpu/ops/sparse.py:149"),
             "max_abs_err": 0.0 if kind == "transpose" else err,
             **{k: sum(r[k] for r in per.values())
                for k in ("ms", "graph_ms", "plain_ms", "bound_ms")},
@@ -5046,24 +5191,40 @@ def phase_sparse_conv_grad(report):
             "library_ms": None,
             "layers": per, "note": note[kind],
         }
+    t = report["transposed_table"]
+    t["latency_floor_ms"] = sum(r["latency_floor_ms"]
+                                for r in rows["transpose"].values())
+    t["step"] = steps["transpose"]
+    report["sparse_conv_dgrad"]["step"] = steps["dgrad"]
+    report["sparse_conv_grad_steps"] = steps
     report["sparse_conv_grad_cases"] = lines
-    fw, d, w_, t = (report[name[k]]
-                    for k in ("forward", "dgrad", "wgrad", "transpose"))
+    report["sparse_conv_grad_contract_faults"] = contract
+    fw, d, w_ = (report[name[k]] for k in ("forward", "dgrad", "wgrad"))
     print(f"kernels / sparse_conv_grad: {len(cases)} cases (the 12 train-"
           f"step layers and the edge cases {sorted(edges)}, fp32 and bf16) "
           f"within {GRAD_TOL} of the plain versions, the weight gradient "
-          f"bit-equal over two runs, the submanifold tables' transposes "
-          f"equal to their mirrored offsets; a train step's 12 fp32 "
-          f"forwards {fw['ms']:.4f} ms by events, {fw['graph_ms']:.4f} in a "
-          f"graph (plain {fw['plain_ms']:.3f}, bound {fw['bound_ms']:.5f}, "
-          f"max |d| {fw['max_abs_err']:.3g}); 11 data "
-          f"gradients "
+          f"bit-equal over two runs, the submanifold layers' mirrored data "
+          f"gradients bit-equal to the kernel on the scattered transpose, "
+          f"the strided layers' transposed tables equal to it, tables "
+          f"that break the submanifold contract raise ({sorted(contract)})"
+          f"; a train "
+          f"step's 12 fp32 forwards {fw['ms']:.4f} ms by events, "
+          f"{fw['graph_ms']:.4f} in a graph (plain {fw['plain_ms']:.3f}, "
+          f"bound {fw['bound_ms']:.5f}, max |d| {fw['max_abs_err']:.3g}); "
+          f"11 data gradients with their tables' transposes "
           f"{d['ms']:.4f} ms by events, {d['graph_ms']:.4f} in a graph "
-          f"(plain {d['plain_ms']:.3f}, bound {d['bound_ms']:.5f}); 12 "
-          f"weight gradients {w_['ms']:.4f} / {w_['graph_ms']:.4f} ms "
-          f"(plain {w_['plain_ms']:.3f}, bound {w_['bound_ms']:.5f}); 11 "
-          f"transposes {t['ms']:.4f} / {t['graph_ms']:.4f} ms (plain "
-          f"{t['plain_ms']:.3f}, bound {t['bound_ms']:.5f})", flush=True)
+          f"(as one sequence {d['step']['ms']:.4f} / "
+          f"{d['step']['graph_ms']:.4f}; plain {d['plain_ms']:.3f}, bound "
+          f"{d['bound_ms']:.5f}); 12 weight gradients {w_['ms']:.4f} / "
+          f"{w_['graph_ms']:.4f} ms (plain {w_['plain_ms']:.3f}, bound "
+          f"{w_['bound_ms']:.5f}); the step's transposition, "
+          f"{t['step']['launches']} transposed tables (the 7 submanifold "
+          f"layers 0 launches): {t['ms']:.4f} / {t['graph_ms']:.4f} ms (as "
+          f"one sequence {t['step']['ms']:.4f} / "
+          f"{t['step']['graph_ms']:.4f}; plain {t['plain_ms']:.3f}, bound "
+          f"{t['bound_ms']:.5f}, latency floor {t['latency_floor_ms']:.5f}: "
+          f"an empty kernel {steps['empty_kernel_graph_ms']:.5f} ms in a "
+          f"graph a launch)", flush=True)
     for kind, per in rows.items():
         print(f"kernels / sparse_conv_grad {kind} by layer (ms, graph ms, "
               f"bound ms): " + ", ".join(
@@ -5087,7 +5248,7 @@ def phase_train_second(report, kernels, profile):
         second_opt_cfg(), kernels, SECOND_TRAIN_LAUNCHES)
     ours = {k: sum(us for name, us, _ in rows if k in name)
             for k in ("neighbor_table_kernel", "sparse_conv_gather_kernel",
-                      "sparse_conv_wgrad", "sparse_conv_transpose")}
+                      "sparse_conv_wgrad", "transposed_table_kernel")}
     out.update(compute_dtype="float32 (second.yaml; TF32 off)",
                kernels_device_us_per_step=ours,
                profile_top=[list(r) for r in rows[:25]])
@@ -5494,8 +5655,8 @@ def main():
                     "sparse_conv": sparse_conv.sparse_conv,
                     "sparse_conv_dgrad": sparse_conv.sparse_conv_dgrad,
                     "sparse_conv_wgrad": sparse_conv.sparse_conv_wgrad,
-                    "sparse_conv_transpose":
-                        sparse_conv.sparse_conv_transpose}
+                    "sparse_conv_dgrad_mirrored": MirroredDgrad(),
+                    "transposed_table": lookup.transposed_table}
     phase_train(report, every_kernel, profile)
     phase_pipeline(report)
     ckpt = phase_train_kitti(report, every_kernel)
@@ -5616,7 +5777,7 @@ def main():
     for key in ("canvas", "canvas_grad", "nms", "nms_mask", "fps",
                 "matrix_fps", "lookup", "neighbor_table", "sparse_conv",
                 "sparse_conv_fp32", "sparse_conv_dgrad", "sparse_conv_wgrad",
-                "sparse_conv_transpose"):
+                "transposed_table"):
         k = {f: report[key][f] for f in (
             "name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}

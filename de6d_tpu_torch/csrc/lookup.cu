@@ -41,6 +41,30 @@
 //     searched every (row, offset) and divided by runtime sizes was held
 //     by its ~260 instructions a query). Results go through shared memory
 //     as idx * 2 + hit and out in (row, offset) order.
+//   * transposed_table: the data gradient's table of a strided conv (no
+//     TPU kernel behind it: JAX differentiates the XLA gather-GEMM), a
+//     gather over the input sites: input p's entry at offset k is the
+//     output site (coords(p) + padding - d_k) / stride where that divides
+//     on every axis and lies in the output grid, looked up among the
+//     layer's sorted output keys. For one offset the map is injective, so
+//     each entry is the transpose's pair (q, k) or nothing: tidx[p, k] = q
+//     where idx[q, k] = p. Bound: bytes, B * V * K * 5 written once, no
+//     memset. The scatter it replaced zeroed its whole output with three
+//     cudaMemsetAsync and wrote a lone 4-byte idx and two bytes per live
+//     pair into rows the map scattered (4 nodes a table in a CUDA graph).
+//     On an NVIDIA H100 80GB HBM3 at 700 W (sparse_conv_ab.py), a first
+//     gather, the neighbour-table kernel above with its key generator
+//     inverted, ran at ~12x its bound (0.081 ms for SECOND's 4 strided
+//     tables in a graph, slower than the scatter's 0.045): its per-block
+//     phases (heads, group windows, staging) cost more than the searches
+//     they save. This one takes 0.037 ms: a thread takes one input row,
+//     the offsets that divide come from each axis's parity (at most 8 of
+//     27 for stride 2), their output keys are searched in lockstep, 8 at
+//     a time, straight in the table (its top levels cached for the whole
+//     block; lanes without a candidate search too: skipping their loads
+//     by a branch per lane broke the lockstep, 0.054 ms), and a block of
+//     128 rows writes its results out through shared memory in (row,
+//     offset) order: one barrier, no staging.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -519,6 +543,127 @@ neighbor_table_kernel(const int* __restrict__ table,
   }
 }
 
+// ---------------------------------------------------------------------
+// transposed_table: a strided conv's table transposed onto its inputs
+// ---------------------------------------------------------------------
+
+constexpr int kTransRows = 128;  // input rows per block, one a thread
+constexpr int kSearchLanes = 8;  // output keys a thread searches at once
+
+// Offsets d in [0, k) along one axis whose output (c + pad - d) / s
+// divides exactly and lies in [0, n): first, first + s, ..., count of them
+// (the output coordinate falls by one each).
+struct AxisRun {
+  int first, count;
+};
+
+__device__ __forceinline__ AxisRun axis_run(int c, int pad, int k, int s,
+                                            int n) {
+  AxisRun run = {0, 0};
+  const int a = c + pad;
+  const int lo = max(0, a - n * s + 1);
+  const int hi = min(k - 1, a);
+  if (lo > hi) return run;
+  run.first = lo + (a - lo) % s;
+  run.count = run.first <= hi ? (hi - run.first) / s + 1 : 0;
+  return run;
+}
+
+// lower_bound of N keys in the device table tab[0, n), in lockstep (N
+// independent chains of loads in flight): the same steps for every key
+template <int N>
+__device__ __forceinline__ void lower_bounds_global(const int* tab, int n,
+                                                    const int (&key)[N],
+                                                    int (&pos)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) pos[j] = 0;
+  while (n > 1) {
+    const int half = n >> 1;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      pos[j] = __ldg(tab + pos[j] + half - 1) < key[j] ? pos[j] + half
+                                                       : pos[j];
+    }
+    n -= half;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) pos[j] += __ldg(tab + pos[j]) < key[j] ? 1 : 0;
+}
+
+__global__ void __launch_bounds__(kTransRows)
+transposed_table_kernel(const int* __restrict__ table,
+                        const int* __restrict__ ask, int* __restrict__ idx,
+                        uint8_t* __restrict__ hit,
+                        uint8_t* __restrict__ tvalid, int V, int Q,
+                        Geometry g) {
+  __shared__ int res[kMaxOffsets * kRowStride];  // idx * 2 + hit
+  const int b = blockIdx.y;
+  const int t = threadIdx.x;
+  const int K = g.kz * g.ky * g.kx;
+  const int r0 = blockIdx.x * kTransRows;
+  const int rows = min(kTransRows, Q - r0);
+  const int* tab = table + static_cast<size_t>(b) * V;
+  const int key = t < rows ? __ldg(ask + static_cast<size_t>(b) * Q + r0 + t)
+                           : kInvalid;
+  for (int k = 0; k < K; ++k) res[k * kRowStride + t] = 0;  // a miss
+  AxisRun rz = {0, 0}, ry = {0, 0}, rx = {0, 0};
+  int z = 0, y = 0, x = 0;
+  if (key != kInvalid) {
+    const int plane = g.ask_ny * g.ask_nx;
+    z = key / plane;
+    const int rem = key - z * plane;
+    y = rem / g.ask_nx;
+    x = rem - y * g.ask_nx;
+    rz = axis_run(z, g.pz, g.kz, g.sz, g.nz);
+    ry = axis_run(y, g.py, g.ky, g.sy, g.ny);
+    rx = axis_run(x, g.px, g.kx, g.sx, g.nx);
+  }
+  const int total = rz.count * ry.count * rx.count;
+  bool any = false;
+  for (int i0 = 0; i0 < total; i0 += kSearchLanes) {
+    int want[kSearchLanes], col[kSearchLanes], pos[kSearchLanes];
+#pragma unroll
+    for (int j = 0; j < kSearchLanes; ++j) {
+      const int i = i0 + j;
+      want[j] = INT_MAX;  // no candidate: found nowhere
+      col[j] = -1;
+      if (i < total) {
+        const int ix = i % rx.count, iyz = i / rx.count;
+        const int iy = iyz % ry.count, iz = iyz / ry.count;
+        const int dz = rz.first + iz * g.sz, dy = ry.first + iy * g.sy,
+                  dx = rx.first + ix * g.sx;
+        want[j] = (((z + g.pz - dz) / g.sz) * g.ny + (y + g.py - dy) / g.sy) *
+                      g.nx +
+                  (x + g.px - dx) / g.sx;
+        col[j] = (dz * g.ky + dy) * g.kx + dx;
+      }
+    }
+    lower_bounds_global<kSearchLanes>(tab, V, want, pos);
+#pragma unroll
+    for (int j = 0; j < kSearchLanes; ++j) {
+      if (col[j] >= 0 && pos[j] < V && __ldg(tab + pos[j]) == want[j]) {
+        res[col[j] * kRowStride + t] = pos[j] * 2 + 1;
+        any = true;
+      }
+    }
+  }
+  if (t < rows) tvalid[static_cast<size_t>(b) * Q + r0 + t] = any ? 1 : 0;
+  __syncthreads();
+  // out in (row, offset) order, as neighbor_table_kernel writes it
+  const size_t out0 = (static_cast<size_t>(b) * Q + r0) * K;
+  const float inv_k = 1.0f / static_cast<float>(K);
+  for (int j = t; j < rows * K; j += kTransRows) {
+    const int r = __float2int_rz((static_cast<float>(j) + 0.5f) * inv_k);
+    const int v = res[(j - r * K) * kRowStride + r];
+    idx[out0 + j] = v >> 1;
+    hit[out0 + j] = static_cast<uint8_t>(v & 1);
+  }
+}
+
+// Nothing: one launch's cost on the card, for the latency floor of a
+// short kernel (chip_smoke.py times it in a CUDA graph).
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // table (B, V) int32 ascending per row, queries (B, Q) int32 -> idx (B, Q)
@@ -560,5 +705,42 @@ extern "C" int de6d_neighbor_table(const void* table, const void* ask,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(table), static_cast<const int*>(ask),
       static_cast<int*>(idx), static_cast<uint8_t*>(hit), V, Q, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The transposed table of a strided conv, the input rows asking: table
+// (B, V) int32, the layer's output keys ascending per row; ask (B, Q)
+// int32, its input keys (any order, INVALID rows allowed, each key once);
+// geom = {nz, ny, nx (the output grid), ask_ny, ask_nx (the input grid's),
+// kz, ky, kx, sz, sy, sx, pz, py, px (the padding)} -> idx, hit (B, Q, K):
+// the output row whose neighbour k is input row q, or idx 0 and no hit;
+// tvalid (B, Q): some k of row q hits. Every entry is written once. V >= 1,
+// K <= 32, strides >= 1. Returns a cudaError_t.
+extern "C" int de6d_transposed_table(const void* table, const void* ask,
+                                     void* idx, void* hit, void* tvalid,
+                                     int B, int V, int Q, const int* geom,
+                                     void* stream) {
+  const Geometry g = {geom[0], geom[1], geom[2],  geom[3],  geom[4],
+                      geom[5], geom[6], geom[7],  geom[8],  geom[9],
+                      geom[10], geom[11], geom[12], geom[13]};
+  if (V < 1 || Q < 0 || B < 0 || g.kz * g.ky * g.kx > kMaxOffsets ||
+      g.kz < 1 || g.ky < 1 || g.kx < 1 || g.sz < 1 || g.sy < 1 ||
+      g.sx < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0 || Q == 0) return 0;
+  const dim3 grid((Q + kTransRows - 1) / kTransRows, B);
+  transposed_table_kernel<<<grid, kTransRows, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(table), static_cast<const int*>(ask),
+      static_cast<int*>(idx), static_cast<uint8_t*>(hit),
+      static_cast<uint8_t*>(tvalid), V, Q, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `blocks` blocks of 32 threads of an empty kernel. Returns a cudaError_t.
+extern "C" int de6d_empty_kernel(int blocks, void* stream) {
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  empty_kernel<<<blocks, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

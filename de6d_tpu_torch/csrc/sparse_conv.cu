@@ -32,9 +32,15 @@
 //   * Per tile and block of up to 32 offsets, the (rows x offsets) table is
 //     read once, coalesced, eight entries a thread with independent loads,
 //     as source row or -1 (a miss, or a row that is not valid) into shared
-//     memory. One pass over it gives, per offset, the live 16-row groups as
-//     a bit mask and the hit rows in order (a prefix sum over the 8 lanes
-//     of an offset); warp 0 lists the offsets with a hit. A step is one
+//     memory. The MIRROR instantiations read column K-1-k at offset k (a
+//     submanifold layer's data gradient on the forward's own table, which
+//     is its transpose through the mirrored offsets: bit-equal to the
+//     kernel on the scattered transpose, with no table built) and raise a
+//     fault word where the table breaks that contract; the forward's own
+//     instantiations hold neither. One pass over it
+//     gives, per offset, the live 16-row groups as a bit mask and the hit
+//     rows in order (a prefix sum over the 8 lanes of an offset); warp 0
+//     lists the offsets with a hit. A step is one
 //     (live offset, chunk of channels: 64 bf16, 32 fp32); an offset without
 //     a hit in the tile costs nothing.
 //   * A 2-stage ring of gathered rows, filled by cp.async (16, 8 or 4 bytes
@@ -323,7 +329,7 @@ __device__ __forceinline__ unsigned even_bits(unsigned x) {
 // kStages x chunk rows, of wstr), the table (kb x kSrcStride source rows),
 // the live masks, the hit counts, the offset list and its length, the hit
 // rows of each offset (kb x kTileRows bytes).
-template <typename T, bool RESIDENT, int PIECE, int NT>
+template <typename T, bool RESIDENT, int PIECE, int NT, bool MIRROR>
 __global__ void __launch_bounds__(
     kGatherThreads, blocks_per_sm(NT, std::is_same<T, float>::value))
 sparse_conv_gather_kernel(const T* __restrict__ feat,
@@ -333,7 +339,8 @@ sparse_conv_gather_kernel(const T* __restrict__ feat,
                           const uint8_t* __restrict__ valid,
                           T* __restrict__ out, int V, int Q, int K, int Cin,
                           int Cout, int cin_pad, int astr, int wstr,
-                          bool vec_w, int tiles_per_sample, int n_tiles) {
+                          bool vec_w, int* __restrict__ fault,
+                          int tiles_per_sample, int n_tiles) {
   constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int S = kStages;
   constexpr int PE = PIECE / static_cast<int>(sizeof(T));  // per copy
@@ -425,7 +432,11 @@ sparse_conv_gather_kernel(const T* __restrict__ feat,
       __syncthreads();  // the previous steps' readers are done
       // the table: row-major in memory, so consecutive threads read
       // consecutive entries; kTableBatch entries a thread at a time, their
-      // valid, hit and idx loads independent (idx is read on a miss too)
+      // valid, hit and idx loads independent (idx is read on a miss too).
+      // MIRROR: step k reads column K - 1 - k, which is the transpose only
+      // for a submanifold table of the valid rows: each valid row hits
+      // itself at the centre, no other row hits, and each hit of a valid
+      // row is a valid row; an entry that breaks it sets *fault
       const int n_ent = kTileRows * kb;
       for (int e0 = tid; e0 < n_ent; e0 += kGatherThreads * kTableBatch) {
         int src[kTableBatch];
@@ -435,9 +446,22 @@ sparse_conv_gather_kernel(const T* __restrict__ feat,
           const int q = q0 + e / kb;
           src[u] = -1;
           if (e < n_ent && q < Q) {
-            const size_t ent = (qbase + q) * K + k0 + e % kb;
-            const int x = __ldg(idx + ent);
-            src[u] = __ldg(valid + qbase + q) & __ldg(hit + ent) ? x : -1;
+            if constexpr (MIRROR) {
+              const int col = K - 1 - k0 - e % kb;
+              const size_t ent = (qbase + q) * K + col;
+              const int x = __ldg(idx + ent);
+              const bool h = __ldg(hit + ent);
+              const bool v = __ldg(valid + qbase + q);
+              src[u] = v & h ? x : -1;
+              if (h ? !v || x < 0 || x >= V || !__ldg(valid + qbase + x)
+                    : v && 2 * col == K - 1) {
+                *reinterpret_cast<volatile int*>(fault) = 1;
+              }
+            } else {
+              const size_t ent = (qbase + q) * K + k0 + e % kb;
+              const int x = __ldg(idx + ent);
+              src[u] = __ldg(valid + qbase + q) & __ldg(hit + ent) ? x : -1;
+            }
           }
         }
 #pragma unroll
@@ -694,12 +718,33 @@ sparse_conv_gather_kernel(const T* __restrict__ feat,
 
 int last_variant = 0;  // the variant of the last launch, for the wrapper
 
-template <typename T, bool RESIDENT, int PIECE, int NT>
-cudaError_t launch_gather(const Plan& p, const void* feat, const void* idx,
+// The MIRROR launches' fault word: pinned host memory that the card
+// writes, so that the host reads it with no sync (0: no fault yet).
+int* mirror_fault() {
+  static int* word = [] {
+    int* w = nullptr;
+    if (cudaHostAlloc(&w, sizeof(int),
+                      cudaHostAllocMapped | cudaHostAllocPortable) !=
+        cudaSuccess) {
+      return static_cast<int*>(nullptr);
+    }
+    *w = 0;
+    return w;
+  }();
+  return word;
+}
+
+template <typename T, bool RESIDENT, int PIECE, int NT, bool MIRROR>
+cudaError_t launch_kernel(const Plan& p, const void* feat, const void* idx,
                           const void* hit, const void* w, const void* valid,
                           void* out, int B, int V, int Q, int K, int Cin,
                           int Cout, bool vec_w, cudaStream_t s) {
-  auto kernel = sparse_conv_gather_kernel<T, RESIDENT, PIECE, NT>;
+  auto kernel = sparse_conv_gather_kernel<T, RESIDENT, PIECE, NT, MIRROR>;
+  int* fault = nullptr;
+  if constexpr (MIRROR) {
+    fault = mirror_fault();
+    if (fault == nullptr) return cudaErrorMemoryAllocation;
+  }
   // the attribute once per device (func_attr.cuh), the occupancy query
   // once per shared-memory size
   cudaError_t err = de6d::max_dynamic_smem(kernel, p.smem);
@@ -726,8 +771,24 @@ cudaError_t launch_gather(const Plan& p, const void* feat, const void* idx,
       static_cast<const T*>(feat), static_cast<const int*>(idx),
       static_cast<const uint8_t*>(hit), static_cast<const T*>(w),
       static_cast<const uint8_t*>(valid), static_cast<T*>(out), V, Q, K, Cin,
-      Cout, p.cin_pad, p.astr, p.wstr, vec_w, tiles_per_sample, n_tiles);
+      Cout, p.cin_pad, p.astr, p.wstr, vec_w, fault, tiles_per_sample,
+      n_tiles);
   return cudaGetLastError();
+}
+
+// the forward's kernel, or with `mirror` its data gradient's
+template <typename T, bool RESIDENT, int PIECE, int NT>
+cudaError_t launch_gather(const Plan& p, const void* feat, const void* idx,
+                          const void* hit, const void* w, const void* valid,
+                          void* out, int B, int V, int Q, int K, int Cin,
+                          int Cout, bool vec_w, bool mirror,
+                          cudaStream_t s) {
+  return mirror
+      ? launch_kernel<T, RESIDENT, PIECE, NT, true>(
+            p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w, s)
+      : launch_kernel<T, RESIDENT, PIECE, NT, false>(
+            p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w,
+            s);
 }
 
 // the kernel for (dtype, weights, copy size, accumulator tiles)
@@ -736,22 +797,26 @@ cudaError_t launch_gather_nt(const Plan& p, const void* feat, const void* idx,
                              const void* hit, const void* w,
                              const void* valid, void* out, int B, int V,
                              int Q, int K, int Cin, int Cout, bool vec_w,
-                             cudaStream_t s) {
+                             bool mirror, cudaStream_t s) {
   const int nt = nt_of(Cout);
   if (nt <= 2) {
     return launch_gather<T, RESIDENT, PIECE, 2>(
-        p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w, s);
+        p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w,
+        mirror, s);
   }
   if (nt <= 4) {
     return launch_gather<T, RESIDENT, PIECE, 4>(
-        p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w, s);
+        p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w,
+        mirror, s);
   }
   if (nt <= 8) {
     return launch_gather<T, RESIDENT, PIECE, 8>(
-        p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w, s);
+        p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w,
+        mirror, s);
   }
   return launch_gather<T, RESIDENT, PIECE, kMaxCout / 8>(
-      p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w, s);
+      p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w,
+      mirror, s);
 }
 
 template <typename T, bool RESIDENT>
@@ -759,22 +824,25 @@ cudaError_t launch_gather_piece(int piece, const Plan& p, const void* feat,
                                 const void* idx, const void* hit,
                                 const void* w, const void* valid, void* out,
                                 int B, int V, int Q, int K, int Cin, int Cout,
-                                bool vec_w, cudaStream_t s) {
+                                bool vec_w, bool mirror, cudaStream_t s) {
   switch (piece) {
     case 16:
       return launch_gather_nt<T, RESIDENT, 16>(
-          p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w, s);
+          p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w,
+        mirror, s);
     case 8:
       return launch_gather_nt<T, RESIDENT, 8>(
-          p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w, s);
+          p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w,
+        mirror, s);
     case 4:
       return launch_gather_nt<T, RESIDENT, 4>(
-          p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w, s);
+          p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w,
+        mirror, s);
     default:  // 2-byte rows: bf16 only
       if constexpr (sizeof(T) == 2) {
         return launch_gather_nt<T, RESIDENT, 2>(
             p, feat, idx, hit, w, valid, out, B, V, Q, K, Cin, Cout, vec_w,
-            s);
+            mirror, s);
       } else {
         return cudaErrorInvalidValue;
       }
@@ -786,19 +854,23 @@ cudaError_t launch_gather_dtype(const Plan& p, int piece, const void* feat,
                                 const void* idx, const void* hit,
                                 const void* w, const void* valid, void* out,
                                 int B, int V, int Q, int K, int Cin, int Cout,
-                                bool vec_w, cudaStream_t s) {
+                                bool vec_w, bool mirror, cudaStream_t s) {
   return p.resident
       ? launch_gather_piece<T, true>(piece, p, feat, idx, hit, w, valid, out,
-                                     B, V, Q, K, Cin, Cout, vec_w, s)
+                                     B, V, Q, K, Cin, Cout, vec_w, mirror, s)
       : launch_gather_piece<T, false>(piece, p, feat, idx, hit, w, valid,
-                                      out, B, V, Q, K, Cin, Cout, vec_w, s);
+                                      out, B, V, Q, K, Cin, Cout, vec_w,
+                                      mirror, s);
 }
 
 
-// ---- backward: the weight gradient and the table transpose ----------------
+// ---- backward: the weight gradient ----------------------------------------
 //
-// The data gradient is the forward kernel itself on a transposed table
-// (ops/kernels/sparse_conv.py:sparse_conv_dgrad). The weight gradient
+// The data gradient is the forward kernel itself on the table's transpose
+// (ops/kernels/sparse_conv.py:sparse_conv_dgrad): a submanifold table is
+// its own transpose through the mirrored offsets (`mirror`, no table is
+// built), a strided layer's is built by csrc/lookup.cu's transposed_table
+// (a gather, each entry written once). The weight gradient
 //
 //   dW[k] = sum over (b, q) with hit[b, q, k] and valid[b, q] of
 //           feat[b, idx[b, q, k]]^T (x) dy[b, q]          (Cin x Cout)
@@ -1147,30 +1219,6 @@ int copy_bytes(const void* ptr, int width, int esize) {
   return esize == 4 ? 4 : 2;
 }
 
-// The transpose of a strided layer's table: for each live pair (q, k),
-// tidx[b, idx[b, q, k], k] = q and thit there 1, and tvalid[b, v] = 1 for
-// every input row v that a live pair references. For a fixed k the map
-// q -> idx is injective (distinct outputs, one offset), so no two pairs
-// write one entry. One thread per (b, q, k); bytes-bound.
-__global__ void sparse_conv_transpose_kernel(
-    const int* __restrict__ idx, const uint8_t* __restrict__ hit,
-    const uint8_t* __restrict__ valid, int* __restrict__ tidx,
-    uint8_t* __restrict__ thit, uint8_t* __restrict__ tvalid, int V, int Q,
-    int K, long long total) {
-  const long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (e >= total) return;
-  const long long r = e / K;  // b * Q + q
-  if (!hit[e] || !valid[r]) return;
-  const int v = idx[e];
-  if (v < 0 || v >= V) return;
-  const long long row = (r / Q) * V + v;
-  const long long t = row * K + e % K;
-  tidx[t] = static_cast<int>(r % Q);
-  thit[t] = 1;
-  tvalid[row] = 1;
-}
-
 }  // namespace
 
 // The plan for (Cin, Cout, K) in dtype 0 (fp32) or 1 (bf16), or the forced
@@ -1195,12 +1243,15 @@ extern "C" int de6d_sparse_conv_last_variant() { return last_variant; }
 // feat (B, V, Cin), idx (B, Q, K) int32, hit (B, Q, K) uint8, w (K, Cin,
 // Cout), valid (B, Q) uint8 -> out (B, Q, Cout); feat, w and out are fp32
 // (dtype 0) or bf16 (dtype 1). `force` as for de6d_sparse_conv_plan.
-// Returns a cudaError_t.
+// `mirror` != 0: offset k reads the table's column K - 1 - k (the data
+// gradient of a submanifold conv on its own table, K odd, Q == V), and an
+// entry that breaks the submanifold contract sets the fault word that
+// de6d_sparse_conv_mirror_fault reads. Returns a cudaError_t.
 extern "C" int de6d_sparse_conv(const void* feat, const void* idx,
                                 const void* hit, const void* w,
                                 const void* valid, void* out, int B, int V,
                                 int Q, int K, int Cin, int Cout, int dtype,
-                                int force, void* stream) {
+                                int force, int mirror, void* stream) {
   if (B < 0 || V < 1 || Q < 0 || K < 1 || Cin < 1 || Cout < 1 ||
       Cout > kMaxCout || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1214,13 +1265,27 @@ extern "C" int de6d_sparse_conv(const void* feat, const void* idx,
   const int piece = copy_bytes(feat, Cin, esize);
   const bool vec_w = Cout % (16 / esize) == 0 &&
       reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (mirror && (K % 2 == 0 || Q != V)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaError_t err = dtype == 0
       ? launch_gather_dtype<float>(p, piece, feat, idx, hit, w, valid, out,
-                                   B, V, Q, K, Cin, Cout, vec_w, s)
+                                   B, V, Q, K, Cin, Cout, vec_w, mirror, s)
       : launch_gather_dtype<__nv_bfloat16>(p, piece, feat, idx, hit, w,
                                            valid, out, B, V, Q, K, Cin, Cout,
-                                           vec_w, s);
+                                           vec_w, mirror, s);
   return static_cast<int>(err);
+}
+
+// The mirrored launches' fault word as the card last wrote it, with no
+// sync (1: a finished launch met a table that is not the submanifold table
+// of its valid rows); `clear` != 0 resets it to 0.
+extern "C" int de6d_sparse_conv_mirror_fault(int clear) {
+  int* word = mirror_fault();
+  if (word == nullptr) return -1;
+  const int seen = *reinterpret_cast<volatile int*>(word);
+  if (clear) *reinterpret_cast<volatile int*>(word) = 0;
+  return seen;
 }
 
 // The weight gradient's tile for (Cin, Cout) in dtype 0 (fp32) or 1
@@ -1275,35 +1340,4 @@ extern "C" int de6d_sparse_conv_wgrad(const void* feat, const void* dy,
                                          rows, rows_per_slice, xpiece,
                                          dpiece, s);
   return static_cast<int>(err);
-}
-
-// The transpose of the table idx / hit (B, Q, K) over the valid (B, Q)
-// rows onto V input rows: tidx (B, V, K) int32 (0 where no pair), thit
-// (B, V, K) and tvalid (B, V) uint8. Returns a cudaError_t.
-extern "C" int de6d_sparse_conv_transpose(const void* idx, const void* hit,
-                                          const void* valid, void* tidx,
-                                          void* thit, void* tvalid, int B,
-                                          int V, int Q, int K, void* stream) {
-  if (B < 0 || V < 1 || Q < 0 || K < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto s = static_cast<cudaStream_t>(stream);
-  const size_t entries = static_cast<size_t>(B) * V * K;
-  cudaError_t err = cudaMemsetAsync(tidx, 0, entries * sizeof(int), s);
-  if (err == cudaSuccess) err = cudaMemsetAsync(thit, 0, entries, s);
-  if (err == cudaSuccess) {
-    err = cudaMemsetAsync(tvalid, 0, static_cast<size_t>(B) * V, s);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(B) * Q * K;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  sparse_conv_transpose_kernel<<<static_cast<unsigned>(blocks), threads, 0,
-                                 s>>>(
-      static_cast<const int*>(idx), static_cast<const uint8_t*>(hit),
-      static_cast<const uint8_t*>(valid), static_cast<int*>(tidx),
-      static_cast<uint8_t*>(thit), static_cast<uint8_t*>(tvalid), V, Q, K,
-      total);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -155,14 +155,22 @@ def lib() -> ctypes.CDLL:
                 p, p, p, p, i, i, i, ctypes.POINTER(i), p,
             ]
             handle.de6d_neighbor_table.restype = i
+            handle.de6d_transposed_table.argtypes = [
+                p, p, p, p, p, i, i, i, ctypes.POINTER(i), p,
+            ]
+            handle.de6d_transposed_table.restype = i
+            handle.de6d_empty_kernel.argtypes = [i, p]
+            handle.de6d_empty_kernel.restype = i
             handle.de6d_sparse_conv.argtypes = [
-                p, p, p, p, p, p, i, i, i, i, i, i, i, i, p,
+                p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p,
             ]
             handle.de6d_sparse_conv.restype = i
             handle.de6d_sparse_conv_plan.argtypes = [i, i, i, i, i, p]
             handle.de6d_sparse_conv_plan.restype = i
             handle.de6d_sparse_conv_last_variant.argtypes = []
             handle.de6d_sparse_conv_last_variant.restype = i
+            handle.de6d_sparse_conv_mirror_fault.argtypes = [i]
+            handle.de6d_sparse_conv_mirror_fault.restype = i
             handle.de6d_sparse_conv_wgrad.argtypes = [
                 p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_longlong,
                 i, p,
@@ -170,12 +178,13 @@ def lib() -> ctypes.CDLL:
             handle.de6d_sparse_conv_wgrad.restype = i
             handle.de6d_sparse_conv_wgrad_plan.argtypes = [i, i, i, p]
             handle.de6d_sparse_conv_wgrad_plan.restype = i
-            handle.de6d_sparse_conv_transpose.argtypes = [
-                p, p, p, p, p, p, i, i, i, i, p,
-            ]
-            handle.de6d_sparse_conv_transpose.restype = i
             _lib = handle
     return _lib
+
+
+def loaded() -> bool:
+    """Whether this process has loaded the kernel library."""
+    return _lib is not None
 
 
 def check(err: int, what: str) -> None:

@@ -1,5 +1,7 @@
-"""Sorted-table key lookup, and the neighbour table of a sparse conv with
-its keys generated in the kernel; one launch per table for the batch.
+"""Sorted-table key lookup, the neighbour table of a sparse conv with its
+keys generated in the kernel, and the transposed table of a strided conv
+(its data gradient's table) gathered from the same sorted keys; one
+launch per table for the batch.
 
 Replaces the TPU kernel ``de6d_tpu/ops/pallas/lookup.py:lookup_pallas``.
 The CUDA kernels are ``csrc/lookup.cu``: a block takes a run of queries
@@ -248,3 +250,112 @@ def neighbor_table(keys_sorted, ask_keys, grid, ask_grid, kernel,
 
 
 neighbor_table.launches = 0
+
+
+def transposed_keys_plain(keys_sorted, grid, out_grid, kernel, stride,
+                          padding):
+    """(B, V) input keys of a strided conv → (B, V, K) int32 output keys:
+    input p's output site at z-major offset k (from 0) is ``(coords(p) +
+    padding - d_k) / stride`` where that divides exactly on every axis and
+    lies in ``out_grid``, else INVALID (and for an INVALID input row): the
+    inverse of :func:`neighbor_keys_plain` with ``centered=False``."""
+    dev = keys_sorted.device
+    coords = keys_to_coords(keys_sorted, grid)
+    st = torch.tensor([int(s) for s in stride], dtype=torch.int32,
+                      device=dev)
+    pad = torch.tensor([int(p) for p in padding], dtype=torch.int32,
+                       device=dev)
+    c = (coords + pad)[:, :, None, :] - kernel_offsets(
+        kernel, dev, centered=False)[None, None]
+    ok = (((c >= 0) & (torch.remainder(c, st) == 0)).all(-1)
+          & (keys_sorted != INVALID)[..., None])
+    return coords_to_keys(torch.div(c, st, rounding_mode="floor"), out_grid,
+                          ok)
+
+
+def transposed_table_plain(keys_sorted, out_keys_sorted, grid, out_grid,
+                           kernel, stride, padding):
+    """Plain PyTorch version of :func:`transposed_table`: the output keys
+    of :func:`transposed_keys_plain` looked up by :func:`lookup_plain`."""
+    keys = transposed_keys_plain(keys_sorted, grid, out_grid, kernel, stride,
+                                 padding)
+    b, v, k = keys.shape
+    if out_keys_sorted.shape[1] == 0:
+        thit = torch.zeros((b, v, k), dtype=torch.bool, device=keys.device)
+        return torch.zeros_like(keys), thit, thit.any(-1)
+    idx, hit = lookup_plain(out_keys_sorted, keys.reshape(b, v * k))
+    thit = hit.reshape(b, v, k)
+    return torch.where(thit, idx.reshape(b, v, k), 0), thit, thit.any(-1)
+
+
+def transposed_bytes(keys_sorted, out_keys_sorted, k: int) -> int:
+    """Bytes :func:`transposed_table` must move: both key tables read once,
+    (tidx, thit) written once per (input row, offset) and tvalid once per
+    input row."""
+    b, v = keys_sorted.shape
+    return b * v * 4 + out_keys_sorted.numel() * 4 + b * v * (k * 5 + 1)
+
+
+def transposed_table(keys_sorted, out_keys_sorted, grid, out_grid, kernel,
+                     stride, padding):
+    """The transpose of a strided conv's neighbour table
+    (:func:`neighbor_table` of ``out_keys_sorted`` asking ``keys_sorted``
+    with ``centered=False``) onto its input rows, built from the geometry:
+    (tidx (B, V, K) int32, thit (B, V, K) bool, tvalid (B, V) bool) with
+    ``thit[b, p, k]`` iff input row p is output row q's neighbour at
+    offset k (q a valid output row), then ``tidx[b, p, k] = q``, else 0;
+    ``tvalid`` the rows with a hit. Equal to
+    ``sparse_conv.sparse_conv_transpose_plain`` of that table when every
+    key of ``keys_sorted`` occurs once (the site lists do). ``keys_sorted``
+    (B, V) int32 in ``grid``, INVALID rows anywhere; ``out_keys_sorted``
+    (B, Q) ascending with an INVALID tail, in ``out_grid``.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/lookup.cu``'s ``transposed_table_kernel`` (a thread an input
+    row: the offsets that divide, their output keys searched in the
+    table; every entry written once, no memset), one launch counted in
+    ``transposed_table.launches``."""
+    if not _check_tables("transposed_table", out_keys_sorted, keys_sorted):
+        return transposed_table_plain(keys_sorted, out_keys_sorted, grid,
+                                      out_grid, kernel, stride, padding)
+    b, q = out_keys_sorted.shape
+    if q > MAX_TABLE:
+        raise ValueError(f"transposed_table: table of {q} keys")
+    if min(int(s) for s in stride) < 1:
+        raise ValueError(f"transposed_table: stride {stride}")
+    k, geom = _geometry(tuple(out_grid), tuple(grid), tuple(kernel),
+                        tuple(stride), tuple(padding), False)
+    v = keys_sorted.shape[1]
+    dev = keys_sorted.device
+    if q == 0:  # no output site: no hit, idx 0
+        return (torch.zeros((b, v, k), dtype=torch.int32, device=dev),
+                torch.zeros((b, v, k), dtype=torch.bool, device=dev),
+                torch.zeros((b, v), dtype=torch.bool, device=dev))
+    tidx = torch.empty((b, v, k), dtype=torch.int32, device=dev)
+    thit = torch.empty((b, v, k), dtype=torch.bool, device=dev)
+    tvalid = torch.empty((b, v), dtype=torch.bool, device=dev)
+    if b and v:
+        out_keys_sorted = out_keys_sorted.contiguous()
+        keys_sorted = keys_sorted.contiguous()
+        build.check(build.lib().de6d_transposed_table(
+            out_keys_sorted.data_ptr(), keys_sorted.data_ptr(),
+            tidx.data_ptr(), thit.data_ptr(), tvalid.data_ptr(), b, q, v,
+            geom, torch.cuda.current_stream(dev).cuda_stream),
+            "transposed_table")
+        transposed_table.launches += 1
+    return tidx, thit, tvalid
+
+
+transposed_table.launches = 0
+
+
+def empty_kernel(device, blocks: int = 1) -> None:
+    """Launch an empty kernel of ``blocks`` blocks on ``device``'s current
+    stream: what one launch costs, the latency floor of a short kernel.
+    CUDA only; not counted."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"empty_kernel: unsupported device {dev}")
+    build.check(build.lib().de6d_empty_kernel(
+        int(blocks), torch.cuda.current_stream(dev).cuda_stream),
+        "empty_kernel")

@@ -21,11 +21,17 @@ counts what the tiles see on a table.
 ``torch.autograd.Function``), giving what ``jax.grad`` gives of the JAX
 package's ``subm_conv_table`` / ``strided_conv``. On the card its
 backward launches only hand kernels: the data gradient is this same
-forward kernel on the table's transpose (:func:`sparse_conv_transpose`)
-with transposed weights (:func:`sparse_conv_dgrad`), the weight gradient
-is its own kernel (:func:`sparse_conv_wgrad`, channel tiles sized by the
-layer's widths, one offset a warp, deterministic). CPU tensors take the
-plain versions, forward and backward.
+forward kernel on the table's transpose with transposed weights
+(:func:`sparse_conv_dgrad`), the weight gradient is its own kernel
+(:func:`sparse_conv_wgrad`, channel tiles sized by the layer's widths,
+one offset a warp, deterministic). The caller says how the transpose is
+had (:func:`dgrad_operands`): a submanifold table is its own transpose
+through the mirrored offsets (:class:`Submanifold`: the kernel reads
+column K-1-k at step k, no table is built, and a table that breaks the
+contract raises at the next check, :func:`raise_mirror_fault`), a
+strided layer's is built from its geometry (:class:`Strided`:
+``lookup.transposed_table``, one launch that writes each entry once).
+CPU tensors take the plain versions, forward and backward.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from . import build
+from .lookup import transposed_table
 
 MAX_COUT = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -171,9 +178,10 @@ def _devices(what, *tensors):
                          f"{[str(t.device) for t in tensors]}")
 
 
-def _launch(features, idx, hit, weights, valid, variant):
+def _launch(features, idx, hit, weights, valid, variant, mirror=False):
     """Launch ``csrc/sparse_conv.cu`` on CUDA tensors: the variant of
-    :func:`plan`, or the named one."""
+    :func:`plan`, or the named one; ``mirror``: step k reads the table's
+    column K-1-k."""
     tensors = (features, idx, hit, weights, valid)
     b, v, cin = features.shape
     k, _, cout = weights.shape
@@ -199,7 +207,7 @@ def _launch(features, idx, hit, weights, valid, variant):
         features.data_ptr(), idx.data_ptr(), hit.data_ptr(),
         weights.data_ptr(), valid.data_ptr(), out.data_ptr(), b, v, q, k,
         cin, cout, _DTYPE_CODE[features.dtype],
-        0 if variant is None else VARIANTS[variant],
+        0 if variant is None else VARIANTS[variant], int(bool(mirror)),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(err, "sparse_conv")
@@ -210,12 +218,87 @@ def _on_cpu(*tensors):
     return all(t.device.type == "cpu" for t in tensors)
 
 
+class Submanifold:
+    """Marks the table as ``ops.sparse.subm_neighbor_table(keys, grid,
+    kernel)`` of the sites for a centred kernel, odd in every axis, with
+    every site asking, and ``valid`` as the sites: the table is its own
+    transpose through the mirrored offsets (offset K-1-k is the negation
+    of offset k), ``tidx[q, k] = idx[q, K-1-k]``, ``thit`` likewise,
+    ``tvalid = valid``."""
+
+    __slots__ = ()
+
+    def __repr__(self):
+        return "Submanifold()"
+
+
+class Strided(NamedTuple):
+    """The table is ``ops.sparse.strided_neighbor_table`` of this geometry
+    (each input key once): its transpose is ``lookup.transposed_table``
+    of the same arguments."""
+
+    keys_sorted: torch.Tensor
+    out_keys_sorted: torch.Tensor
+    grid: tuple
+    out_grid: tuple
+    kernel: tuple
+    stride: tuple
+    padding: tuple
+
+
+def _check_transpose(transpose, idx, hit, valid, v: int):
+    """Raise unless ``transpose`` (None, :class:`Submanifold` or
+    :class:`Strided`) fits the table (B, Q, K) over V input rows. A
+    submanifold table is square with an odd K (a centred kernel odd in
+    every axis, so offset K-1-k mirrors offset k); its rows are checked
+    too: every valid row asks (hits itself at the centre), no other row
+    hits, and every hit of a valid row is a valid row. On CPU tensors that
+    is checked here; on the card the mirrored data gradient's kernel
+    checks each entry it reads and raises a fault word with no host sync
+    (:func:`raise_mirror_fault`)."""
+    b, q, k = idx.shape
+    if transpose is None:
+        return
+    if isinstance(transpose, Submanifold):
+        if k % 2 == 0 or q != v:
+            raise ValueError(
+                f"sparse_conv: a submanifold table needs an odd number of "
+                f"offsets (a centred kernel) and Q == V; got K = {k}, "
+                f"Q = {q}, V = {v}")
+        if _on_cpu(idx, hit, valid):
+            live = hit & valid[..., None]
+            to = torch.gather(valid, 1, torch.where(live, idx, 0).long()
+                              .reshape(b, q * k)).reshape(b, q, k)
+            if not (bool((hit[..., k // 2] | ~valid).all())
+                    and not bool((hit.any(-1) & ~valid).any())
+                    and bool((to | ~live).all())):
+                raise ValueError(
+                    "sparse_conv: not a submanifold table of its valid "
+                    "rows (every valid row must ask and only they, every "
+                    "hit a valid row): its transpose is not the mirrored "
+                    "table")
+    elif isinstance(transpose, Strided):
+        kz, ky, kx = (int(n) for n in transpose.kernel)
+        if (kz * ky * kx != k
+                or tuple(transpose.keys_sorted.shape) != (b, v)
+                or tuple(transpose.out_keys_sorted.shape) != (b, q)):
+            shapes = (tuple(transpose.keys_sorted.shape),
+                      tuple(transpose.out_keys_sorted.shape))
+            raise ValueError(
+                f"sparse_conv: strided geometry with kernel "
+                f"{transpose.kernel}, keys {shapes[0]}, out keys {shapes[1]}"
+                f" does not fit the table {tuple(idx.shape)} over V = {v}")
+    else:
+        raise TypeError("sparse_conv: transpose must be None, Submanifold "
+                        f"or Strided, not {type(transpose)}")
+
+
 class _SparseConv(torch.autograd.Function):
     """The convolution with its backward: the plain versions on the CPU,
     the kernels on the card."""
 
     @staticmethod
-    def forward(ctx, features, weights, idx, hit, valid):
+    def forward(ctx, features, weights, idx, hit, valid, transpose):
         if _on_cpu(features, idx, hit, weights, valid):
             out = sparse_conv_plain(features, idx, hit, weights, valid)
         else:
@@ -223,6 +306,7 @@ class _SparseConv(torch.autograd.Function):
             sparse_conv.launches += 1
         need_feat, need_w = ctx.needs_input_grad[:2]
         ctx.v = features.shape[1]
+        ctx.transpose = transpose
         ctx.save_for_backward(features if need_w else None,
                               weights if need_feat else None, idx, hit,
                               valid)
@@ -234,13 +318,13 @@ class _SparseConv(torch.autograd.Function):
         d_feat = d_w = None
         if ctx.needs_input_grad[0]:
             d_feat = sparse_conv_dgrad(grad_out, idx, hit, weights, valid,
-                                       ctx.v)
+                                       ctx.v, ctx.transpose)
         if ctx.needs_input_grad[1]:
             d_w = sparse_conv_wgrad(features, grad_out, idx, hit, valid)
-        return d_feat, d_w, None, None, None
+        return d_feat, d_w, None, None, None, None
 
 
-def sparse_conv(features, idx, hit, weights, valid):
+def sparse_conv(features, idx, hit, weights, valid, transpose=None):
     """features (B, V, Cin) fp32 or bf16, neighbour table idx (B, Q, K)
     int32 / hit (B, Q, K) bool (rows of ``features``; ``idx`` is read
     only where ``hit``), weights (K, Cin, Cout) of the features' dtype,
@@ -248,13 +332,16 @@ def sparse_conv(features, idx, hit, weights, valid):
     ``out[b, q] = Σ_k hit[b,q,k] · features[b, idx[b,q,k]] @ weights[k]``
     summed in fp32, cast to the features' dtype, zero where not valid.
 
-    Differentiable in ``features`` and ``weights``.
+    Differentiable in ``features`` and ``weights``; ``transpose`` says how
+    the data gradient gets the table's transpose (:func:`dgrad_operands`),
+    and the data gradient on the card raises without it.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     variant of :func:`plan`, and their backward the kernels.
     """
     _check(features, idx, hit, weights, valid)
-    return _SparseConv.apply(features, weights, idx, hit, valid)
+    _check_transpose(transpose, idx, hit, valid, features.shape[1])
+    return _SparseConv.apply(features, weights, idx, hit, valid, transpose)
 
 
 sparse_conv.launches = 0
@@ -297,16 +384,23 @@ def sparse_conv_wgrad_plain(features, grad_out, idx, hit, valid):
 
 
 def sparse_conv_transpose_plain(idx, hit, valid, v: int):
-    """Plain version of :func:`sparse_conv_transpose`. Raises ValueError
-    where two live pairs of one offset reference one input row (the
-    table of a convolution never does)."""
+    """The transpose of a convolution's table onto its V input rows, by a
+    scatter: (tidx (B, V, K) int32, thit (B, V, K) bool, tvalid (B, V)
+    bool) with ``tidx[b, idx[b,q,k], k] = q`` and ``thit`` there for every
+    live pair (``hit ∧ valid[b, q]``), ``tidx`` 0 elsewhere, and
+    ``tvalid`` the input rows some live pair references: the reference
+    that the mirrored table and ``lookup.transposed_table`` are held
+    against (the forward on it with transposed weights is the data
+    gradient of any table). Raises ValueError where two live pairs of one
+    offset reference one input row (the table of a convolution never
+    does)."""
     b, q, k = idx.shape
     live = hit & valid[..., None]
     rows = torch.where(live, idx.long(), v)  # dead pairs: a spare row v
     count = torch.zeros((b, v + 1, k), dtype=torch.int32, device=idx.device)
     count.scatter_add_(1, rows, live.to(torch.int32))
     if bool((count[:, :v] > 1).any()):
-        raise ValueError("sparse_conv_transpose: two live pairs of one "
+        raise ValueError("sparse_conv_transpose_plain: two live pairs of one "
                          "offset reference one input row")
     src = torch.arange(q, dtype=torch.int32, device=idx.device)
     tidx = torch.zeros((b, v + 1, k), dtype=torch.int32, device=idx.device)
@@ -316,61 +410,68 @@ def sparse_conv_transpose_plain(idx, hit, valid, v: int):
     return tidx, thit, thit.any(-1)
 
 
-def sparse_conv_transpose(idx, hit, valid, v: int):
-    """The transpose of a convolution's table onto its V input rows:
-    (tidx (B, V, K) int32, thit (B, V, K) bool, tvalid (B, V) bool) with
-    ``tidx[b, idx[b,q,k], k] = q`` and ``thit`` there for every live pair
-    (``hit ∧ valid[b, q]``), ``tidx`` 0 elsewhere, and ``tvalid`` the
-    input rows some live pair references. For one offset the outputs
-    reference distinct input rows, so the scatter has no collisions.
-
-    CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/sparse_conv.cu``'s transpose kernel (one launch, counted)."""
-    if _on_cpu(idx, hit, valid):
-        return sparse_conv_transpose_plain(idx, hit, valid, v)
-    b, q, k = idx.shape
-    dev = idx.device
-    _devices("sparse_conv_transpose", idx, hit, valid)
-    tidx = torch.empty((b, v, k), dtype=torch.int32, device=dev)
-    thit = torch.empty((b, v, k), dtype=torch.bool, device=dev)
-    tvalid = torch.empty((b, v), dtype=torch.bool, device=dev)
-    idx, hit, valid = (t.contiguous() for t in (idx, hit, valid))
-    build.check(build.lib().de6d_sparse_conv_transpose(
-        idx.data_ptr(), hit.data_ptr(), valid.data_ptr(), tidx.data_ptr(),
-        thit.data_ptr(), tvalid.data_ptr(), b, v, q, k,
-        torch.cuda.current_stream(dev).cuda_stream),
-        "sparse_conv_transpose")
-    sparse_conv_transpose.launches += 1
-    return tidx, thit, tvalid
+def dgrad_operands(weights, idx, hit, valid, v: int, transpose):
+    """(table idx, table hit, output rows, weights, mirror) on which the
+    forward kernel computes the data gradient onto V input rows, with
+    ``weights`` transposed: for :class:`Submanifold` the forward's own
+    table and ``valid`` with ``mirror`` (step k reads column K-1-k; no
+    table is built; the kernel checks the contract), for :class:`Strided`
+    ``lookup.transposed_table`` of its geometry
+    (``sparse_conv_transpose_plain`` of the table, built from the keys
+    instead of scattered)."""
+    wt = weights.transpose(1, 2).contiguous()
+    if isinstance(transpose, Submanifold):
+        return idx, hit, valid, wt, True
+    if isinstance(transpose, Strided):
+        return (*transposed_table(*transpose), wt, False)
+    raise ValueError("sparse_conv_dgrad: the data gradient on the card needs "
+                     "the table's transpose (Submanifold or Strided), not "
+                     f"{transpose!r}")
 
 
-sparse_conv_transpose.launches = 0
-
-
-def dgrad_operands(weights, idx, hit, valid, v: int):
-    """(table idx, table hit, output rows, weights) on which the forward
-    computes the data gradient onto V input rows: the table's
-    :func:`sparse_conv_transpose` with ``weights`` transposed."""
-    tidx, thit, tvalid = sparse_conv_transpose(idx, hit, valid, v)
-    return tidx, thit, tvalid, weights.transpose(1, 2).contiguous()
-
-
-def sparse_conv_dgrad(grad_out, idx, hit, weights, valid, v: int):
+def sparse_conv_dgrad(grad_out, idx, hit, weights, valid, v: int,
+                      transpose=None):
     """The data gradient of :func:`sparse_conv` onto its V input rows
     (``sparse_conv_dgrad_plain``'s function). CPU tensors take the plain
     version; CUDA tensors launch the forward kernel on
-    :func:`dgrad_operands` (its width out is the forward's Cin, at most
-    :data:`MAX_COUT`), counted in ``sparse_conv_dgrad.launches``."""
+    :func:`dgrad_operands` of ``transpose`` (its width out is the
+    forward's Cin, at most :data:`MAX_COUT`), counted in
+    ``sparse_conv_dgrad.launches``, and those on a mirrored table also in
+    ``sparse_conv_dgrad.mirrored``. A card call first raises a fault that
+    an earlier mirrored launch has left (:func:`raise_mirror_fault`)."""
     if _on_cpu(grad_out, idx, hit, weights, valid):
         return sparse_conv_dgrad_plain(grad_out, idx, hit, weights, valid, v)
-    t_idx, t_hit, rows, wt = dgrad_operands(weights, idx, hit, valid, v)
+    raise_mirror_fault()
+    _check_transpose(transpose, idx, hit, valid, v)
+    t_idx, t_hit, rows, wt, mirror = dgrad_operands(weights, idx, hit, valid,
+                                                    v, transpose)
     _check(grad_out, t_idx, t_hit, wt, rows)
-    out = _launch(grad_out, t_idx, t_hit, wt, rows, None)
+    out = _launch(grad_out, t_idx, t_hit, wt, rows, None, mirror)
     sparse_conv_dgrad.launches += 1
+    sparse_conv_dgrad.mirrored += int(mirror)
     return out
 
 
 sparse_conv_dgrad.launches = 0
+sparse_conv_dgrad.mirrored = 0
+
+
+def raise_mirror_fault():
+    """Raise ValueError if a mirrored data gradient that has finished on
+    the card read a table that is not the submanifold table of its valid
+    rows (a valid row that does not hit itself at the centre, a row that
+    is not valid and hits, or a hit of a valid row that is not valid):
+    its result is not the data gradient. Reads the kernel's fault word
+    without a sync, so a launch still in flight is seen at a later call
+    (after a sync, at the next); clears the word. Does nothing before the
+    kernels are loaded."""
+    if build.loaded() and build.lib().de6d_sparse_conv_mirror_fault(1) > 0:
+        raise ValueError(
+            "sparse_conv_dgrad: a mirrored data gradient ran on a table "
+            "that is not the submanifold table of its valid rows (every "
+            "valid row must ask and only they, every hit a valid row); its "
+            "result is wrong")
+
 
 # csrc/sparse_conv.cu's wgrad_plan(): the channel tiles (Cin x Cout side)
 WGRAD_TILES = ((16, 16), (16, 32), (32, 32), (32, 64))
@@ -614,14 +715,3 @@ def work_backward(features, idx, hit, weights, valid):
         "wgrad": (table + dy_rows + int(rows.sum()) * cin * s
                   + k * cin * cout * s, ops),
     }
-
-
-def work_transpose(idx, hit, valid, v: int):
-    """Bytes :func:`sparse_conv_transpose` needs on these inputs (it does
-    no arithmetic): ``valid`` once, ``hit`` of every (q, k) of a valid
-    row, ``idx`` only where that hits, and the (B, V, K) ``tidx`` /
-    ``thit`` and (B, V) ``tvalid`` written once."""
-    b, q, k = idx.shape
-    hits = int((hit & valid[..., None]).sum())
-    return (int(valid.sum()) * k + hits * 4 + b * q + b * v * k * (4 + 1)
-            + b * v)

@@ -10,7 +10,10 @@ table (``ops/kernels/sparse_conv.py``, differentiable in the features
 and the weights); both tables come from one neighbour-table launch that
 generates the neighbour keys itself. Every function returns what the JAX
 function returns, vmapped over B, and its gradient what ``jax.grad``
-gives.
+gives. The convolutions tell the kernel how their data gradient gets
+the table's transpose: a submanifold table through its mirrored offsets,
+a strided layer's from its geometry (``sparse_conv.Submanifold`` /
+``Strided``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from .kernels.lookup import (  # noqa: F401  (the JAX API)
     INVALID, _floordiv, coords_to_keys, keys_to_coords, lookup,
     neighbor_table,
 )
-from .kernels.sparse_conv import sparse_conv
+from .kernels.sparse_conv import Strided, Submanifold, sparse_conv
 
 
 def sort_sparse(features, keys):
@@ -45,9 +48,16 @@ def subm_neighbor_table(keys_sorted, grid, kernel=(3, 3, 3), valid=None):
 
 def subm_conv_table(features, table_idx, table_hit, weights, valid):
     """Submanifold conv from a stage's table: features (B, V, Cin), the
-    :func:`subm_neighbor_table` of the sites (B, V, K), weights (K, Cin,
-    Cout), valid (B, V) = the sites → (B, V, Cout)."""
-    return sparse_conv(features, table_idx, table_hit, weights, valid)
+    :func:`subm_neighbor_table` of the sites (B, V, K) for a centred
+    kernel with every site asking, weights (K, Cin, Cout), valid (B, V) =
+    the sites → (B, V, Cout). Such a table is its own transpose through
+    the mirrored offsets, so on the card the data gradient runs on it as
+    it is (``sparse_conv.Submanifold``; raises for an even K or a table
+    that is not square, and for rows that break the contract: on CPU
+    tensors here, on the card at a later ``sparse_conv_dgrad`` or
+    ``sparse_conv.raise_mirror_fault``)."""
+    return sparse_conv(features, table_idx, table_hit, weights, valid,
+                       transpose=Submanifold())
 
 
 def downsample_coords(keys_sorted, grid, stride, padding, max_out: int,
@@ -97,11 +107,16 @@ def strided_neighbor_table(keys_sorted, out_keys_sorted, grid, out_grid,
 def strided_conv(features, keys_sorted, grid, weights, kernel, stride,
                  padding, out_keys_sorted, out_grid):
     """Strided sparse conv onto precomputed output sites:
-    ``out[o] = Σ_k W_k · in[o * stride − pad + k]``."""
+    ``out[o] = Σ_k W_k · in[o * stride − pad + k]``. Its data gradient
+    runs on the transposed table built from the same geometry
+    (``sparse_conv.Strided``, ``lookup.transposed_table``)."""
     idx, hit = strided_neighbor_table(keys_sorted, out_keys_sorted, grid,
                                       out_grid, kernel, stride, padding)
+    geometry = Strided(keys_sorted, out_keys_sorted, tuple(grid),
+                       tuple(out_grid), tuple(kernel), tuple(stride),
+                       tuple(padding))
     return sparse_conv(features, idx, hit, weights,
-                       out_keys_sorted != INVALID)
+                       out_keys_sorted != INVALID, transpose=geometry)
 
 
 def unique_keys(keys, size: int):

@@ -5,7 +5,10 @@ an optional ``torch.profiler`` window.
 
 The loop keeps a 1-deep pipeline: after queueing step k it waits only
 for step k-1 (a CUDA event recorded after it), so the host prepares the
-next batch while the card runs.
+next batch while the card runs. After each wait it raises a fault that
+a finished mirrored sparse-conv data gradient left
+(``sparse_conv.raise_mirror_fault``: a submanifold table that breaks its
+contract).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..ops.kernels.sparse_conv import raise_mirror_fault
 from ..utils.common_utils import AverageMeter
 from .checkpoint import save_checkpoint
 from .train_state import make_train_step
@@ -96,6 +100,7 @@ def train_model(
             state, metrics = train_step(state, device_batch(batch, device))
             if prev_done is not None:
                 prev_done.synchronize()
+                raise_mirror_fault()
             prev_done = None
             if device.type == "cuda":
                 prev_done = torch.cuda.Event()
@@ -140,6 +145,7 @@ def train_model(
                 logger.info(f"saved checkpoint epoch {epoch + 1}")
     if prev_done is not None:
         prev_done.synchronize()
+        raise_mirror_fault()
     if prof is not None:
         prof.__exit__(None, None, None)
     return state

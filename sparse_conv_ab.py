@@ -6,6 +6,14 @@ card, at SECOND's shapes, so that two commits can be compared on one card:
   (the 8 scans: fp32 copies of one bf16 forward's inputs);
 * the train step's 11 data gradients (each with its table's transpose)
   and 12 weight gradients, on a seeded cotangent;
+* the train step's transposition: every table transpose its data
+  gradients launch (a tree whose convs hand their backward no transpose
+  geometry scatters each of the 11 layers' tables,
+  ``sparse_conv.sparse_conv_transpose``; one that does builds the 4
+  strided layers' tables, ``lookup.transposed_table``, and runs the 7
+  submanifold ones on their own tables), per layer and as one sequence,
+  and the 11 data gradients as one sequence; where the tree has one, an
+  empty kernel's time in a CUDA graph (a launch's latency floor);
 * the 12 bf16 served forwards.
 
 Each is timed by CUDA events over back-to-back calls and in a CUDA graph
@@ -19,12 +27,15 @@ per tree in turns (parent, change, change, parent) within one call:
 kernels are built) instead of this one's; the inputs and the timing come
 from this checkout's ``chip_smoke.py``. Prints each group's totals and
 per-layer ms and the card's name and power limit, and writes every
-number to ``chiprun_out/sparse_conv_ab_<label>.json``. Needs a card.
+number, with how many of the gather kernel's instantiations spill
+registers in this build (``ptxas -v``), to
+``chiprun_out/sparse_conv_ab_<label>.json``. Needs a card.
 """
 
 import argparse
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -78,12 +89,32 @@ def main():
     def timed(fn):
         return {"ms": cs.time_ms(fn, 10), "graph_ms": cs.graph_ms(fn)}
 
+    # how this tree's data gradient gets its table's transpose
+    mirrored_tree = hasattr(sc, "Submanifold")
+    if mirrored_tree:
+        from de6d_tpu_torch.ops.kernels import lookup
+
+    def dgrad(dy, idx, hit, w, valid, v, tr):
+        if mirrored_tree:
+            return lambda: sc.sparse_conv_dgrad(dy, idx, hit, w, valid, v, tr)
+        return lambda: sc.sparse_conv_dgrad(dy, idx, hit, w, valid, v)
+
+    def transposition(idx, hit, valid, v, tr):
+        """The layer's table transpose as its data gradient launches it,
+        or None where it launches none."""
+        if not mirrored_tree:
+            return lambda: sc.sparse_conv_transpose(idx, hit, valid, v)
+        if isinstance(tr, sc.Strided):
+            return lambda: lookup.transposed_table(*tr)
+        return None
+
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
 
     out = {"label": args.label, "tree": str(args.tree), "build_s": built_s}
     groups = {}
-    for label, (f, idx, hit, w, valid) in train.items():
+    dgrads, tables = [], []
+    for label, (f, idx, hit, w, valid, tr) in train.items():
         v, dy = f.shape[1], dys[label]
         row = groups.setdefault("train_fp32_forward", {})
         row[label] = timed(lambda: sc.sparse_conv(f, idx, hit, w, valid))
@@ -91,18 +122,28 @@ def main():
             sc.sparse_conv(f, idx, hit, w, valid),
             sc.sparse_conv_plain(f, idx, hit, w, valid))
         if label != "subm_s1_in":
-            groups.setdefault("train_dgrad", {})[label] = timed(
-                lambda: sc.sparse_conv_dgrad(dy, idx, hit, w, valid, v))
+            dgrads.append(dgrad(dy, idx, hit, w, valid, v, tr))
+            groups.setdefault("train_dgrad", {})[label] = timed(dgrads[-1])
+            table = transposition(idx, hit, valid, v, tr)
+            row = groups.setdefault("train_transposition", {})
+            row[label] = {"launches": 0, "ms": 0.0, "graph_ms": 0.0}
+            if table is not None:
+                tables.append(table)
+                row[label] = {"launches": 1, **timed(table)}
         groups.setdefault("train_wgrad", {})[label] = timed(
             lambda: sc.sparse_conv_wgrad(f, dy, idx, hit, valid))
+    for name, fns in (("train_dgrad_sequence", dgrads),
+                      ("train_transposition_sequence", tables)):
+        groups[name] = {"all": {"launches": len(fns), **timed(
+            lambda fns=fns: [fn() for fn in fns])}}
     for label, a in served32.items():
         row = groups.setdefault("serve_fp32_forward", {})
-        row[label] = {"ms": cs.time_ms(lambda: sc.sparse_conv(*a), 10),
+        row[label] = {**timed(lambda: sc.sparse_conv(*a)),
                       "max_abs_err": err(sc.sparse_conv(*a),
                                          sc.sparse_conv_plain(*a))}
     for label, a in served.items():
-        groups.setdefault("serve_bf16_forward", {})[label] = {
-            "ms": cs.time_ms(lambda: sc.sparse_conv(*a), 10)}
+        groups.setdefault("serve_bf16_forward", {})[label] = timed(
+            lambda: sc.sparse_conv(*a))
     for name, rows in groups.items():
         keys = next(iter(rows.values())).keys()
         out[name] = {"total": {k: sum(r[k] for r in rows.values())
@@ -110,6 +151,16 @@ def main():
                                max(r[k] for r in rows.values())
                                for k in keys},
                      "layers": rows}
+    if mirrored_tree and hasattr(lookup, "empty_kernel"):
+        out["empty_kernel_graph_ms"] = cs.graph_ms(
+            lambda: lookup.empty_kernel("cuda"))
+    # gather-kernel instantiations that spill, from this build's ptxas -v
+    spills = [int(n) for n in re.findall(
+        r"sparse_conv_gather_kernel.*?\n.*?(\d+) bytes spill stores",
+        build.build_info.get("ptxas", ""))]
+    if spills:
+        out["gather_spills"] = {"instantiations": len(spills),
+                                "spilling": sum(n > 0 for n in spills)}
     out["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -125,7 +176,9 @@ def main():
               + " ".join(f"{k} {r['ms']:.4f}" for k, r in rows.items()),
               flush=True)
     print(f"sparse_conv_ab {args.label}: {out['device']}, "
-          f"{out['nvidia_smi']}, build {built_s:.1f} s", flush=True)
+          f"{out['nvidia_smi']}, build {built_s:.1f} s, an empty kernel "
+          f"{out.get('empty_kernel_graph_ms', float('nan')):.5f} ms in a "
+          "graph", flush=True)
 
 
 if __name__ == "__main__":

@@ -14,6 +14,8 @@ everywhere). The sparse convolution sums in fp32 in another order than
 the plain version's matmul: fp32 within 1e-5 absolute + 1e-5 relative,
 bf16 within 1e-2 + 1e-2 (one bf16 rounding can move by 2^-7)."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -616,9 +618,19 @@ def test_grad_guard_on_the_card(cuda_device):  # noqa: F811
             want.abs().max())
 
 
+def on_scattered(dy, w, scattered):
+    """The forward kernel on the scattered transpose with transposed
+    weights: the data gradient of any table (kernel 7 as the data gradient
+    runs it, without the mirrored read)."""
+    return sparse_conv.sparse_conv(dy, scattered[0], scattered[1],
+                                   w.transpose(1, 2).contiguous(),
+                                   scattered[2])
+
+
 def conv_grad_inputs(rng, strided, dtype, device, cin=16, cout=32):
     """A SECOND-like layer on sites of a (21, 80, 70) grid: (features,
-    idx, hit, weights, valid, grad_out, V)."""
+    idx, hit, weights, valid, grad_out, V, the transpose its conv hands
+    the backward: ``Strided`` geometry or ``Submanifold``)."""
     grid = (21, 80, 70)
     keys = torch.from_numpy(sparse_site_keys(rng, grid, 8000,
                                              (8000, 5000, 0)))
@@ -629,9 +641,13 @@ def conv_grad_inputs(rng, strided, dtype, device, cin=16, cout=32):
         idx, hit = sparse.strided_neighbor_table(
             keys, out_keys, grid, out_grid, (3, 3, 3), (2, 2, 2), (1, 1, 1))
         valid = out_keys != sparse.INVALID
+        transpose = sparse_conv.Strided(
+            keys.to(device), out_keys.to(device), grid, out_grid, (3, 3, 3),
+            (2, 2, 2), (1, 1, 1))
     else:
         idx, hit = sparse.subm_neighbor_table(keys, grid)
         valid = keys != sparse.INVALID
+        transpose = sparse_conv.Submanifold()
     q = idx.shape[1]
     f = torch.from_numpy(rng.standard_normal((3, v, cin)).astype(np.float32))
     w = torch.from_numpy((rng.standard_normal((27, cin, cout))
@@ -639,7 +655,8 @@ def conv_grad_inputs(rng, strided, dtype, device, cin=16, cout=32):
     dy = torch.from_numpy(rng.standard_normal((3, q, cout)).astype(
         np.float32))
     return (f.to(device, dtype), idx.to(device), hit.to(device),
-            w.to(device, dtype), valid.to(device), dy.to(device, dtype), v)
+            w.to(device, dtype), valid.to(device), dy.to(device, dtype), v,
+            transpose)
 
 
 @pytest.mark.cuda
@@ -647,26 +664,31 @@ def conv_grad_inputs(rng, strided, dtype, device, cin=16, cout=32):
 @pytest.mark.parametrize("strided", [False, True], ids=["subm", "strided"])
 def test_sparse_conv_backward_kernels_equal_plain(cuda_device, dtype,  # noqa: F811
                                                   strided):
-    """The data gradient (the forward kernel on the table's transpose),
-    the weight-gradient kernel (bit-equal over two runs) and the transpose
-    kernel (equal everywhere; on a submanifold table, the table through
-    the mirrored offsets) against their plain versions, each launch
-    counted once; fp32 within
-    1e-5 and bf16 within 1e-2 of each result's largest |entry|."""
+    """The data gradient (the forward kernel on the table's transpose:
+    the submanifold table itself through the mirrored offsets, or the
+    strided layer's transposed table built from its geometry), the
+    weight-gradient kernel (bit-equal over two runs) and the transposed
+    table's kernel (equal to its plain version and to the scatter of the
+    forward table) against their plain versions; each launch counted
+    once, a mirrored data gradient also in ``sparse_conv_dgrad.mirrored``
+    and no transposed table for it; fp32 within 1e-5 and bf16 within 1e-2
+    of each result's largest |entry|."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    f, idx, hit, w, valid, dy, v = conv_grad_inputs(
+    f, idx, hit, w, valid, dy, v, transpose = conv_grad_inputs(
         np.random.RandomState(7), strided, dtype, cuda_device)
     counts = (sparse_conv.sparse_conv_dgrad.launches,
+              sparse_conv.sparse_conv_dgrad.mirrored,
               sparse_conv.sparse_conv_wgrad.launches,
-              sparse_conv.sparse_conv_transpose.launches)
-    dg = sparse_conv.sparse_conv_dgrad(dy, idx, hit, w, valid, v)
+              lookup.transposed_table.launches)
+    dg = sparse_conv.sparse_conv_dgrad(dy, idx, hit, w, valid, v, transpose)
     wg = sparse_conv.sparse_conv_wgrad(f, dy, idx, hit, valid)
     wg2 = sparse_conv.sparse_conv_wgrad(f, dy, idx, hit, valid)
     torch.cuda.synchronize()
     assert (sparse_conv.sparse_conv_dgrad.launches - counts[0],
-            sparse_conv.sparse_conv_wgrad.launches - counts[1],
-            sparse_conv.sparse_conv_transpose.launches - counts[2]) == (
-        1, 2, 1)
+            sparse_conv.sparse_conv_dgrad.mirrored - counts[1],
+            sparse_conv.sparse_conv_wgrad.launches - counts[2],
+            lookup.transposed_table.launches - counts[3]) == (
+        (1, 0, 2, 1) if strided else (1, 1, 2, 0))
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     for got, want in (
             (dg, sparse_conv.sparse_conv_dgrad_plain(dy, idx, hit, w, valid,
@@ -678,12 +700,239 @@ def test_sparse_conv_backward_kernels_equal_plain(cuda_device, dtype,  # noqa: F
         assert d <= tol * float(want.float().abs().max()), d
     assert torch.equal(wg, wg2)
     assert not dg[2].any()  # the empty sample
-    tr = sparse_conv.sparse_conv_transpose(idx, hit, valid, v)
-    for a, b in zip(tr, sparse_conv.sparse_conv_transpose_plain(idx, hit,
-                                                                valid, v)):
+    scattered = sparse_conv.sparse_conv_transpose_plain(idx, hit, valid, v)
+    if strided:
+        tr = lookup.transposed_table(*transpose)
+        for a, b in zip(tr, scattered):
+            assert torch.equal(a, b)
+    else:
+        assert torch.equal(scattered[1], hit.flip(-1))
+    assert torch.equal(dg, on_scattered(dy, w, scattered))
+
+
+# a SECOND train step's 7 submanifold data gradients: (V at batch 4, the
+# data gradient's Cin, Cout: the layer's Cout, Cin), then edges
+SUBM_DGRAD = {
+    "subm_s1": (16000, 16, 16, (3, 3, 3)),
+    "subm_s2a": (16000, 32, 32, (3, 3, 3)),
+    "subm_s2b": (16000, 32, 32, (3, 3, 3)),
+    "subm_s3a": (8000, 64, 64, (3, 3, 3)),
+    "subm_s3b": (8000, 64, 64, (3, 3, 3)),
+    "subm_s4a": (4000, 64, 64, (3, 3, 3)),
+    "subm_s4b": (4000, 64, 64, (3, 3, 3)),
+    "k1": (16000, 16, 16, (1, 1, 1)),
+    "v1": (1, 16, 32, (3, 3, 3)),
+    "empty_sample": (8000, 64, 64, (3, 3, 3)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(SUBM_DGRAD))
+def test_mirrored_dgrad_equals_the_kernel_on_the_scattered_transpose(  # noqa: F811
+        cuda_device, dtype, case):
+    """A submanifold layer's data gradient on its own table through the
+    mirrored offsets (one launch, counted as mirrored, no transposed
+    table) is bit-equal to the same kernel on the scattered transpose
+    (``sparse_conv_transpose_plain`` on the card), at SECOND's 7
+    submanifold shapes, K = 1, V = 1 and a sample without sites; within
+    1e-5 (fp32) / 1e-2 (bf16) of the plain data gradient."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    v, cin, cout, kernel = SUBM_DGRAD[case]
+    counts = {"v1": (1, 1, 0, 1),
+              "empty_sample": (v // 2, 0, v, v // 3)}.get(
+        case, (v * 9 // 10, v // 2, v, v // 4))
+    grid = (41, 400, 352)
+    rng = np.random.RandomState(sum(map(ord, case)))
+    keys = torch.from_numpy(sparse_site_keys(rng, grid, v, counts)).to(
+        cuda_device)
+    idx, hit = sparse.subm_neighbor_table(keys, grid, kernel)
+    valid = keys != sparse.INVALID
+    k = idx.shape[2]
+    w = torch.from_numpy((rng.standard_normal((k, cout, cin))
+                          / np.sqrt(k * cout)).astype(np.float32)).to(
+        cuda_device, dtype)  # the forward's (K, Cin, Cout) is (k, cout, cin)
+    dy = torch.from_numpy(rng.standard_normal((4, v, cin)).astype(
+        np.float32)).to(cuda_device, dtype)
+    before = (sparse_conv.sparse_conv_dgrad.launches,
+              sparse_conv.sparse_conv_dgrad.mirrored,
+              lookup.transposed_table.launches)
+    got = sparse_conv.sparse_conv_dgrad(dy, idx, hit, w, valid, v,
+                                        sparse_conv.Submanifold())
+    torch.cuda.synchronize()
+    assert (sparse_conv.sparse_conv_dgrad.launches - before[0],
+            sparse_conv.sparse_conv_dgrad.mirrored - before[1],
+            lookup.transposed_table.launches - before[2]) == (1, 1, 0)
+    scattered = sparse_conv.sparse_conv_transpose_plain(idx, hit, valid, v)
+    assert torch.equal(scattered[1], hit.flip(-1))
+    want = on_scattered(dy, w, scattered)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+    plain = sparse_conv.sparse_conv_dgrad_plain(dy, idx, hit, w, valid, v)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    d = float((got.float() - plain.float()).abs().max())
+    assert d <= tol * max(1.0, float(plain.float().abs().max())), d
+    if case == "empty_sample":
+        assert not got[1].any()
+    sparse_conv.raise_mirror_fault()  # the table keeps the contract
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["valid_subset", "partial_ask"])
+def test_mirrored_dgrad_raises_on_a_table_that_breaks_the_contract(  # noqa: F811
+        cuda_device, dtype, case):
+    """A submanifold table whose ``valid`` is a strict subset of the rows
+    that asked, or whose valid rows did not all ask, is not its own
+    transpose through the mirrored offsets: the kernel sets its fault
+    word, and once the launch has finished the check raises (directly,
+    and at the next data gradient's entry), then is clear again."""
+    grid, v = (21, 80, 70), 4000
+    rng = np.random.RandomState(11)
+    keys = torch.from_numpy(sparse_site_keys(rng, grid, v, (v, v // 2))).to(
+        cuda_device)
+    sites = keys != sparse.INVALID
+    if case == "valid_subset":
+        idx, hit = sparse.subm_neighbor_table(keys, grid)
+        valid = sites.clone()
+        valid[:, 1::4] = False
+    else:
+        ask = sites.clone()
+        ask[:, ::3] = False
+        idx, hit = sparse.subm_neighbor_table(keys, grid, valid=ask)
+        valid = sites
+    w = torch.from_numpy(rng.standard_normal((27, 32, 16)).astype(
+        np.float32)).to(cuda_device, dtype)
+    dy = torch.from_numpy(rng.standard_normal((2, v, 16)).astype(
+        np.float32)).to(cuda_device, dtype)
+    good = (*sparse.subm_neighbor_table(keys, grid), sites)
+    sparse_conv.raise_mirror_fault()
+
+    def dgrad(table):
+        return sparse_conv.sparse_conv_dgrad(dy, table[0], table[1], w,
+                                             table[2], v,
+                                             sparse_conv.Submanifold())
+
+    dgrad((idx, hit, valid))
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="submanifold table"):
+        sparse_conv.raise_mirror_fault()
+    sparse_conv.raise_mirror_fault()  # cleared
+    dgrad((idx, hit, valid))
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="submanifold table"):
+        dgrad(good)
+    dgrad(good)
+    torch.cuda.synchronize()
+    sparse_conv.raise_mirror_fault()
+
+
+# a SECOND train step's 4 strided layers (input V at batch 4, input grid,
+# kernel, stride, padding, output cap), then edges
+STRIDED_TABLES = {
+    "down_s2": (16000, (41, 1600, 1408), (3, 3, 3), (2, 2, 2), (1, 1, 1),
+                16000),
+    "down_s3": (16000, (21, 800, 704), (3, 3, 3), (2, 2, 2), (1, 1, 1),
+                8000),
+    "down_s4": (8000, (11, 400, 352), (3, 3, 3), (2, 2, 2), (0, 1, 1), 4000),
+    "down_z": (4000, (5, 200, 176), (3, 1, 1), (2, 1, 1), (0, 0, 0), 4000),
+    "z_layer_2": (4000, (5, 200, 176), (2, 1, 1), (2, 1, 1), (0, 0, 0),
+                  4000),
+    "capped": (16000, (21, 80, 70), (3, 3, 3), (2, 2, 2), (1, 1, 1), 500),
+    "large": (120000, (41, 1600, 1408), (3, 3, 3), (2, 2, 2), (1, 1, 1),
+              60000),
+    "empty_sample": (8000, (11, 400, 352), (3, 3, 3), (2, 2, 2), (1, 1, 1),
+                     4000),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STRIDED_TABLES))
+def test_transposed_table_kernel_equals_plain(cuda_device, case):  # noqa: F811
+    """The strided layer's transposed table on the card (one launch,
+    every entry written) equals its plain version
+    (``lookup.transposed_table_plain``) and the scatter of the forward
+    table (``sparse_conv_transpose_plain``) exactly, at SECOND's 4 strided
+    shapes, a (2, 1, 1) z-layer, outputs dropped by the cap, a
+    120,000-key table and a sample without sites; with INVALID rows
+    among the asking keys it equals its plain version."""
+    v, grid, kernel, stride, padding, cap = STRIDED_TABLES[case]
+    rng = np.random.RandomState(sum(map(ord, case)))
+    counts = (v * 9 // 10, 0, v, v // 3) if case == "empty_sample" else (
+        v * 9 // 10, v // 2, v, v // 4)
+    keys = torch.from_numpy(sparse_site_keys(rng, grid, v, counts)).to(
+        cuda_device)
+    out_keys, out_grid = sparse.downsample_coords(keys, grid, stride,
+                                                  padding, cap, kernel)
+    geometry = sparse_conv.Strided(keys, out_keys, grid, out_grid, kernel,
+                                   stride, padding)
+    idx, hit = sparse.strided_neighbor_table(*geometry)
+    valid = out_keys != sparse.INVALID
+    before = lookup.transposed_table.launches
+    got = lookup.transposed_table(*geometry)
+    torch.cuda.synchronize()
+    assert lookup.transposed_table.launches == before + 1
+    scattered = sparse_conv.sparse_conv_transpose_plain(idx, hit, valid, v)
+    for a, b, c in zip(got, lookup.transposed_table_plain(*geometry),
+                       scattered):
+        assert a.dtype == b.dtype and torch.equal(a, b) and torch.equal(a, c)
+    assert int(got[1].sum()) == int((hit & valid[..., None]).sum()) > 0
+    masked = keys.clone()
+    masked[:, 5::7] = sparse.INVALID
+    shuffled = geometry._replace(keys_sorted=masked)
+    for a, b in zip(lookup.transposed_table(*shuffled),
+                    lookup.transposed_table_plain(*shuffled)):
         assert torch.equal(a, b)
-    if not strided:
-        assert torch.equal(tr[1], hit.flip(-1))
+
+
+@pytest.mark.cuda
+def test_second_backbone_backward_launches(cuda_device):  # noqa: F811
+    """A train-mode VoxelBackBone8x forward and backward on the card (fp32,
+    SECOND's widths and grid depth, 4 samples, the voxel features needing
+    no gradient, as MeanVFE's): 8 neighbour tables, 12 convs, 11 data
+    gradients of which the 7 submanifold ones run on their own tables
+    (mirrored), 4 transposed tables (the strided layers) and 12 weight
+    gradients; every weight's gradient within 1e-4 of its largest |entry|
+    of the CPU plain autograd's."""
+    from de6d_tpu_torch.models.backbones_3d.spconv_backbone import (
+        VoxelBackBone8x,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = {"NUM_FILTERS": [16, 16, 32, 64, 64], "OUT_CHANNELS": 128,
+           "MAX_VOXELS_PER_STAGE": [3000, 3000, 1500, 750]}
+    torch.manual_seed(0)
+    model = VoxelBackBone8x(cfg, 4, (176, 200, 40)).train()
+    rng = np.random.RandomState(9)
+    keys = sparse_site_keys(rng, (40, 200, 176), 3000, (3000, 2500, 0, 900))
+    coords = np.stack(np.unravel_index(np.where(
+        keys == sparse.INVALID, 0, keys), (40, 200, 176)), -1)
+    coords[keys == sparse.INVALID] = -1
+    feats = rng.standard_normal((4, 3000, 4)).astype(np.float32)
+    kernels = (lookup.neighbor_table, sparse_conv.sparse_conv,
+               sparse_conv.sparse_conv_dgrad, sparse_conv.sparse_conv_wgrad,
+               lookup.transposed_table)
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        m = copy.deepcopy(model).to(dev)
+        before = [fn.launches for fn in kernels] + [
+            sparse_conv.sparse_conv_dgrad.mirrored]
+        with torch.enable_grad():
+            out = m({"voxel_features": torch.from_numpy(feats).to(dev),
+                     "voxel_coords": torch.from_numpy(coords).to(dev)})
+            out["encoded_spconv_tensor"].square().sum().backward()
+        grads[dev.type] = {n: p.grad.cpu() for n, p in m.named_parameters()
+                           if n.endswith("weight") and p.dim() == 3}
+        after = [fn.launches for fn in kernels] + [
+            sparse_conv.sparse_conv_dgrad.mirrored]
+        launched = [a - b for a, b in zip(after, before)]
+        assert launched == ([8, 12, 11, 12, 4, 7] if dev.type == "cuda"
+                            else [0] * 6), launched
+    assert len(grads["cpu"]) == 12
+    for name, want in grads["cpu"].items():
+        assert float(want.abs().max()) > 0, name
+        d = float((grads["cuda"][name] - want).abs().max())
+        assert d <= 1e-4 * float(want.abs().max()), (name, d)
 
 
 @pytest.mark.cuda
@@ -965,7 +1214,9 @@ def test_sparse_conv_fp32_is_the_dense_fma_chain(cuda_device, cin, cout,  # noqa
 @pytest.mark.parametrize("cin,cout,k", SECOND_CONV_SHAPES + CONV_EDGE_SHAPES)
 def test_sparse_conv_gradients_at_every_tile(cuda_device, dtype, cin, cout,  # noqa: F811
                                              k):
-    """The data gradient (the forward kernel on the transposed table) and
+    """The data gradient (the forward kernel on the table's transpose: the
+    mirrored table at K = 27, the scattered transpose for the first k < 27
+    offsets, which are no layer's) and
     the weight gradient (the tile of ``wgrad_plan`` for the widths) within
     1e-5 (fp32) / 1e-2 (bf16) of each plain version's largest |entry|, on
     a non-contiguous cotangent; the weight gradient bit-equal over two
@@ -979,7 +1230,11 @@ def test_sparse_conv_gradients_at_every_tile(cuda_device, dtype, cin, cout,  # n
         cuda_device, dtype)[..., ::2]
     assert not dy.is_contiguous()
     v = f.shape[1]
-    dg = sparse_conv.sparse_conv_dgrad(dy, idx, hit, w, valid, v)
+    # the first k of 27 offsets: a submanifold table only at k = 27
+    dg = sparse_conv.sparse_conv_dgrad(
+        dy, idx, hit, w, valid, v, sparse_conv.Submanifold()) if k == 27 \
+        else on_scattered(dy, w, sparse_conv.sparse_conv_transpose_plain(
+            idx, hit, valid, v))
     wg = sparse_conv.sparse_conv_wgrad(f, dy, idx, hit, valid)
     wg2 = sparse_conv.sparse_conv_wgrad(f, dy, idx, hit, valid)
     torch.cuda.synchronize()
@@ -1003,7 +1258,8 @@ def test_sparse_conv_edge_cases_forward_and_gradients(cuda_device, dtype):  # no
     """A tile without a hit next to one with a single hit, every row
     invalid, V = 1, a misaligned feature view and a non-contiguous
     cotangent: the forward (every variant of the dtype), the data gradient
-    and the weight gradient against their plain versions."""
+    (on the scattered transpose: these tables are no layer's) and the
+    weight gradient against their plain versions."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(21)
     f, idx, hit, w, valid = sorted_key_conv_inputs(rng, 2, 1000, 16, 32, 27,
@@ -1045,7 +1301,8 @@ def test_sparse_conv_edge_cases_forward_and_gradients(cuda_device, dtype):  # no
             (iz.shape[0], iz.shape[1], 2 * wz.shape[2])).astype(
             np.float32)).to(cuda_device, dtype)[..., ::2]
         v = fz.shape[1]
-        dg = sparse_conv.sparse_conv_dgrad(dy, iz, hz, wz, vz, v)
+        dg = on_scattered(dy, wz, sparse_conv.sparse_conv_transpose_plain(
+            iz, hz, vz, v))
         wg = sparse_conv.sparse_conv_wgrad(fz, dy, iz, hz, vz)
         torch.cuda.synchronize()
         for got, want in (

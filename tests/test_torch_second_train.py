@@ -2,11 +2,13 @@
 
 Module by module: ``MaskedBatchNorm`` in train mode; the sparse conv's
 backward (its autograd, the plain data and weight gradients, and the
-transposed table on which the card computes the data gradient) against
-``jax.grad`` of ``subm_conv_table`` / ``strided_conv`` at SECOND's
-kernel / stride / padding triples; the table transposes on
-the tiny scene's real stage tables and at the edges; whole train steps of
-the tiny SECOND (``tests/test_sparse_conv.py``'s widths) with
+tables on which the card computes the data gradient: a submanifold
+layer's own table through the mirrored offsets, a strided layer's
+transposed table built from its geometry) against ``jax.grad`` of
+``subm_conv_table`` / ``strided_conv`` at SECOND's kernel / stride /
+padding triples; those tables against the scatter of the forward table on
+the tiny scene's real stage tables, and the scatter at the edges; whole
+train steps of the tiny SECOND (``tests/test_sparse_conv.py``'s widths) with
 ``VoxelBackBone8x`` and ``VoxelResBackBone8x``; a JAX train state resuming
 in the port; the weights both ways; checkpoints; the host pipeline with
 ``second.yaml``'s ``DATA_CONFIG`` against the JAX loader; ``tools/train.py``
@@ -54,6 +56,7 @@ from de6d_tpu_torch.models.backbones_3d.spconv_backbone import (
 )
 from de6d_tpu_torch.models.detectors.detector3d_template import DatasetSpec
 from de6d_tpu_torch.ops import sparse
+from de6d_tpu_torch.ops.kernels import lookup as lookup_kernels
 from de6d_tpu_torch.ops.kernels import sparse_conv as sc
 from test_torch_second import TINY_SPEC, scene, tiny_second_cfg
 from torch_fixtures import flatten_variables, perturb, unflatten
@@ -192,16 +195,19 @@ def jax_conv_grads(layer, keys, feats, w, ct, out_keys, out_grid):
 
 
 def port_table(layer, keys, out_keys, out_grid):
-    """(idx, hit, output valid) of the port's layer."""
+    """(idx, hit, output valid, transpose) of the port's layer: the
+    ``sparse_conv.Submanifold`` / ``Strided`` its conv hands the
+    backward."""
     kernel, stride, padding = LAYERS[layer]
     k = T(keys)
     if stride is None:
         idx, hit = sparse.subm_neighbor_table(k, GRID, kernel)
-        return idx, hit, k != sparse.INVALID
+        return idx, hit, k != sparse.INVALID, sc.Submanifold()
     ok = T(out_keys)
     idx, hit = sparse.strided_neighbor_table(k, ok, GRID, out_grid, kernel,
                                              stride, padding)
-    return idx, hit, ok != sparse.INVALID
+    return idx, hit, ok != sparse.INVALID, sc.Strided(
+        k, ok, GRID, out_grid, kernel, stride, padding)
 
 
 @pytest.mark.parametrize("layer", sorted(LAYERS))
@@ -210,7 +216,9 @@ def test_backward_equals_jax_grad(layer):
     ``jax.grad`` of the JAX package's, three ways: autograd through
     ``ops.sparse`` (``subm_conv_table`` / ``strided_conv``), the plain
     data and weight gradients, and the forward on the table and weights
-    of ``dgrad_operands`` (the arithmetic the card runs)."""
+    of ``dgrad_operands`` (the arithmetic the card runs: the forward's own
+    table through the mirrored offsets for the submanifold layer, the
+    transposed table built from the geometry for the strided ones)."""
     keys, feats, w, ct, out_keys, out_grid = conv_case(layer)
     want_f, want_w = jax_conv_grads(layer, keys, feats, w, ct, out_keys,
                                     out_grid)
@@ -228,14 +236,19 @@ def test_backward_equals_jax_grad(layer):
                                       padding, T(out_keys), out_grid)
         assert out.grad_fn is not None
         (out * T(ct)).sum().backward()
-    idx, hit, valid = port_table(layer, keys, out_keys, out_grid)
+    idx, hit, valid, transpose = port_table(layer, keys, out_keys, out_grid)
     v = keys.shape[1]
-    t_idx, t_hit, rows, w_t = sc.dgrad_operands(T(w), idx, hit, valid, v)
+    t_idx, t_hit, rows, w_t, mirror = sc.dgrad_operands(T(w), idx, hit,
+                                                        valid, v, transpose)
+    assert mirror == (stride is None)
+    if mirror:
+        t_idx, t_hit = t_idx.flip(-1), t_hit.flip(-1)
     dgrads = {
         "autograd": f.grad,
         "plain": sc.sparse_conv_dgrad_plain(T(ct), idx, hit, T(w), valid, v),
         "operands": sc.sparse_conv_plain(T(ct), t_idx, t_hit, w_t, rows),
-        "dispatch": sc.sparse_conv_dgrad(T(ct), idx, hit, T(w), valid, v),
+        "dispatch": sc.sparse_conv_dgrad(T(ct), idx, hit, T(w), valid, v,
+                                         transpose),
     }
     wgrads = {"autograd": wt.grad,
               "plain": sc.sparse_conv_wgrad_plain(T(feats), T(ct), idx, hit,
@@ -253,7 +266,7 @@ def test_backward_in_bf16_rounds_once():
     """bf16 features and weights: the gradients are the fp32 ones rounded
     once to bf16 (the CUDA kernels' contract)."""
     keys, feats, w, ct, *_ = conv_case("subm", seed=2)
-    idx, hit, valid = port_table("subm", keys, None, None)
+    idx, hit, valid, _ = port_table("subm", keys, None, None)
     f16, w16, ct16 = (T(a).bfloat16() for a in (feats, w, ct))
     for got, ref in (
             (sc.sparse_conv_wgrad_plain(f16, ct16, idx, hit, valid),
@@ -293,7 +306,8 @@ def tiny_model(backbone="VoxelBackBone8x"):
 def stage_tables():
     """The tiny SECOND's 8 neighbour tables on the tiny scene, in call
     order (each stage's submanifold table, then the strided layer into
-    the next stage), with their sites."""
+    the next stage), with their sites and the neighbour-table call's
+    arguments (a strided layer's geometry)."""
     from chip_smoke import SECOND_LOOKUPS, recorded_sparse_calls
 
     model = tiny_model()
@@ -305,7 +319,8 @@ def stage_tables():
     for name, (args, kwargs) in zip(SECOND_LOOKUPS, calls["neighbor_table"]):
         table, ask = args[0], args[1]
         idx, hit = sparse.neighbor_table(*args, **kwargs)
-        tables[name] = (idx, hit, ask != sparse.INVALID, table.shape[1])
+        tables[name] = (idx, hit, ask != sparse.INVALID, table.shape[1],
+                        args)
     assert len(tables) == 8
     return tables
 
@@ -317,7 +332,7 @@ def test_mirrored_table_is_the_scattered_transpose(stage_tables, stage):
     offset k, so the table through the mirrored offsets equals its
     scattered transpose: ``thit == hit.flip(-1)`` and ``tidx ==
     idx.flip(-1)`` wherever it hits."""
-    idx, hit, valid, v = stage_tables[stage]
+    idx, hit, valid, v, _ = stage_tables[stage]
     assert int(hit.sum()) > int(valid.sum())  # neighbours beside the centre
     tidx, thit, tvalid = sc.sparse_conv_transpose_plain(idx, hit, valid, v)
     assert torch.equal(thit, hit.flip(-1))
@@ -331,7 +346,7 @@ def test_strided_transpose_is_injective_and_complete(stage_tables, stage):
     """A strided table's transpose: every live pair (q, k) is found at
     ``tidx[b, idx[b,q,k], k] == q`` (for one offset the outputs reference
     distinct inputs), and nothing else hits."""
-    idx, hit, valid, v = stage_tables[stage]
+    idx, hit, valid, v, _ = stage_tables[stage]
     tidx, thit, tvalid = sc.sparse_conv_transpose_plain(idx, hit, valid, v)
     live = hit & valid[..., None]
     assert int(live.sum()) > 0
@@ -345,22 +360,77 @@ def test_strided_transpose_is_injective_and_complete(stage_tables, stage):
     assert torch.equal(tvalid, thit.any(-1))
 
 
-@pytest.mark.parametrize("stage", ["subm_s1", "down_s2", "subm_s3",
+def strided_geometry(args):
+    """``sparse_conv.Strided`` of a strided layer's recorded neighbour-table
+    call (its input keys, output keys, grids, kernel, stride, padding)."""
+    keys, out_keys, grid, out_grid, kernel, stride, padding = args[:7]
+    return sc.Strided(keys, out_keys, grid, out_grid, kernel, stride,
+                      padding)
+
+
+@pytest.mark.parametrize("stage", ["subm_s1", "subm_s2", "subm_s3",
+                                   "subm_s4"])
+def test_mirrored_dgrad_operands_equal_the_plain_dgrad(stage_tables, stage):
+    """The data gradient on a submanifold layer's own table through the
+    mirrored offsets (``dgrad_operands`` of ``Submanifold``: no table
+    built) equals, bit for bit, the forward on the scattered transpose,
+    and within 1e-5 the plain data gradient (sums in another order)."""
+    idx, hit, valid, v, _ = stage_tables[stage]
+    rng = np.random.RandomState(len(stage))
+    w = T(rng.standard_normal((27, 5, 6)).astype(np.float32))
+    dy = T(rng.standard_normal((*idx.shape[:2], 6)).astype(np.float32))
+    t_idx, t_hit, rows, w_t, mirror = sc.dgrad_operands(
+        w, idx, hit, valid, v, sc.Submanifold())
+    assert mirror and t_idx is idx and t_hit is hit and rows is valid
+    got = sc.sparse_conv_plain(dy, idx.flip(-1), hit.flip(-1), w_t, valid)
+    scattered = sc.sparse_conv_transpose_plain(idx, hit, valid, v)
+    assert torch.equal(got, sc.sparse_conv_plain(dy, *scattered[:2], w_t,
+                                                 scattered[2]))
+    want = sc.sparse_conv_dgrad_plain(dy, idx, hit, w, valid, v)
+    assert float(want.abs().max()) > 0
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("stage", ["down_s2", "down_s3", "down_s4",
                                    "down_z"])
-def test_work_transpose_counts_what_the_transpose_touches(stage_tables,
-                                                          stage):
-    """The transpose's bytes: ``valid`` once, ``hit`` of the valid rows,
-    ``idx`` of the live pairs alone (one per hit the transpose writes),
-    and its three outputs once; fewer than the dense table's bytes
-    wherever a valid row misses an offset."""
-    idx, hit, valid, v = stage_tables[stage]
-    tidx, thit, tvalid = sc.sparse_conv_transpose_plain(idx, hit, valid, v)
-    b, q, k = idx.shape
-    read = valid.numel() + int(valid.sum()) * k + 4 * int(thit.sum())
+def test_transposed_table_equals_the_scattered_transpose(stage_tables,
+                                                         stage):
+    """A strided layer's transposed table built from its geometry
+    (``lookup.transposed_table``'s plain version, the inverted neighbour
+    keys looked up among the output keys) equals the scatter of its
+    forward table, ``sparse_conv_transpose_plain``, exactly; it is what
+    ``dgrad_operands`` of the layer's ``Strided`` returns."""
+    idx, hit, valid, v, args = stage_tables[stage]
+    geometry = strided_geometry(args)
+    got = lookup_kernels.transposed_table(*geometry)
+    want = sc.sparse_conv_transpose_plain(idx, hit, valid, v)
+    assert int(want[1].sum()) > 0
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ops = sc.dgrad_operands(T(np.ones((idx.shape[2], 2, 3), np.float32)),
+                            idx, hit, valid, v, geometry)
+    assert ops[4] is False
+    for a, b in zip(ops[:3], want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("stage", ["down_s2", "down_s3", "down_s4",
+                                   "down_z"])
+def test_transposed_bytes_counts_what_the_kernel_touches(stage_tables,
+                                                         stage):
+    """The transposed table's bytes: both key tables read once, (tidx,
+    thit) written once per (input row, offset), tvalid once per input
+    row: every output byte, hit or miss, since the kernel writes each
+    entry once instead of zeroing the output first."""
+    idx, hit, valid, v, args = stage_tables[stage]
+    keys, out_keys = args[0], args[1]
+    tidx, thit, tvalid = lookup_kernels.transposed_table(
+        *strided_geometry(args))
     written = 4 * tidx.numel() + thit.numel() + tvalid.numel()
-    got = sc.work_transpose(idx, hit, valid, v)
-    assert got == read + written
-    assert got < b * q * k * 5 + b * q + written
+    got = lookup_kernels.transposed_bytes(keys, out_keys, idx.shape[2])
+    assert got == 4 * (keys.numel() + out_keys.numel()) + written
+    assert tidx.shape == (idx.shape[0], v, idx.shape[2])
 
 
 @pytest.mark.parametrize("edge", ["no_hit", "all_invalid", "one_site",
