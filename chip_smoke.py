@@ -293,6 +293,47 @@ Phases, one status line each; any failure exits non-zero:
                     (:func:`check_pvrcnn_parity`: keypoint picks,
                     proposals, RoIs, ``rcnn_cls`` / ``rcnn_reg``,
                     detections).
+22a. parity / train_pv_rcnn — PV-RCNN's train step in fp32 (TF32 off)
+                    from weights drawn as flax initialises the layers
+                    (:data:`PVRCNN_TRAIN_SEED`) on the batch of 2 stored in
+                    ``de6d_tpu_torch/testdata/pvrcnn_train_jax_ref.npz``
+                    (the JAX loader's first on ``data/kitti``): stage
+                    keys, keypoint picks, keypoint and anchor labels
+                    identical; the proposals swapped or parted only at
+                    near-ties (then the RoI stage runs on the stored
+                    proposals); the RoIs JAX's draws sample identical;
+                    targets, loss terms, gradient norm, gradients,
+                    statistics and 3 Adam steps within
+                    :data:`PVRCNN_TRAIN_TOL`; this card's fp32 step
+                    within :data:`PVRCNN_TRAIN_F64` of its float64 step
+                    (:func:`check_pvrcnn_train_parity`).
+22b. kernels / pv_rcnn_train — from one train-mode forward on that batch,
+                    each kernel of the step against its plain version at
+                    the step's shapes: FPS (2 x 16384 -> 2048), the mask
+                    and resolve on the 2 x 9000 train proposals, the 8
+                    neighbour tables, the sparse conv's forward, data
+                    gradients (mirrored and strided), weight gradients and
+                    transposed tables at its 12 layers; ms, plain ms,
+                    bounds.
+22c. train / pv_rcnn — ``train_model`` with ``pv_rcnn.yaml`` as shipped
+                    (fp32, TF32 off) at batch 2 on the fixture's frames,
+                    :data:`PVRCNN_TRAIN_STEPS` steps (2 profiled): step
+                    ms, device ms and idle share, peak memory, the loss
+                    falling, exactly
+                    :data:`PVRCNN_TRAIN_LAUNCHES` a step (1 FPS, 1 mask, 1
+                    resolve, 8 tables, 12 conv forwards, 11 data gradients
+                    of which 7 mirrored, 12 weight gradients, 4 transposed
+                    tables) and no other kernel launch.
+22d. train / pv_rcnn_kitti — ``tools/train.py`` on ``pv_rcnn.yaml`` for
+                    one epoch of ``data/kitti`` at batch 2 (150 steps)
+                    from the fresh init, as phase 4e: steps/s, the
+                    loader's share, the loss falling, the launches of 22c
+                    a step, the checkpoint; the post-training eval with
+                    :data:`PVRCNN_EVAL_LAUNCHES` a batch and no fused NMS.
+22e. eval / pv_rcnn_kitti — ``tools/test.py --ckpt`` on 22d's checkpoint
+                    over the 100 val frames at batch 8: ms a frame, the
+                    recall counters, :data:`PVRCNN_EVAL_LAUNCHES` a batch
+                    (2 masks and 2 resolves among them).
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of the kernels, the last line
@@ -346,7 +387,7 @@ EVAL_BATCH = 8
 # a recall counter or an AP may part from the reference only at a box
 # whose IoU lies this close to the threshold in both runs
 PARTING_IOU = 1e-3
-TRAIN_STEPS = 30  # steps of the train phase, after one warm step
+TRAIN_STEPS = 15  # steps of the train phases, after one warm step
 TRAIN_PROFILE_STEPS = 5
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -1319,14 +1360,14 @@ class Scalars:
 
 
 def measure_train(tag, model, batch, opt_cfg, kernels, per_step,
-                  steps=TRAIN_STEPS):
+                  steps=TRAIN_STEPS, profile_steps=TRAIN_PROFILE_STEPS):
     """``train_model`` over one fixed batch, ``steps`` steps after one
     warm step (cuDNN's first calls): step ms from the loop itself
     (pipelined 1 deep), steps/s, frames/s, peak memory, the loss at the
     first and the last step (it must fall), launches of every kernel
     (``per_step[k]`` a step for kernel k, none of any other); then a
-    torch.profiler window of :data:`TRAIN_PROFILE_STEPS` steps for the
-    device time of a step. Returns (report, the profile's rows: (kernel,
+    torch.profiler window of ``profile_steps`` steps for the device time
+    of a step. Returns (report, the profile's rows: (kernel,
     device us a step, launches a step), longest first)."""
     import numpy as np
     import torch
@@ -1372,7 +1413,7 @@ def measure_train(tag, model, batch, opt_cfg, kernels, per_step,
     med = float(np.median(step_ms))
     q1, q3 = np.percentile(step_ms, [25, 75])
 
-    n_prof = TRAIN_PROFILE_STEPS
+    n_prof = profile_steps
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
@@ -1393,7 +1434,8 @@ def measure_train(tag, model, batch, opt_cfg, kernels, per_step,
     device_ms = sum(r[1] for r in rows) / 1e3
     b = int(batch["points"].shape[0])
     out = {
-        "steps": steps, "batch": b, "warm_step_ms": warm_ms,
+        "steps": steps, "profile_steps": n_prof, "batch": b,
+        "warm_step_ms": warm_ms,
         "step_ms": step_ms.tolist(), "median_step_ms": med,
         "step_ms_iqr": [float(q1), float(q3)],
         "step_ms_min_max": [float(step_ms.min()), float(step_ms.max())],
@@ -1416,7 +1458,7 @@ def train_line(tag, out, what):
             f"{q3:.2f}, min {lo:.2f}, max {hi:.2f}), "
             f"{out['steps_per_s']:.2f} steps/s, {out['frames_per_s']:.2f} "
             f"frames/s, device {out['device_ms_per_step']:.2f} ms a step "
-            f"(profiler, {TRAIN_PROFILE_STEPS} steps), idle "
+            f"(profiler, {out['profile_steps']} steps), idle "
             f"{out['idle_share_of_median_step']:.1%} of the median step, "
             f"peak {out['peak_mem_gib']:.2f} GiB; loss "
             f"{out['first_loss']:.4f} -> {out['last_loss']:.4f}, grad_norm "
@@ -1579,23 +1621,25 @@ def read_launches(kernels):
 def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
                       key="train_kitti", per_step=(("canvas", 1),
                                                    ("canvas_grad", 1)),
-                      eval_per_batch=(("canvas", 1),)):
+                      eval_per_batch=(("canvas", 1),), batch_size=4,
+                      nms_per_batch=(1, 2), val_anchor_scores=True):
     """``train / kitti``: ``tools/train.py``'s entry (its ``prepare``,
     ``train`` and ``evaluate``, as ``main`` runs them) with ``cfg_path``
-    (``pointpillar.yaml``, bf16) as shipped at batch 4 for one epoch of
-    ``data/kitti`` from the fresh init (``--fix_random_seed``), 4 loader
+    (``pointpillar.yaml``, bf16) as shipped at ``batch_size`` for one epoch
+    of ``data/kitti`` from the fresh init (``--fix_random_seed``), 4 loader
     workers: step ms, steps/s, frames/s, the share of the loop's wall time
     spent waiting on the loader; the loss finite and falling (mean of the
     last 10 steps below the first 10); exactly ``per_step`` launches a
     step (one canvas forward and one backward) and no other kernel; the
     checkpoint written; the post-training eval over the val split with
-    ``eval_per_batch`` (one canvas) and one or two fused-NMS launches a
-    batch; the anchors' val scores (:func:`anchor_scores`): with the
-    batch's BatchNorm statistics the trained weights' foreground anchors'
-    mean score over the background's must exceed the fresh init's (in
-    eval mode the running statistics, moved 75 times at momentum 0.99,
-    still hold 0.99^75 = 47 % of their initial zero mean and unit
-    variance). Returns the checkpoint's path."""
+    ``eval_per_batch`` (one canvas) and ``nms_per_batch`` fused-NMS
+    launches a batch (one or two); with ``val_anchor_scores``, the
+    anchors' val scores (:func:`anchor_scores`): with the batch's
+    BatchNorm statistics the trained weights' foreground anchors' mean
+    score over the background's must exceed the fresh init's (in eval mode
+    the running statistics, moved 75 times at momentum 0.99, still hold
+    0.99^75 = 47 % of their initial zero mean and unit variance). Returns
+    the checkpoint's path."""
     import copy
     import shutil
 
@@ -1609,8 +1653,9 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
     shutil.rmtree(ROOT / "output/kitti_models" / cfg_path.stem / extra,
                   ignore_errors=True)
     argv = ["--cfg_file", str(cfg_path), "--epochs", "1", "--batch_size",
-            "4", "--workers", "4", "--extra_tag", extra, "--fix_random_seed",
-            "--set", "DATA_CONFIG.DATA_PATH", str(KITTI_DIR)]
+            str(batch_size), "--workers", "4", "--extra_tag", extra,
+            "--fix_random_seed", "--set", "DATA_CONFIG.DATA_PATH",
+            str(KITTI_DIR)]
     t0 = time.perf_counter()
     run = train_cli.prepare(argv)
     prep_s = time.perf_counter() - t0
@@ -1642,26 +1687,30 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
     ret, _ = train_cli.evaluate(run)
     eval_s = time.perf_counter() - t0
     eval_launches = read_launches(kernels)
-    n_eval = -(-100 // 4)
+    n_eval = -(-100 // batch_size)
     # the fused NMS runs on the 1024-candidate prefix, and again on all
     # 4096 where the prefix does not decide a batch (ops/nms.py cascade)
     want = {k: n_eval * dict(eval_per_batch).get(k, 0) for k in kernels}
     want["nms"] = eval_launches["nms"]
-    if eval_launches != want or not n_eval <= want["nms"] <= 2 * n_eval:
+    lo, hi = nms_per_batch
+    if (eval_launches != want
+            or not lo * n_eval <= want["nms"] <= hi * n_eval):
         fail(f"{tag}: post-training eval launches {eval_launches} in "
-             f"{n_eval} batches, expected {dict(eval_per_batch)} and 1-2 "
-             "NMS a batch")
+             f"{n_eval} batches, expected {dict(eval_per_batch)} and "
+             f"{lo}-{hi} fused NMS a batch")
     if not (run.output_dir / "eval/eval_with_train/result.pkl").is_file():
         fail(f"{tag}: the post-training eval wrote no result.pkl")
-    scores = anchor_scores({"init": init_model, "trained": run.model},
-                           cfg_path)
+    scores, sep = None, None
+    if val_anchor_scores:
+        scores = anchor_scores({"init": init_model, "trained": run.model},
+                               cfg_path)
+        sep = {k: r["fg_mean"] / r["bg_mean"] for k, r in scores.items()}
+        if not sep["trained_batch_stats"] > sep["init"]:
+            fail(f"{tag}: the foreground anchors' val scores did not rise "
+                 f"over the background's: {scores}")
     del init_model
-    sep = {k: r["fg_mean"] / r["bg_mean"] for k, r in scores.items()}
-    if not sep["trained_batch_stats"] > sep["init"]:
-        fail(f"{tag}: the foreground anchors' val scores did not rise over "
-             f"the background's: {scores}")
     out = {
-        "steps": steps, "batch": 4,
+        "steps": steps, "batch": batch_size,
         "compute_dtype": run.cfg.MODEL.get("COMPUTE_DTYPE", "float32"),
         "prepare_s": prep_s, "wall_s": wall,
         "median_step_ms": float(np.median(iter_ms)),
@@ -1669,7 +1718,8 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
         "median_host_step_ms": float(np.median(step_s) * 1e3),
         "median_loader_wait_ms": float(np.median(data_s) * 1e3),
         "loader_wait_share": float(data_s.sum() / (data_s + step_s).sum()),
-        "steps_per_s": steps / wall, "frames_per_s": 4 * steps / wall,
+        "steps_per_s": steps / wall,
+        "frames_per_s": batch_size * steps / wall,
         "first10_loss": float(losses[:10].mean()),
         "last10_loss": float(losses[-10:].mean()),
         "launches": launches, "eval_launches": eval_launches,
@@ -1680,7 +1730,7 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
     }
     report[key] = out
     print(f"{tag}: tools/train.py, {cfg_path.name} "
-          f"{out['compute_dtype']}, batch 4, "
+          f"{out['compute_dtype']}, batch {batch_size}, "
           f"1 epoch of data/kitti ({steps} steps) from the fresh init: "
           f"median step {out['median_step_ms']:.2f} ms (IQR "
           f"{out['step_ms_iqr'][0]:.2f}-{out['step_ms_iqr'][1]:.2f}; host "
@@ -1692,7 +1742,8 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
           f"{out['last10_loss']:.4f}; launches {launches}; checkpoint "
           f"{out['checkpoint']}; post-training eval {eval_s:.1f} s, "
           f"launches {eval_launches}, recall {out['eval_recall']} "
-          f"(prepare {prep_s:.1f} s); val anchor scores, fresh init / "
+          f"(prepare {prep_s:.1f} s)" + ("" if scores is None else
+          f"; val anchor scores, fresh init / "
           f"trained with the running BatchNorm statistics / trained with "
           f"the batch's: foreground mean over background mean "
           f"{sep['init']:.4g} / {sep['trained']:.4g} / "
@@ -1702,7 +1753,7 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
           f"above SCORE_THRESH {scores['init']['thresh']} "
           f"{scores['init']['above_thresh']} / "
           f"{scores['trained']['above_thresh']} / "
-          f"{scores['trained_batch_stats']['above_thresh']}", flush=True)
+          f"{scores['trained_batch_stats']['above_thresh']}"), flush=True)
     return ckpt
 
 
@@ -4678,32 +4729,15 @@ def plain_sparse_conv():
 
 def second_model_f64(dev):
     """SECOND with the trained weights, every layer computing in float64
-    (the anchors and the assigner's thresholds stay fp32, as the targets
-    read them)."""
-    import torch
-
-    model = build_model("float32", dev, SECOND_CFG, SECOND_PARAMS)[0]
-    model.double()
-    for mod in model.modules():
-        if isinstance(getattr(mod, "dtype", None), torch.dtype):
-            mod.dtype = torch.float64
-    head = model.dense_head
-    for name in ("anchors", "matched_thr", "unmatched_thr"):
-        setattr(head, name, getattr(head, name).float())
-    return model
+    (:func:`f64_copy`)."""
+    return f64_copy(build_model("float32", dev, SECOND_CFG,
+                                SECOND_PARAMS)[0])
 
 
 def second_gradients(model, batch):
     """One train-mode forward and backward: (output, gradients as flat
-    float64 numpy per parameter, loss terms)."""
-    model.train()
-    model.zero_grad(set_to_none=True)
-    out = model(dict(batch))
-    loss, tb = model.get_training_loss(out)
-    loss.backward()
-    grads = {n: p.grad.detach().double().cpu().numpy().reshape(-1)
-             for n, p in model.named_parameters()}
-    return out, grads, {k: float(v.detach()) for k, v in tb.items()}
+    float64 numpy per parameter, loss terms) (:func:`train_gradients`)."""
+    return train_gradients(model, batch)[:3]
 
 
 def check_second_train_parity(dev, measure_f64=True, steps=3):
@@ -5284,6 +5318,12 @@ def pvrcnn_proposals(out, roi_cfg):
     return cand, order, scores
 
 
+def pvrcnn_opt_cfg():
+    from de6d_tpu_torch.config import cfg_from_yaml_file
+
+    return dict(cfg_from_yaml_file(PVRCNN_CFG).OPTIMIZATION)
+
+
 def phase_pvrcnn_kernels(report):
     """FPS at PV-RCNN's keypoint shape (8 x 16384 -> 2048 on the clipped
     scans) and the mask and resolve kernels on its 8 x 1024 proposals and
@@ -5606,6 +5646,827 @@ def phase_pvrcnn_parity(report):
           f"{PARITY_TOL})", flush=True)
 
 
+# ---------------------------------------------------------------------
+# PV-RCNN training: parity, the kernels at the step's shapes, train_model,
+# tools/train.py and tools/test.py on data/kitti
+# ---------------------------------------------------------------------
+
+PVRCNN_TRAIN_REF = ROOT / "de6d_tpu_torch/testdata/pvrcnn_train_jax_ref.npz"
+# numpy seed of the train phases' initial weights: drawn as flax
+# initialises the layers (``build_network(..., generator=)``), as
+# ``tools/train.py`` starts, from a numpy generator (a seeded
+# ``torch.Generator`` draws other truncated normals under another PyTorch
+# build). The served phases' seeded weights (PVRCNN_SEED) carry no focal
+# prior on the anchor head's class bias and diverge within three Adam
+# steps, in both packages.
+PVRCNN_TRAIN_SEED = 2026
+# a PV-RCNN train step's hand-kernel launches: the keypoints' FPS, the
+# proposal layer's suppression mask and resolve (NMS_CONFIG.TRAIN: 9000
+# candidates a sample, 512 kept), and the sparse backbone's, the same
+# VoxelBackBone8x as SECOND's (SECOND_TRAIN_LAUNCHES: the VSA's
+# cotangents reach every stage, but every conv but conv_input already has
+# its data gradient there)
+PVRCNN_TRAIN_LAUNCHES = {"fps": 1, "nms_mask": 1, "nms_resolve": 1,
+                         **SECOND_TRAIN_LAUNCHES}
+# steps of ``train / pv_rcnn`` (~0.6 s each), fewer than the other train
+# phases' TRAIN_STEPS, and 2 profiled (~35,000 kernel launches a step):
+# the script keeps within its time limit
+PVRCNN_TRAIN_STEPS = 10
+# an eval batch: FPS, the proposal layer's and the final NMS's mask and
+# resolve, the backbone's tables and convs
+PVRCNN_EVAL_LAUNCHES = {"fps": 1, "nms_mask": 2, "nms_resolve": 2,
+                        "neighbor_table": 8, "sparse_conv": 12}
+# How far an fp32 evaluation of the fixture's full-width PV-RCNN
+# trajectory lies from a float64 evaluation with the same decisions (the
+# port's, every layer in float64, the fp32 run's proposals and sampled
+# RoIs at each step), the larger of the JAX package's and the port's on
+# the CPU, rounded up (tests/test_torch_pvrcnn_train.py::test_full_width_
+# train_step_matches_fixture_on_cpu prints them): the first step's
+# gradients relative to each leaf's largest |entry| (JAX 1.82e-2, in the
+# BEV backbone's convs and the sparse layers' BatchNorm: BatchNorm's
+# backward over the empty cells, as in PointPillars' and SECOND's; the
+# port 3.10e-3), its loss terms (JAX 2.52e-6) and gradient norm (JAX
+# 1.44e-4) relative, its running statistics absolute (JAX 6.29e-7), the
+# sampled RoIs' boxes relative above 1 m (1.53e-5, both) and their class
+# targets absolute (JAX 3.7e-6; at least JAX's IoU round-off, 1e-4,
+# doubled), the losses of the 3 Adam steps relative (JAX 7.16e-3, the
+# port 1.34e-3: the first step moves every parameter by its learning
+# rate, whatever the size of its gradient, so noisier gradients move a
+# trajectory farther) and the parameters after them absolute (JAX
+# 5.15e-3, the port 5.06e-3; the learning rates sum to 3.11e-3, and
+# Adam's later steps may move an entry by more than its rate).
+PVRCNN_TRAIN_F64 = {"grad": 2.1e-2, "loss": 3e-6, "grad_norm": 2e-4,
+                    "stats": 1e-6, "boxes": 3e-5, "cls_targets": 2e-4,
+                    "losses": 8e-3, "params": 8e-3}
+# Tolerances of the card's fp32 trajectory against the JAX fp32 one: each
+# lies within PVRCNN_TRAIN_F64 of the float64 one, so within twice that
+# of each other (the phase checks the card's own distance).
+PVRCNN_TRAIN_TOL = {k: 2 * v for k, v in PVRCNN_TRAIN_F64.items()}
+
+
+class RecordedRoIStage:
+    """Within the block the port's ``roi_head_utils.proposal_layer`` and
+    ``assign_roi_targets`` record what they return (``self.proposals``,
+    ``self.targets``, a dict a call), or, given ``replay`` (a list of
+    proposal dicts and a list of target dicts, in call order), return
+    those instead, floats cast to ``dtype``: the float64 step of the fp32
+    step's decisions, or the port's step on the reference's proposals."""
+
+    def __init__(self, replay_proposals=None, replay_targets=None,
+                 dtype=None):
+        self.replay = (replay_proposals, replay_targets)
+        self.dtype = dtype
+        self.proposals, self.targets = [], []
+
+    def _cast(self, d):
+        import torch
+
+        return {k: v.to(self.dtype) if self.dtype is not None
+                and torch.is_tensor(v) and v.is_floating_point() else v
+                for k, v in d.items()}
+
+    def __enter__(self):
+        from de6d_tpu_torch.models.roi_heads import roi_head_utils as ru
+
+        self.orig = (ru.proposal_layer, ru.assign_roi_targets)
+        prop, assign = self.orig
+
+        def proposal_layer(batch_dict, *a, **k):
+            if self.replay[0] is not None:
+                rec = self._cast(self.replay[0][len(self.proposals)])
+                batch_dict.update(rec)
+            else:
+                batch_dict = prop(batch_dict, *a, **k)
+                rec = {k: batch_dict[k] for k in (
+                    "rois", "roi_scores", "roi_labels", "roi_valid",
+                    "roi_point_idx")}
+            self.proposals.append(rec)
+            return batch_dict
+
+        def assign_roi_targets(*a, **k):
+            if self.replay[1] is not None:
+                out = self._cast(self.replay[1][len(self.targets)])
+            else:
+                out = assign(*a, **k)
+            self.targets.append(out)  # the head adds gt_of_rois_local
+            return out
+
+        ru.proposal_layer = proposal_layer
+        ru.assign_roi_targets = assign_roi_targets
+        return self
+
+    def __exit__(self, *exc):
+        from de6d_tpu_torch.models.roi_heads import roi_head_utils as ru
+
+        ru.proposal_layer, ru.assign_roi_targets = self.orig
+
+
+def pvrcnn_train_model(dev):
+    """PV-RCNN (``pv_rcnn.yaml`` as shipped, fp32) on ``dev`` with the
+    layers drawn as flax initialises them from :data:`PVRCNN_TRAIN_SEED`
+    (numpy draws on the CPU, then moved: the same weights on every device
+    and machine)."""
+    import numpy as np
+
+    from de6d_tpu_torch.config import cfg_from_yaml_file
+    from de6d_tpu_torch.models import build_network
+
+    cfg = cfg_from_yaml_file(PVRCNN_CFG)
+    mc = copy.deepcopy(cfg.MODEL)
+    gen = np.random.default_rng(PVRCNN_TRAIN_SEED)
+    model = build_network(mc, len(cfg.CLASS_NAMES), spec_from_cfg(cfg),
+                          device=dev, generator=gen)
+    return model, mc
+
+
+def pvrcnn_train_batch(dev):
+    """The fixture's batch: the JAX loader's first batch of 2 on
+    ``data/kitti``'s train split (``pv_rcnn.yaml``, one worker)."""
+    import numpy as np
+    import torch
+
+    with np.load(PVRCNN_TRAIN_REF) as ref:
+        return {k: torch.from_numpy(ref[k]).to(dev)
+                for k in ("points", "points_mask", "gt_boxes")}
+
+
+def f64_copy(model):
+    """A copy of ``model`` computing every layer in float64 (the anchors
+    and the assigner's thresholds stay fp32, as the targets read them)."""
+    import torch
+
+    model = copy.deepcopy(model).double()
+    for mod in model.modules():
+        if isinstance(getattr(mod, "dtype", None), torch.dtype):
+            mod.dtype = torch.float64
+    head = model.dense_head
+    for name in ("anchors", "matched_thr", "unmatched_thr"):
+        setattr(head, name, getattr(head, name).float())
+    return model
+
+
+def train_gradients(model, batch):
+    """One train-mode forward and backward: (output, gradients as flat
+    float64 numpy per parameter, loss terms, running statistics)."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    out = model(dict(batch))
+    loss, tb = model.get_training_loss(out)
+    loss.backward()
+    # copies: a float64 model's tensors would be shared, then moved
+    grads = {n: p.grad.detach().double().cpu().numpy().reshape(-1).copy()
+             for n, p in model.named_parameters()}
+    stats = {n: b.detach().double().cpu().numpy().copy()
+             for n, b in model.named_buffers() if "running" in n}
+    return out, grads, {k: float(v.detach()) for k, v in tb.items()}, stats
+
+
+def reference_proposals(ref, dev, step=1):
+    """The fixture's proposals of train step ``step`` as the port's
+    proposal layer writes them (the RoIs, their labels and validity, the
+    anchor each came from)."""
+    import torch
+
+    pre = "" if step == 1 else f"step{step}/"
+
+    def t(k):
+        return torch.from_numpy(ref[pre + k]).to(dev)
+
+    return {"rois": t("proposals"),
+            "roi_scores": torch.zeros(ref[pre + "proposal_valid"].shape,
+                                      device=dev),
+            "roi_labels": t("proposal_labels"),
+            "roi_valid": t("proposal_valid"),
+            "roi_point_idx": t("proposal_idx").long()}
+
+
+def reference_targets(ref, dev, step):
+    """The fixture's sampled RoIs and targets of train step ``step`` as
+    the port's ``assign_roi_targets`` returns them."""
+    import torch
+
+    pre = f"step{step}/"
+    out = {k: torch.from_numpy(ref[f"{pre}target/{k}"]).to(dev) for k in (
+        "rois", "gt_of_rois", "rcnn_cls_labels", "reg_valid_mask",
+        "roi_labels", "roi_sample_valid")}
+    out["roi_sample_idx"] = torch.from_numpy(
+        ref[pre + "roi_sample_idx"].astype("int64")).to(dev)
+    return out
+
+
+def check_pvrcnn_proposals(tag, scores, dir_margin, cand_order, prop_idx,
+                           prop_valid, rois, ref, tol):
+    """The port's proposal layer against the fixture's: the anchor scores
+    at the stored window within ``tol`` (largest difference ``delta``);
+    the top ``NMS_PRE_MAXSIZE`` order swapped only at near-ties (scores
+    within ``2 * delta``); counts equal; each sample's list of proposals
+    (by anchor) the reference's or parted at a near-tie
+    (:func:`pair_roi_lists`); the boxes from the same anchor within
+    ``tol``, or turned by pi where the anchor's two direction logits lie
+    within ``tol`` of each other (``dir_margin`` (B, A): a direction-bin
+    near-tie). Returns (report, whether every list and box is the
+    reference's)."""
+    import numpy as np
+
+    win_order = ref["prop_order"].astype(np.int64)
+    win_scores = ref["prop_scores"]
+    delta = close_to(tag, "anchor scores", np.take_along_axis(
+        scores, win_order, axis=1), win_scores, tol)
+    near = 2 * delta + 1e-7
+    stored = [dict(zip(o.tolist(), s.tolist()))
+              for o, s in zip(win_order, win_scores)]
+
+    def tie_gap(b, p, r):
+        if p not in stored[b] or r not in stored[b]:
+            far = p if p not in stored[b] else r
+            raise RuntimeError(f"{tag}: anchor {far} of sample {b} lies "
+                               "outside the reference's stored window")
+        return abs(stored[b][p] - stored[b][r])
+
+    pre = cand_order.shape[1]
+    swapped = 0
+    for b, k in zip(*np.nonzero(cand_order != win_order[:, :pre])):
+        swapped += 1
+        if tie_gap(b, int(cand_order[b, k]), int(win_order[b, k])) > near:
+            raise RuntimeError(f"{tag}: proposal candidate {k} of sample {b} "
+                               "differs from the reference and is no "
+                               "near-tie")
+    counts = prop_valid.sum(-1)
+    if not np.array_equal(counts, ref["proposal_valid"].sum(-1)):
+        raise RuntimeError(f"{tag}: proposal counts {counts.tolist()} vs "
+                           f"{ref['proposal_valid'].sum(-1).tolist()}")
+    partings, whole, box_diff, turned = [], True, 0.0, []
+    for b in range(prop_idx.shape[0]):
+        c = int(counts[b])
+        gi, ri, same, parting = pair_roi_lists(
+            tag, b, prop_idx[b, :c], ref["proposal_idx"][b, :c],
+            rois[b, :c], ref["proposals"][b, :c],
+            lambda p, r: tie_gap(b, p, r), near, tol, "anchor")
+        whole &= parting is None
+        if parting is not None:
+            partings.append(parting)
+        got, want = rois[b, gi].copy(), ref["proposals"][b, ri]
+        flip = np.abs(np.abs(got[:, 6] - want[:, 6]) - np.pi) <= tol
+        for j in np.flatnonzero(flip):
+            anchor = int(prop_idx[b, gi[j]])
+            if not dir_margin[b, anchor] <= tol:
+                raise RuntimeError(
+                    f"{tag}: the proposal from anchor {anchor} of sample {b} "
+                    f"is turned by pi, and its direction logits are "
+                    f"{dir_margin[b, anchor]:.3g} apart (no near-tie)")
+            turned.append({"sample": b, "anchor": anchor,
+                           "dir_logit_gap": float(dir_margin[b, anchor])})
+            got[j, 6] = want[j, 6]
+        whole &= not flip.any()
+        box_diff = max(box_diff, close_to(
+            tag, "proposal boxes", got, want, tol, f" of sample {b}"))
+    return {"anchor_score_diff": delta, "candidates_swapped": swapped,
+            "proposal_counts": counts.tolist(), "partings": partings,
+            "turned_at_direction_ties": turned,
+            "proposal_box_diff": box_diff}, whole
+
+
+def check_pvrcnn_sampling(tag, targets, ref, tol):
+    """The sampled RoIs against the fixture's (both on the same
+    proposals): which proposal fills each valid slot, the labels and
+    masks exact; the RoI boxes within ``tol["boxes"]`` (relative above 1
+    m), the class targets within ``tol["cls_targets"]``; the matched gt
+    box where the RoI overlaps one by more than JAX's IoU round-off
+    (1e-4), and the RoI-local targets of the regressed RoIs."""
+    import numpy as np
+
+    got = {k: v.detach().cpu().numpy() for k, v in targets.items()}
+    valid = ref["target/roi_sample_valid"]
+    for k in ("roi_sample_valid", "reg_valid_mask", "roi_labels"):
+        if not np.array_equal(got[k], ref[f"target/{k}"]):
+            raise RuntimeError(f"{tag}: sampled {k} differ")
+    if not np.array_equal(got["roi_sample_idx"][valid],
+                          ref["roi_sample_idx"][valid]):
+        raise RuntimeError(f"{tag}: the sampled RoIs differ")
+    box = close_to(tag, "sampled RoIs", got["rois"],
+                   ref["target/rois"], tol["boxes"])
+    cls = float(np.abs(got["rcnn_cls_labels"]
+                       - ref["target/rcnn_cls_labels"]).max())
+    if not cls <= tol["cls_targets"]:
+        raise RuntimeError(f"{tag}: class targets off by {cls}")
+    overlap = valid & (ref["target/rcnn_cls_labels"] > 0)
+    reg = ref["target/reg_valid_mask"]
+    gt = close_to(tag, "matched gt boxes", got["gt_of_rois"][overlap],
+                  ref["target/gt_of_rois"][overlap], tol["boxes"])
+    local = close_to(tag, "RoI-local targets",
+                     got["gt_of_rois_local"][reg],
+                     ref["target/gt_of_rois_local"][reg], tol["boxes"])
+    return {"sampled_valid": valid.sum(-1).tolist(),
+            "foreground": ref["target/reg_valid_mask"].sum(-1).tolist(),
+            "box_diff": box, "cls_target_diff": cls, "gt_diff": gt,
+            "local_target_diff": local}
+
+
+def pvrcnn_first_step(dev, ref, batch, tag):
+    """The fp32 train step's forward and backward from
+    :func:`pvrcnn_train_model`'s weights on ``batch``, its discrete
+    decisions held against the fixture ``ref``: stage keys, keypoint
+    picks, keypoint and anchor labels identical; the proposals by
+    :func:`check_pvrcnn_proposals` (where they part at a near-tie, the
+    step again on the fixture's proposals). Returns a dict: the model
+    after the backward and ``init`` before it, ``out``, ``grads``,
+    ``metrics``, ``stats``, the recorded RoI stage ``rec``, the
+    ``replay``ed proposals or None, the ``proposals`` report."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.ops.nms import stable_top_k
+
+    model, mc = pvrcnn_train_model(dev)
+    init = copy.deepcopy(model)
+    with RecordedRoIStage() as rec:
+        out, grads, metrics, stats = train_gradients(model, batch)
+    for s, keys in enumerate(second_stage_keys(out)):
+        if not np.array_equal(keys.cpu().numpy(), ref[f"keys_{s + 1}"]):
+            raise RuntimeError(f"{tag}: stage {s + 1}'s site keys differ")
+    for k in ("keypoint_idx", "point_cls_labels"):
+        if not np.array_equal(out[k].cpu().numpy(), ref[k]):
+            raise RuntimeError(f"{tag}: {k} differ")
+    labels = out["box_cls_labels"].reshape(-1).cpu().numpy()
+    nz = np.flatnonzero(labels)
+    if not (np.array_equal(nz, ref["labels_idx"])
+            and np.array_equal(labels[nz], ref["labels_val"])):
+        raise RuntimeError(f"{tag}: anchor labels differ")
+    roi_cfg = mc["ROI_HEAD"]["NMS_CONFIG"]["TRAIN"]
+    scores = torch.sigmoid(out["batch_cls_preds"].detach()).amax(dim=-1)
+    _, order = stable_top_k(scores, int(roi_cfg["NMS_PRE_MAXSIZE"]))
+    dirs = out["dir_cls_preds"].detach()
+    prop = rec.proposals[0]
+    proposals, whole = check_pvrcnn_proposals(
+        tag, scores.cpu().numpy(),
+        (dirs[..., 0] - dirs[..., 1]).abs().cpu().numpy(),
+        order.cpu().numpy(),
+        torch.where(prop["roi_valid"], prop["roi_point_idx"], 0)
+        .cpu().numpy(), prop["roi_valid"].cpu().numpy(),
+        prop["rois"].cpu().numpy(), ref, PARITY_TOL)
+    replay = None
+    if not whole:  # the RoI stage on the reference's proposals
+        replay = [reference_proposals(ref, dev)]
+        model = copy.deepcopy(init)
+        with RecordedRoIStage(replay_proposals=replay) as rec:
+            out, grads, metrics, stats = train_gradients(model, batch)
+    return {"model": model, "init": init, "out": out, "grads": grads,
+            "metrics": metrics, "stats": stats, "rec": rec, "replay": replay,
+            "proposals": proposals,
+            "positives": int((labels > 0).sum())}
+
+
+def pvrcnn_trajectory(r, batch, steps, ref):
+    """Continue :func:`pvrcnn_first_step`'s result ``r`` into ``steps``
+    fp32 Adam steps (``make_train_step`` after the first), each later
+    step on the fixture ``ref``'s proposals and sampled RoIs of that step
+    (the JAX run's decisions, so that both runs evaluate one function).
+    Returns (the losses, the decisions of every step: (proposals,
+    targets), the learning rates summed)."""
+    from de6d_tpu_torch.train import (
+        build_optimizer_and_schedule, create_train_state, make_train_step,
+    )
+
+    model = r["model"]
+    opt, sched = build_optimizer_and_schedule(pvrcnn_opt_cfg(), model, 1)
+    state = create_train_state(model, opt)
+    r["metrics"]["grad_norm"] = float(opt.step())
+    state.step += 1
+    losses = [r["metrics"]["loss"]]
+    step = make_train_step(model, opt)
+    dev = r["out"]["rois"].device
+    later = range(2, steps + 1)
+    with RecordedRoIStage(
+            replay_proposals=[reference_proposals(ref, dev, k)
+                              for k in later],
+            replay_targets=[reference_targets(ref, dev, k)
+                            for k in later]) as rec:
+        for _ in later:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+    decisions = (r["rec"].proposals[:1] + rec.proposals,
+                 r["rec"].targets[:1] + rec.targets)
+    return losses, decisions, sum(sched(k) for k in range(steps))
+
+
+def pvrcnn_f64_run(init, batch, decisions, steps):
+    """The float64 trajectory from ``init`` (the model before the first
+    step) with the fp32 trajectory's ``decisions`` (each step's proposals
+    and sampled RoIs): the first step's (output, gradients, loss terms,
+    running statistics), every step's loss and the parameters after the
+    steps (flat float64 numpy)."""
+    import torch
+
+    from de6d_tpu_torch.train import (
+        build_optimizer_and_schedule, create_train_state, make_train_step,
+    )
+
+    model = f64_copy(init)
+    opt, _ = build_optimizer_and_schedule(pvrcnn_opt_cfg(), model, 1)
+    state = create_train_state(model, opt)
+    with plain_sparse_conv(), RecordedRoIStage(
+            replay_proposals=decisions[0], replay_targets=decisions[1],
+            dtype=torch.float64):
+        first = train_gradients(model, batch)
+        opt.step()
+        state.step += 1
+        losses = [first[2]["loss"]]
+        step = make_train_step(model, opt)
+        for _ in range(steps - 1):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+    params = {n: p.detach().cpu().numpy().reshape(-1).copy()
+              for n, p in model.named_parameters()}
+    return first, losses, params
+
+
+def measure_pvrcnn_train_f64(dev, steps=3):
+    """How far this device's fp32 PV-RCNN trajectory and the fixture's JAX
+    one lie from the float64 trajectory of the same decisions
+    (:func:`pvrcnn_f64_distances`): {"port": ..., "jax": ...}."""
+    import numpy as np
+
+    ref = dict(np.load(PVRCNN_TRAIN_REF))
+    batch = pvrcnn_train_batch(dev)
+    r = pvrcnn_first_step(dev, ref, batch, "f64 / train_pv_rcnn")
+    g32 = {n: g.astype(np.float32) for n, g in r["grads"].items()}
+    losses, decisions, _ = pvrcnn_trajectory(r, batch, steps, ref)
+    params = {n: p.detach().cpu().numpy().reshape(-1)
+              for n, p in r["model"].named_parameters()}
+    return pvrcnn_f64_distances(r["init"], batch, g32, r["metrics"],
+                                r["stats"], losses, params, decisions, ref)
+
+
+def check_pvrcnn_train_parity(dev, measure_f64=True, steps=3):
+    """PV-RCNN's train step in fp32 from :func:`pvrcnn_train_model`'s
+    weights on the fixture's batch against the JAX step stored in
+    ``pvrcnn_train_jax_ref.npz``: the decisions by
+    :func:`pvrcnn_first_step`; the sampled RoIs
+    (:func:`check_pvrcnn_sampling`); loss terms, gradient norm, every
+    gradient (against its leaf's largest |entry|) and the running
+    statistics after the step within :data:`PVRCNN_TRAIN_TOL`; the losses
+    of ``steps`` Adam steps and the parameters after them; with
+    ``measure_f64``, this device's fp32 step no farther from its float64
+    step of the same decisions than :data:`PVRCNN_TRAIN_F64`. Returns a
+    report; raises RuntimeError where a check fails."""
+    import numpy as np
+
+    from de6d_tpu_torch.ops.sparse import INVALID
+
+    tol = PVRCNN_TRAIN_TOL
+    tag = "parity / train_pv_rcnn"
+    ref = dict(np.load(PVRCNN_TRAIN_REF))
+    batch = pvrcnn_train_batch(dev)
+    r = pvrcnn_first_step(dev, ref, batch, tag)
+    out, grads, metrics, stats, rec, replay = (
+        r[k] for k in ("out", "grads", "metrics", "stats", "rec", "replay"))
+    model = r["model"]
+    sampling = check_pvrcnn_sampling(tag, rec.targets[0], ref, tol)
+    # the gradients are read before the steps move the parameters
+    g32 = {n: g.astype(np.float32) for n, g in grads.items()}
+    losses, decisions, lr_sum = pvrcnn_trajectory(r, batch, steps, ref)
+    rel = {}
+    for k, v in metrics.items():
+        want = float(ref[f"metric/{k}"])
+        rel[k] = abs(v - want) / max(abs(want), 1e-12)
+        if not rel[k] <= tol["grad_norm" if k == "grad_norm" else "loss"]:
+            raise RuntimeError(f"{tag}: {k} {v} vs {want} ({rel[k]:.3g} "
+                               "relative)")
+    grad_err = 0.0
+    for name, (err, scale) in leaf_report(ref, "grad", g32,
+                                          tol["grad"]).items():
+        e = float(err.max(initial=0)) / max(scale, 1e-30)
+        if not e <= tol["grad"]:
+            raise RuntimeError(f"{tag}: gradient {name} off by {e:.3g} of "
+                               f"its leaf's max {scale}")
+        grad_err = max(grad_err, e)
+    stat_err = 0.0
+    for name, b in stats.items():
+        d = float(np.abs(b - ref[f"stats/{name}"]).max())
+        if not d <= tol["stats"]:
+            raise RuntimeError(f"{tag}: {name} after the step off by {d}")
+        stat_err = max(stat_err, d)
+    loss_rel = np.abs(np.asarray(losses) / ref["losses"] - 1)
+    if not loss_rel.max() <= tol["losses"]:
+        raise RuntimeError(f"{tag}: losses {losses} vs "
+                           f"{ref['losses'].tolist()}")
+    params = {n: p.detach().cpu().numpy().reshape(-1)
+              for n, p in model.named_parameters()}
+    worst = 0.0
+    for name, (err, _) in leaf_report(ref, "params3", params).items():
+        e = float(err.max(initial=0))
+        if not e <= tol["params"]:
+            raise RuntimeError(f"{tag}: parameters {name} after {steps} "
+                               f"steps off by {e:.3g}")
+        worst = max(worst, e)
+    f64 = None
+    if measure_f64:
+        f64 = pvrcnn_f64_distances(r["init"], batch, g32, metrics, stats,
+                                   losses, params, decisions, ref)
+        for k, v in f64["port"].items():
+            if not v <= PVRCNN_TRAIN_F64[k]:
+                raise RuntimeError(
+                    f"{tag}: the {k} of this device's fp32 step lies "
+                    f"{v:.3g} from the float64 step, more than the CPU "
+                    f"runs' {PVRCNN_TRAIN_F64[k]:.3g} the tolerance rests on")
+    return {"f64_distance": f64, "proposals": r["proposals"],
+            "proposals_replayed": replay is not None, "sampling": sampling,
+            "positives": r["positives"],
+            "keypoint_positives": int((out["point_cls_labels"] > 0).sum()),
+            "stage_sites": [int((k != INVALID).sum())
+                            for k in second_stage_keys(out)],
+            "metrics": metrics, "metrics_rel_diff": rel, "losses": losses,
+            "losses_rel_diff": loss_rel.tolist(),
+            "max_grad_diff_of_leaf_max": grad_err,
+            "max_batch_stats_diff": stat_err,
+            "params3_max_diff": worst, "lr_sum": lr_sum}
+
+
+def pvrcnn_f64_distances(init, batch, g32, m32, s32, losses32, params32,
+                         decisions, ref):
+    """The float64 trajectory of the fp32 one's ``decisions``
+    (:func:`pvrcnn_f64_run`): how far this device's fp32 trajectory and
+    the fixture's JAX one lie from it: the first step's gradients, loss
+    terms and gradient norm (:func:`f64_distances`), its running
+    statistics (absolute), the sampled RoIs' boxes and class targets
+    against the float64 decode of the same anchors, every step's loss
+    (relative) and the parameters after the steps (absolute)."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.ops import iou3d
+
+    steps = len(losses32)
+    (out64, g64, m64, s64), losses64, p64 = pvrcnn_f64_run(
+        init, batch, decisions, steps)
+    dist = {"port": f64_distances(g32, {k: v for k, v in m32.items()
+                                        if k != "grad_norm"}, g64, m64)}
+    jax_g = {}
+    for name, g in g64.items():
+        if f"grad/{name}" in ref:
+            jax_g[name] = (np.arange(g.size), ref[f"grad/{name}"])
+        else:
+            jg = ref[f"grad_sample/{name}"]
+            jax_g[name] = (np.linspace(0, g.size - 1, jg.size)
+                           .astype(np.int64), jg)
+    norm64 = np.sqrt(sum(float((g ** 2).sum()) for g in g64.values()))
+    dist["jax"] = {
+        "grad": max(float(np.abs(jg - g64[n][idx]).max()
+                          / np.abs(g64[n]).max()) for n, (idx, jg)
+                    in jax_g.items() if np.abs(g64[n]).max() > 0),
+        "loss": max(abs(float(ref[f"metric/{k}"]) / v - 1)
+                    for k, v in m64.items() if v != 0),
+        "grad_norm": abs(float(ref["metric/grad_norm"]) / norm64 - 1)}
+    dist["port"]["stats"] = max(float(np.abs(s32[n] - s).max())
+                                for n, s in s64.items())
+    dist["jax"]["stats"] = max(float(np.abs(ref[f"stats/{n}"] - s).max())
+                               for n, s in s64.items())
+    prop, targets = decisions[0][0], decisions[1][0]
+    anchor = torch.gather(prop["roi_point_idx"].to(targets["rois"].device),
+                          1, targets["roi_sample_idx"])
+    box64 = torch.gather(out64["batch_box_preds"].detach(), 1,
+                         anchor[..., None].expand(-1, -1, 7))
+    valid = targets["roi_sample_valid"]
+    box64 = torch.where(valid[..., None], box64, 0.0)
+    gt = batch["gt_boxes"].double()
+    same = (targets["roi_labels"][..., None]
+            == gt[..., 7].to(torch.int32)[:, None, :])
+    iou = iou3d.boxes_iou3d(box64, gt[..., :7])
+    iou = torch.where(same & (gt[..., :7].abs() > 0).any(-1)[:, None], iou,
+                      -1.0).amax(-1)
+    cls64 = torch.clamp((iou - 0.25) / 0.5, 0.0, 1.0).cpu().numpy()
+    v = valid.cpu().numpy()
+    b64 = box64.cpu().numpy()[v]
+    for side, boxes, cls, losses in (
+            ("port", targets["rois"].detach().cpu().numpy(),
+             targets["rcnn_cls_labels"].detach().cpu().numpy(), losses32),
+            ("jax", ref["target/rois"], ref["target/rcnn_cls_labels"],
+             ref["losses"])):
+        dist[side]["boxes"] = float((np.abs(boxes[v] - b64)
+                                     / np.maximum(1.0, np.abs(b64))).max())
+        dist[side]["cls_targets"] = float(np.abs(cls[v] - cls64[v]).max())
+        dist[side]["losses"] = float(np.max(np.abs(
+            np.asarray(losses, np.float64) / np.asarray(losses64) - 1)))
+    dist["port"]["params"] = max(float(np.abs(params32[n] - p).max())
+                                 for n, p in p64.items())
+    dist["jax"]["params"] = max(
+        float(err.max(initial=0))
+        for err, _ in leaf_report(ref, "params3", p64).values())
+    return dist
+
+
+def phase_pvrcnn_train_parity(report):
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        r = check_pvrcnn_train_parity("cuda")
+    except RuntimeError as e:
+        fail(str(e))
+    report["pvrcnn_train_parity"] = r
+    p, s = r["proposals"], r["sampling"]
+    own = r["f64_distance"]["port"]
+    print(f"parity / train_pv_rcnn: fp32 (TF32 off) step on the fixture's "
+          f"batch matches the JAX step: stage keys (sites "
+          f"{r['stage_sites']}), keypoint picks, {r['keypoint_positives']} "
+          f"foreground keypoints and {r['positives']} positive anchors "
+          f"identical; proposals {p['proposal_counts']} (anchor scores "
+          f"{p['anchor_score_diff']:.3g}, {p['candidates_swapped']} "
+          f"candidates swapped at near-ties, {len(p['partings'])} lists "
+          f"parted, replayed: {r['proposals_replayed']}); sampled RoIs "
+          f"{s['sampled_valid']} valid, {s['foreground']} regressed, "
+          f"identical, boxes {s['box_diff']:.3g}, class targets "
+          f"{s['cls_target_diff']:.3g}; loss terms and grad_norm within "
+          f"{max(r['metrics_rel_diff'].values()):.3g} relative (loss "
+          f"{r['metrics']['loss']:.6f}, grad_norm "
+          f"{r['metrics']['grad_norm']:.6f}), gradients within "
+          f"{r['max_grad_diff_of_leaf_max']:.3g} of their leaf's max, "
+          f"statistics {r['max_batch_stats_diff']:.3g}; losses of 3 Adam "
+          f"steps {[round(x, 6) for x in r['losses']]} (within "
+          f"{max(r['losses_rel_diff']):.3g}), parameters after them within "
+          f"{r['params3_max_diff']:.3g} (learning rates summed "
+          f"{r['lr_sum']:.3g}); tolerances "
+          f"{ {k: PVRCNN_TRAIN_TOL[k] for k in PVRCNN_TRAIN_F64} }; this "
+          f"card's fp32 step from its float64 step: "
+          f"{ {k: float(f'{v:.3g}') for k, v in own.items()} }",
+          flush=True)
+
+
+def phase_pvrcnn_train_kernels(report):
+    """``kernels / pv_rcnn_train``: from one fp32 train-mode forward of
+    :func:`pvrcnn_train_model` on the fixture's batch, each kernel of the
+    train step against its plain version at the step's shapes: FPS (2 x
+    16384 -> 2048), the mask and resolve on the 2 x 9000 train proposals
+    (thresh 0.8, 512 kept), the 8 neighbour tables, and the sparse conv's
+    forward, data gradient (mirrored and strided), weight gradient and
+    transposed tables at its 12 layers (a seeded cotangent); times and
+    bounds."""
+    import torch
+
+    from de6d_tpu_torch.ops.kernels import sparse_conv as sc
+    from de6d_tpu_torch.ops.nms import stable_top_k
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, mc = pvrcnn_train_model("cuda")
+    model.train()
+    batch = pvrcnn_train_batch("cuda")
+    with torch.enable_grad(), recorded_sparse_calls() as calls:
+        out = model(dict(batch))
+    xyz = batch["points"][..., :3].contiguous()
+    n_kp = int(mc["PFE"]["NUM_KEYPOINTS"])
+    fps_lines = check_fps({"pvrcnn_train_keypoints": (
+        xyz, batch["points_mask"], n_kp, None)}, report)
+    roi_cfg = mc["ROI_HEAD"]["NMS_CONFIG"]["TRAIN"]
+    scores = torch.sigmoid(out["batch_cls_preds"].detach()).amax(dim=-1)
+    _, order = stable_top_k(scores, int(roi_cfg["NMS_PRE_MAXSIZE"]))
+    boxes = out["batch_box_preds"].detach()
+    cand = torch.gather(boxes, 1, order[..., None].expand(
+        -1, -1, boxes.shape[-1])).contiguous()
+    b, pre = cand.shape[:2]
+    nms_lines = check_nms_mask({"pvrcnn_train_proposals": (
+        cand, torch.full((b,), pre, dtype=torch.int32, device="cuda"),
+        float(roi_cfg["NMS_THRESH"]), int(roi_cfg["NMS_POST_MAXSIZE"]))})
+    table_lines = check_neighbor_tables({
+        f"pvrcnn_train_{name}": call for name, call in
+        zip(SECOND_LOOKUPS, calls["neighbor_table"])})
+    if len(calls["sparse_conv"]) != 12:
+        fail(f"kernels / pv_rcnn_train: {len(calls['sparse_conv'])} convs in "
+             "one forward, expected 12")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    layers = {}
+    for label, (args, kwargs) in zip(SECOND_CONVS, calls["sparse_conv"]):
+        tr = kwargs.get("transpose", (args[5:] or (None,))[0])
+        f, idx, hit, w, valid = (a.detach() for a in args[:5])
+        dy = torch.randn((*idx.shape[:2], w.shape[2]), generator=gen,
+                         device="cuda")
+        layers[label] = (f, idx, hit, w, valid, tr, dy)
+    kinds = {k: type(c[5]).__name__ for k, c in layers.items()}
+    if any((v == "Strided") != k.startswith("down") for k, v in kinds.items()):
+        fail(f"kernels / pv_rcnn_train: the convs hand their backward {kinds}")
+    grad_lines = check_sparse_conv_grad(layers)
+    rows, steps = time_sparse_conv_grad(layers)
+    sums = {kind: {k: sum(r[k] for r in per.values())
+                   for k in ("ms", "graph_ms", "plain_ms", "bound_ms")}
+            | {"launches": len(per) if kind != "transpose" else
+               sum(r["launches"] for r in per.values())}
+            for kind, per in rows.items()}
+    sums["forward"]["max_abs_err"] = max(float((
+        sc.sparse_conv(*layers[k][:5]) - sc.sparse_conv_plain(*layers[k][:5])
+    ).abs().max()) for k in layers)
+    for kind in ("dgrad", "wgrad"):
+        sums[kind]["max_abs_err"] = max(
+            (grad_lines[k]["max_abs_err"][kind] for k in layers
+             if kind in grad_lines[k]["max_abs_err"]), default=0.0)
+    sums["transpose"]["max_abs_err"] = 0.0
+    fl, nl = fps_lines["pvrcnn_train_keypoints"], nms_lines[
+        "pvrcnn_train_proposals"]
+    tables = {k: sum(ln[k] for ln in table_lines.values())
+              for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                        "bound_ms")}
+    report["pvrcnn_train_kernels"] = {
+        "fps": fl, "nms_mask": nl, "neighbor_table": table_lines,
+        "neighbor_tables_per_step": tables, "sparse_conv": sums,
+        "sparse_conv_layers": rows, "sparse_conv_steps": steps,
+        "sparse_conv_grad_cases": grad_lines}
+    print(f"kernels / pv_rcnn_train: FPS {fl['shape']} picks identical, "
+          f"{fl['ms']:.4f} ms (plain {fl['plain_ms']:.2f}, bound "
+          f"{fl['bound_ms']:.5f}); mask + resolve on the {b} x {pre} train "
+          f"proposals identical, {nl['ms']:.4f} + {nl['resolve_ms']:.4f} ms "
+          f"(plain {nl['plain_ms']:.2f} + {nl['resolve_plain_ms']:.2f}, "
+          f"bound {nl['bound_ms']:.5f}, survivor share "
+          f"{nl['survivor_share']}), kept {nl['kept']}; 8 neighbour "
+          f"tables {tables['ms']:.4f} ms (device {tables['device_ms']:.4f}, "
+          f"plain {tables['plain_ms']:.4f}, keys + searchsorted "
+          f"{tables['library_ms']:.4f}, bound {tables['bound_ms']:.5f}); "
+          f"sparse conv at the 12 layers, each within {GRAD_TOL['float32']} "
+          f"of its plain version: " + "; ".join(
+              f"{kind} x{v['launches']} {v['ms']:.4f} ms (graph "
+              f"{v['graph_ms']:.4f}, plain {v['plain_ms']:.3f}, bound "
+              f"{v['bound_ms']:.5f})" for kind, v in sums.items()),
+          flush=True)
+
+
+def phase_train_pvrcnn(report, kernels, profile):
+    """``train / pv_rcnn``: :func:`measure_train` with ``pv_rcnn.yaml`` as
+    shipped (fp32, cuDNN's TF32 off as ``tools/train.py`` sets it) at
+    batch 2 from :func:`pvrcnn_train_model`'s weights over the fixture's
+    frames: exactly :data:`PVRCNN_TRAIN_LAUNCHES` a step and no other
+    kernel launch."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = pvrcnn_train_model("cuda")[0]
+    out, rows = measure_train(
+        "train / pv_rcnn", model, pvrcnn_train_batch("cuda"),
+        pvrcnn_opt_cfg(), kernels, PVRCNN_TRAIN_LAUNCHES,
+        steps=PVRCNN_TRAIN_STEPS, profile_steps=2)
+    names = ("fps_cluster_kernel", "nms_mask_kernel", "nms_resolve_kernel",
+             "neighbor_table_kernel", "sparse_conv_gather_kernel",
+             "sparse_conv_wgrad_kernel", "transposed_table_kernel")
+    ours = {k: sum(us for name, us, _ in rows if k in name) for k in names}
+    out.update(compute_dtype="float32 (pv_rcnn.yaml; TF32 off)",
+               kernels_device_us_per_step=ours,
+               hand_kernels_share_of_device=sum(ours.values()) / 1e3
+               / out["device_ms_per_step"],
+               profile_top=[list(r) for r in rows[:25]])
+    report["train_pv_rcnn"] = out
+    print(train_line("train / pv_rcnn", out, "(fp32, pv_rcnn.yaml, TF32 "
+                     "off) at full width through train_model")
+          + f"; hand-written kernels "
+          f"{ {k: f'{us:.1f} us' for k, us in ours.items()} } "
+          f"({out['hand_kernels_share_of_device']:.1%} of the device time)",
+          flush=True)
+    for name, us, c in rows[:12 if profile else 8]:
+        print(f"train / pv_rcnn profile: {us:10.1f} us  x{c:6.1f}  "
+              f"{name[:90]}")
+
+
+def phase_eval_pvrcnn_kitti(report, kernels, ckpt):
+    """``eval / pv_rcnn_kitti``: ``tools/test.py --ckpt`` on ``train /
+    pv_rcnn_kitti``'s checkpoint (fp32, ``pv_rcnn.yaml``) over the 100 val
+    frames at batch 8: ms a frame, the recall counters, exactly
+    :data:`PVRCNN_EVAL_LAUNCHES` a batch and no other kernel launch."""
+    import torch
+
+    from de6d_tpu_torch.tools import test as test_cli
+
+    tag = "eval / pv_rcnn_kitti"
+    argv = ["--cfg_file", str(PVRCNN_CFG), "--ckpt", str(ckpt),
+            "--extra_tag", "chip_smoke", "--batch_size", str(EVAL_BATCH),
+            "--workers", "4", "--allow-zero-recall", "--set",
+            "DATA_CONFIG.DATA_PATH", str(KITTI_DIR)]
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    ret = test_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    n = -(-100 // EVAL_BATCH)
+    want = {k: n * PVRCNN_EVAL_LAUNCHES.get(k, 0) for k in kernels}
+    if launches != want:
+        fail(f"{tag}: launches {launches} in {n} batches, expected {want}")
+    out_dir = (ROOT / "output/kitti_models" / PVRCNN_CFG.stem
+               / "chip_smoke/eval/single")
+    if not (out_dir / "result.pkl").is_file():
+        fail(f"{tag}: tools/test.py wrote no result.pkl")
+    out = {"batches": n, "batch": EVAL_BATCH, "wall_s": wall,
+           "ms_per_frame": ret["sec_per_example"] * 1e3,
+           "steady_ms_per_frame": (ret["steady_sec_per_example"] or 0) * 1e3,
+           "recall_counts": ret["recall_counts"], "launches": launches,
+           "ap_moderate": {c: ret[f"{c}_3d/moderate_R40"]
+                           for c in ("Car", "Pedestrian", "Cyclist")}}
+    report["eval_pv_rcnn_kitti"] = out
+    print(f"{tag}: tools/test.py --ckpt on the train checkpoint, fp32 at "
+          f"batch {EVAL_BATCH} over the 100 val frames in {wall:.1f} s: "
+          f"{out['ms_per_frame']:.2f} ms a frame (steady p50 "
+          f"{out['steady_ms_per_frame']:.2f}), recall "
+          f"{out['recall_counts']}, 3D AP (R40) moderate "
+          f"{out['ap_moderate']}; launches {launches} in {n} batches",
+          flush=True)
+
+
 def main():
     import torch
 
@@ -5744,6 +6605,15 @@ def main():
                    "canvas": 0, "lookup": 0, "matrix_fps": 0})
     del model
     phase_pvrcnn_parity(report)
+    phase_pvrcnn_train_parity(report)
+    phase_pvrcnn_train_kernels(report)
+    phase_train_pvrcnn(report, every_kernel, profile)
+    ckpt = phase_train_kitti(
+        report, every_kernel, PVRCNN_CFG, "train / pv_rcnn_kitti",
+        "train_pv_rcnn_kitti", tuple(PVRCNN_TRAIN_LAUNCHES.items()),
+        tuple(PVRCNN_EVAL_LAUNCHES.items()), batch_size=2,
+        nms_per_batch=(0, 0), val_anchor_scores=False)
+    phase_eval_pvrcnn_kitti(report, every_kernel, ckpt)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5769,11 +6639,18 @@ def main():
                "second_train": report["train_second"]["launches"],
                "second_train_kitti":
                    report["train_second_kitti"]["launches"],
-               "second_eval_kitti": report["eval_second_kitti"]["launches"]}
+               "second_eval_kitti": report["eval_second_kitti"]["launches"],
+               "pv_rcnn_train": report["train_pv_rcnn"]["launches"],
+               "pv_rcnn_train_kitti":
+                   report["train_pv_rcnn_kitti"]["launches"],
+               "pv_rcnn_eval_kitti":
+                   report["eval_pv_rcnn_kitti"]["launches"]}
     kernels = []
-    # the sparse conv's launches split by dtype: the train paths run it in
-    # fp32 (second.yaml), the others in bf16
-    fp32_paths = ("second_train", "second_train_kitti")
+    # the sparse conv's launches split by dtype: the train paths and
+    # PV-RCNN's eval run it in fp32 (second.yaml, pv_rcnn.yaml), the others
+    # in bf16
+    fp32_paths = ("second_train", "second_train_kitti", "pv_rcnn_train",
+                  "pv_rcnn_train_kitti", "pv_rcnn_eval_kitti")
     for key in ("canvas", "canvas_grad", "nms", "nms_mask", "fps",
                 "matrix_fps", "lookup", "neighbor_table", "sparse_conv",
                 "sparse_conv_fp32", "sparse_conv_dgrad", "sparse_conv_wgrad",

@@ -3,7 +3,8 @@
 ``build_network(model_cfg, num_class, dataset, device, generator)``
 returns an eval-mode ``nn.Module`` composed from the registry by cfg NAME
 strings, on ``device`` (default ``"cuda"``), its layers drawn as flax
-initialises them; from ``generator`` (a CPU ``torch.Generator``) where
+initialises them; from ``generator`` (a CPU ``torch.Generator``, or a
+``numpy.random.Generator`` for the same weights on every machine) where
 one is given, else from torch's global generator.
 """
 

@@ -1,12 +1,16 @@
-"""Voxel set abstraction, PV-RCNN's keypoint features, inference only
-(counterpart of ``de6d_tpu/models/backbones_3d/pfe/voxel_set_abstraction.py``:
+"""Voxel set abstraction, PV-RCNN's keypoint features (counterpart of
+``de6d_tpu/models/backbones_3d/pfe/voxel_set_abstraction.py``:
 ``bilinear_interpolate_bev``, ``VoxelSetAbstraction``).
 
 d-fps picks ``NUM_KEYPOINTS`` keypoints from the raw points (the FPS
-kernel); each keypoint gathers the bilinear BEV feature, an SA group over
-the raw points and one over the voxel centres of every ``x_conv*``
-source; the concatenation (``point_features_before_fusion``) goes through
-one shared MLP to ``point_features``.
+kernel; the picks carry no gradient); each keypoint gathers the bilinear
+BEV feature, an SA group over the raw points and one over the voxel
+centres of every ``x_conv*`` source; the concatenation
+(``point_features_before_fusion``) goes through one shared MLP to
+``point_features``. In train mode the SA layers group every ball and
+their MLPs and the fusion MLP normalise by the batch's statistics, and
+the gradient flows into the BEV map and into every stage's features (none
+into the rows of a stage's invalid sites, which no ball holds).
 
 The feature order is the JAX module's, not ``FEATURES_SOURCE``'s: ``bev``,
 then ``raw_points``, then the ``x_conv*`` sources in list order. The SA

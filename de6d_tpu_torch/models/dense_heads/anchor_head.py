@@ -8,14 +8,15 @@ the JAX order, ``cls_preds`` (B, A, num_class), ``box_preds`` (B, A, 7)
 and ``dir_cls_preds`` (B, A, bins) with A ordered (h, w, anchor of the
 location), in fp32, and the targets of the dense assigner
 (``axis_aligned_assigner.assign_targets``, no gradient); it decodes
-nothing. The windowed and ATSS assigners and height matching are not
-ported: the head raises ``NotImplementedError`` on a config that asks
-for them.
+nothing unless a RoI head follows (below). The windowed and ATSS
+assigners and height matching are not ported: the head raises
+``NotImplementedError`` on a config that asks for them.
 
 Alone, the head hands ``post_processing`` a lazy decode (the candidates'
 rows only). With ``predict_boxes_when_training`` (set when a RoI head
-follows), it decodes every anchor into ``batch_box_preds`` and writes no
-lazy dict, as the JAX head does: the proposal layer reads those boxes.
+follows), it decodes every anchor into ``batch_box_preds``, in eval and
+in train mode, and writes no lazy dict, as the JAX head does: the
+proposal layer reads those boxes.
 """
 
 from __future__ import annotations
@@ -152,12 +153,15 @@ class AnchorHeadSingle(nn.Module):
         box_cell = head(self.conv_box)
         dir_cell = head(self.conv_dir) if self.use_dir else None
         if self.training:
-            return self.training_targets(batch_dict, cls_cell, box_cell,
-                                         dir_cell)
+            batch_dict = self.training_targets(batch_dict, cls_cell,
+                                               box_cell, dir_cell)
+            if not self.predict_boxes_when_training:
+                return batch_dict
         batch_dict["batch_cls_preds"] = cls_cell.reshape(b, -1, self.num_class)
         batch_dict["cls_preds_normalized"] = False
         if self.predict_boxes_when_training:
-            # a RoI head follows: every anchor decoded, (B, A, 7)
+            # a RoI head follows, in eval and in train mode: every anchor
+            # decoded, (B, A, 7)
             code = self.box_coder.code_size
             dir_preds = (None if dir_cell is None
                          else dir_cell.reshape(b, -1, self.num_dir_bins))

@@ -172,11 +172,11 @@ class Detector3DTemplate(nn.Module):
         box and class, or (B, M, 10): 9-DoF box and class, read by the head
         that writes its predictions and targets for
         :meth:`get_training_loss` (the detectors with ``TRAINABLE``:
-        PointPillars, Det6D, 3DSSD, SECOND)."""
+        PointPillars, Det6D, 3DSSD, SECOND, PV-RCNN)."""
         if self.training and not self.TRAINABLE:
             raise NotImplementedError(
                 f"{type(self).__name__}: training is not ported yet (the "
-                "port trains PointPillars, Det6D, 3DSSD and SECOND)")
+                "port trains PointPillars, Det6D, 3DSSD, SECOND and PV-RCNN)")
         with torch.set_grad_enabled(self.training):
             batch_dict = self.maybe_voxelize(dict(batch_dict))
             for name in self.module_names:
@@ -188,7 +188,7 @@ class Detector3DTemplate(nn.Module):
         ported for the detectors with ``TRAINABLE``."""
         raise NotImplementedError(
             f"{type(self).__name__}: training is not ported yet (the port "
-            "trains PointPillars, Det6D, 3DSSD and SECOND)")
+            "trains PointPillars, Det6D, 3DSSD, SECOND and PV-RCNN)")
 
 
 def rank_candidates(batch_dict, post_cfg):

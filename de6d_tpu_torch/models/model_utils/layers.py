@@ -10,14 +10,18 @@ of variance 1 / fan_in truncated at two standard deviations, with flax's
 fan-in of each kernel layout), biases zero, BatchNorm scale one and bias
 zero. ``Conv`` takes flax's ``kernel_init`` / ``bias_init`` overrides as
 callables ``fn(tensor, generator)``. :func:`init_flax_` draws a whole
-model again from one ``torch.Generator``; the bits cannot be flax's
-(jax's PRNG is not torch's), only the distributions are.
+model again from one ``torch.Generator``, or from a
+``numpy.random.Generator``, whose draws are the same on every machine and
+PyTorch build (a seeded ``torch.Generator``'s truncated normals are not);
+the bits cannot be flax's (jax's PRNG is not torch's), only the
+distributions are.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -27,12 +31,31 @@ from torch import nn
 _TRUNC_STD = 0.87962566103423978
 
 
+def _fill(t, values):
+    """Copy numpy ``values`` into ``t`` in its dtype."""
+    with torch.no_grad():
+        return t.copy_(torch.from_numpy(np.ascontiguousarray(values)).to(
+            t.dtype))
+
+
+def _trunc_normal_np(rng, shape):
+    """Unit normals redrawn until every one lies within [-2, 2]."""
+    x = rng.standard_normal(shape)
+    bad = np.abs(x) > 2
+    while bad.any():
+        x[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(x) > 2
+    return x
+
+
 def lecun_normal(fan_in: int):
     """flax ``lecun_normal()``: ``variance_scaling(1, "fan_in",
     "truncated_normal")`` for a kernel of fan-in ``fan_in``."""
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
 
     def init(t, generator=None):
+        if isinstance(generator, np.random.Generator):
+            return _fill(t, _trunc_normal_np(generator, tuple(t.shape)) * std)
         return nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std,
                                      generator=generator)
 
@@ -42,6 +65,8 @@ def lecun_normal(fan_in: int):
 def normal(stddev: float):
     """flax ``initializers.normal(stddev)``."""
     def init(t, generator=None):
+        if isinstance(generator, np.random.Generator):
+            return _fill(t, generator.normal(0.0, stddev, tuple(t.shape)))
         return nn.init.normal_(t, 0.0, stddev, generator=generator)
 
     return init
@@ -58,10 +83,11 @@ def constant(value: float):
 zeros = constant(0.0)
 
 
-def init_flax_(model: nn.Module, generator: torch.Generator | None = None):
+def init_flax_(model: nn.Module, generator=None):
     """Draw every layer of ``model`` again as flax initialises it, in
-    module order, from ``generator`` (a CPU generator: call before moving
-    the model to the card). Returns the model."""
+    module order, from ``generator``: a CPU ``torch.Generator`` (call
+    before moving the model to the card) or a ``numpy.random.Generator``
+    (the same weights on every machine). Returns the model."""
     with torch.no_grad():
         for m in model.modules():
             if hasattr(m, "FLAX_KIND"):

@@ -1,15 +1,22 @@
-"""PV-RCNN's RoI head with RoI-grid pooling, inference only (counterpart
-of ``de6d_tpu/models/roi_heads/pvrcnn_head.py``: ``roi_grid_points`` and
-``PVRCNNHead`` in eval).
+"""PV-RCNN's RoI head with RoI-grid pooling (counterpart of
+``de6d_tpu/models/roi_heads/pvrcnn_head.py``: ``roi_grid_points`` and
+``PVRCNNHead``, in eval and train).
 
 The proposal layer (``roi_head_utils.proposal_layer``: rotated NMS over
 the anchor head's decoded boxes, on the suppression-mask kernel) gives
-``NMS_POST_MAXSIZE`` RoIs a sample. Each RoI carries a G x G x G grid of
-points; an SA layer groups the keypoints, their features weighted by the
-keypoint scores, around every grid point; the pooled grid, grid index
-outermost, goes through the shared FCs to the class and box FCs. As in
-the JAX head, slots past a sample's RoI count are zero boxes that are
-pooled and scored too, and everything is fp32.
+``NMS_POST_MAXSIZE`` RoIs a sample, with ``NMS_CONFIG.TEST`` in eval and
+``NMS_CONFIG.TRAIN`` in train mode. In train mode ``TARGET_CONFIG``
+then samples ``ROI_PER_IMAGE`` of them (``roi_head_utils.
+assign_roi_targets``, JAX's draws), and those are pooled. Each RoI
+carries a G x G x G grid of points; an SA layer groups the keypoints,
+their features weighted by the keypoint scores (with the scores'
+gradient in train mode), around every grid point; the pooled grid, grid
+index outermost, goes through the shared FCs to the class and box FCs.
+Eval decodes the boxes; train writes ``roi_targets_dict`` (the sampled
+targets, ``gt_of_rois_local`` and the predictions) for
+``roi_head_utils.roi_head_loss``. As in the JAX head, slots past a
+sample's RoI count (or invalid samples) are boxes that are pooled and
+scored too, and everything is fp32.
 """
 
 from __future__ import annotations
@@ -65,10 +72,25 @@ class PVRCNNHead(nn.Module):
         self.reg_layers = FCStack(cin, model_cfg["REG_FC"], 7, use_bn=use_bn)
 
     def forward(self, batch_dict):
-        nms_cfg = self.model_cfg["NMS_CONFIG"]["TEST"]
+        train = self.training
+        nms_cfg = self.model_cfg["NMS_CONFIG"]["TRAIN" if train else "TEST"]
         num_rois = int(nms_cfg.get("NMS_POST_MAXSIZE", 512))
         batch_dict = roi_head_utils.proposal_layer(batch_dict, nms_cfg,
                                                    num_rois)
+        if train:
+            tcfg = self.model_cfg["TARGET_CONFIG"]
+            targets = roi_head_utils.assign_roi_targets(
+                batch_dict["rois"], batch_dict["roi_valid"],
+                batch_dict["roi_labels"], batch_dict["gt_boxes"],
+                roi_per_image=int(tcfg.get("ROI_PER_IMAGE", 128)),
+                fg_ratio=float(tcfg.get("FG_RATIO", 0.5)),
+                fg_thresh=float(tcfg.get("REG_FG_THRESH", 0.55)))
+            batch_dict["rois"] = targets["rois"]
+            batch_dict["roi_labels"] = targets["roi_labels"]
+            batch_dict["roi_valid"] = targets["roi_sample_valid"]
+            targets["gt_of_rois_local"] = (
+                roi_head_utils.canonical_transform_targets(
+                    targets["rois"][..., :7], targets["gt_of_rois"][..., :7]))
         rois = batch_dict["rois"]
         b, r = rois.shape[:2]
         grid = roi_grid_points(rois[..., :7], self.grid_size)
@@ -89,6 +111,11 @@ class PVRCNNHead(nn.Module):
         rcnn_reg = self.reg_layers(shared)  # (B, R, 7)
         batch_dict["rcnn_cls"] = rcnn_cls
         batch_dict["rcnn_reg"] = rcnn_reg
+        if train:
+            targets["rcnn_cls"] = rcnn_cls
+            targets["rcnn_reg"] = rcnn_reg
+            batch_dict["roi_targets_dict"] = targets
+            return batch_dict
         # the anchor head's outputs, which the RoI stage's replace, stay
         # readable for the parity checks
         batch_dict["rpn_cls_preds"] = batch_dict["batch_cls_preds"]

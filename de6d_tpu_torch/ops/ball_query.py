@@ -115,9 +115,14 @@ def ball_query(xyz, new_xyz, radius: float, nsample: int, valid_mask=None,
 
 
 def group_points(features, idx):
-    """features (B, N, C), idx (B, M, ns) → (B, M, ns, C)."""
-    rows = torch.arange(features.shape[0], device=features.device)
-    return features[rows[:, None, None], idx.long()]
+    """features (B, N, C), idx (B, M, ns) → (B, M, ns, C). A gather along
+    the point axis, whose backward is one scatter-add (advanced indexing's
+    backward sorts its indices: ~35 ms a call at PV-RCNN's RoI-grid pool
+    on an H100)."""
+    b, m, ns = idx.shape
+    flat = idx.reshape(b, m * ns).long()[..., None].expand(
+        -1, -1, features.shape[-1])
+    return torch.gather(features, 1, flat).reshape(b, m, ns, -1)
 
 
 def group_with_idx(xyz, new_xyz, features, idx, use_xyz: bool = True):

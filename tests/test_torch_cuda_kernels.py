@@ -1456,3 +1456,78 @@ def test_full_decode_anchor_head_on_the_card_equals_cpu(cuda_device):  # noqa: F
     assert torch.equal(got["batch_cls_preds"].cpu(), want["batch_cls_preds"])
     torch.testing.assert_close(got["batch_box_preds"].cpu(),
                                want["batch_box_preds"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_jax_random_on_the_card_equals_cpu(cuda_device):  # noqa: F811
+    """``jax_random``'s split and uniform on the card: the same words and
+    the same fp32 bits as on the CPU (where the tests hold them to
+    ``jax.random``)."""
+    from de6d_tpu_torch.utils import jax_random
+
+    for seed in (0, 7, 2 ** 31 + 5):
+        key = jax_random.prng_key(seed)
+        keys = jax_random.split(jax_random.split(key, 2), 2)
+        on_card = jax_random.split(jax_random.split(
+            key.to(cuda_device), 2), 2)
+        assert torch.equal(on_card.cpu(), keys)
+        want = jax_random.uniform(keys[:, 0], 9000)
+        got = jax_random.uniform(on_card[:, 0], 9000)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_roi_sampler_on_the_card_equals_cpu(cuda_device):  # noqa: F811
+    """``assign_roi_targets`` at PV-RCNN's train sizes (2 x 512 proposals,
+    128 sampled, half foreground) on the card: the same RoIs, labels and
+    masks as on the CPU; the class targets (twice the 3D IoU) within 1e-4:
+    the card's fp32 IoU rounds otherwise than the CPU's (3.35e-5 apart on
+    an H100 at these 60 m boxes; JAX's CPU IoU lies up to 1e-4 from
+    float64 there, ``tests/test_torch_pvrcnn_train.py``)."""
+    from de6d_tpu_torch.models.roi_heads.roi_head_utils import (
+        assign_roi_targets,
+    )
+
+    rng = np.random.RandomState(3)
+    gt = np.zeros((2, 8, 8), np.float32)
+    gt[..., :3] = rng.uniform([2, -30, -1.5], [60, 30, -0.5], (2, 8, 3))
+    gt[..., 3:6] = rng.uniform([3.2, 1.4, 1.4], [4.5, 1.9, 1.7], (2, 8, 3))
+    gt[..., 6] = rng.uniform(-np.pi, np.pi, (2, 8))
+    gt[..., 7] = rng.randint(1, 4, (2, 8))
+    src = rng.randint(0, 8, (2, 512))
+    rois = np.take_along_axis(gt[..., :7], src[..., None], axis=1)
+    rois = (rois + rng.normal(0, 0.2, rois.shape)).astype(np.float32)
+    rois[..., 3:6] = np.abs(rois[..., 3:6]) + 0.1
+    labels = np.take_along_axis(gt[..., 7], src, axis=1).astype(np.int32)
+    valid = np.ones((2, 512), bool)
+    valid[1, 400:] = False
+    args = [torch.from_numpy(a) for a in (rois, valid, labels, gt)]
+    want = assign_roi_targets(*args)
+    got = assign_roi_targets(*(a.to(cuda_device) for a in args))
+    for k in ("roi_sample_idx", "roi_sample_valid", "reg_valid_mask",
+              "roi_labels", "rois", "gt_of_rois"):
+        bad = (got[k].cpu() != want[k]).reshape(2, 128, -1).any(-1)
+        assert not bad.any(), (k, bad.nonzero()[:5].tolist())
+    assert int(want["reg_valid_mask"].sum()) > 0
+    torch.testing.assert_close(got["rcnn_cls_labels"].cpu(),
+                               want["rcnn_cls_labels"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_nms_mask_kernel_at_pvrcnn_train_size(cuda_device):  # noqa: F811
+    """The suppression mask and resolve kernels on PV-RCNN's train
+    proposals' shape (2 x 9000 candidates, thresh 0.8, 512 kept), ragged
+    counts: whole mask and selections equal to the plain versions'."""
+    boxes = torch.from_numpy(nms_boxes(np.random.RandomState(9), 2, 9000,
+                                       spread=40.0)).to(cuda_device)
+    counts = torch.tensor([9000, 7123], dtype=torch.int32,
+                          device=cuda_device)
+    packed = iou3d.pack_bev(boxes[..., :7]).contiguous()
+    got = nms_mask.nms_suppression_mask(packed, counts, 0.8)
+    sel, nsel = nms_mask.nms_resolve(got, counts, 512)
+    torch.cuda.synchronize()
+    ref = nms_mask.nms_suppression_mask_plain(packed, counts, 0.8)
+    assert torch.equal(got, ref) and bool((got != 0).any())
+    rsel, rnsel = nms_mask.nms_resolve_plain(ref, counts, 512)
+    assert torch.equal(sel, rsel) and torch.equal(nsel, rnsel)

@@ -599,18 +599,19 @@ def test_jax_train_state_resumes_in_the_port(tiny_train):
 
 
 def test_other_detectors_refuse_training():
-    """A detector whose loss is not ported (PV-RCNN) raises in train mode,
-    naming the ones that train, and the head raises on an assigner it
-    does not port."""
-    from de6d_tpu_torch.models.detectors.pv_rcnn import PVRCNN
+    """A detector whose loss is not ported (PointRCNN) raises in train
+    mode, naming the ones that train, and the head raises on an assigner
+    it does not port."""
+    from de6d_tpu_torch.models.detectors.point_rcnn import PointRCNN
 
-    model = PVRCNN.__new__(PVRCNN)
+    model = PointRCNN.__new__(PointRCNN)
     torch.nn.Module.__init__(model)
     model.train()
     with pytest.raises(NotImplementedError,
-                       match="PVRCNN.*PointPillars, Det6D, 3DSSD and SECOND"):
+                       match="PointRCNN.*PointPillars, Det6D, 3DSSD, SECOND "
+                             "and PV-RCNN"):
         model({"points": torch.zeros(1, 4, 4)})
-    with pytest.raises(NotImplementedError, match="PVRCNN"):
+    with pytest.raises(NotImplementedError, match="PointRCNN"):
         model.get_training_loss({})
 
     head = anchor_head.AnchorHeadSingle(
