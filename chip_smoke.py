@@ -328,12 +328,44 @@ Phases, one status line each; any failure exits non-zero:
                     one epoch of ``data/kitti`` at batch 2 (150 steps)
                     from the fresh init, as phase 4e: steps/s, the
                     loader's share, the loss falling, the launches of 22c
-                    a step, the checkpoint; the post-training eval with
-                    :data:`PVRCNN_EVAL_LAUNCHES` a batch and no fused NMS.
+                    a step, the checkpoint (no post-training eval since PR
+                    18: 22e evaluates the checkpoint).
 22e. eval / pv_rcnn_kitti — ``tools/test.py --ckpt`` on 22d's checkpoint
                     over the 100 val frames at batch 8: ms a frame, the
                     recall counters, :data:`PVRCNN_EVAL_LAUNCHES` a batch
                     (2 masks and 2 resolves among them).
+
+23. kernels / voxel_rcnn — from one bf16 forward of the served
+                    Voxel-RCNN (``configs/kitti_models/
+                    voxel_rcnn_car.yaml``, weights from a numpy seed) on
+                    the 8 scans clipped to its range: the lookup kernel on
+                    the RoI pool's 3 calls (x_conv2 / x_conv3 / x_conv4,
+                    8 x 583,200 queries each) against ``lookup_plain``, hit
+                    and idx identical everywhere; ms by events and in a
+                    CUDA graph, ``searchsorted``, the bytes bound; the
+                    pool's ms by scale.
+23a. serve / voxel_rcnn — ``StreamingDetector`` with that model (bf16
+                    backbone, fp32 head): per batch 3 lookups, 2 mask
+                    launches, 2 resolves, 8 neighbour tables, 12 sparse
+                    convs, and no fused NMS, FPS, canvas or f-fps; always
+                    profiled (device ms a batch, idle share).
+23b. parity / voxel_rcnn — fp32 (TF32 off) on 2 scans against
+                    ``de6d_tpu_torch/testdata/voxelrcnn_jax_ref.npz``
+                    (:func:`check_voxelrcnn_parity`: proposals, RoIs,
+                    ``rcnn_cls`` / ``rcnn_reg`` but for RoIs with a grid
+                    point on a cell face, detections).
+23c. parity / train_voxel_rcnn — as 22a with :data:`VOXELRCNN_TRAIN`
+                    (``voxelrcnn_train_jax_ref.npz``, batch 2).
+23d. train / voxel_rcnn — as 22c with ``voxel_rcnn_car.yaml``: exactly
+                    :data:`VOXELRCNN_TRAIN_LAUNCHES` a step.
+23e. train / voxel_rcnn_kitti — ``tools/train.py`` for one epoch of
+                    ``data/kitti`` at the config's batch of 4 (75 steps):
+                    the anchor head's loss and the RoI head's
+                    classification loss fall (:data:`VOXELRCNN_FALLING`);
+                    the launches of 23d a step, the checkpoint.
+23f. eval / voxel_rcnn_kitti — ``tools/test.py --ckpt`` on 23e's
+                    checkpoint over the 100 val frames at batch 8, with
+                    :data:`VOXELRCNN_EVAL_LAUNCHES` a batch.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of the kernels, the last line
@@ -350,6 +382,7 @@ import os
 import subprocess
 import sys
 import time
+import typing
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -379,6 +412,9 @@ SECOND_REF = ROOT / "de6d_tpu_torch/testdata/second_jax_ref.npz"
 PVRCNN_CFG = ROOT / "configs/kitti_models/pv_rcnn.yaml"
 PVRCNN_REF = ROOT / "de6d_tpu_torch/testdata/pvrcnn_jax_ref.npz"
 PVRCNN_SEED = 2026  # no trained PV-RCNN weights in the repository
+VOXELRCNN_CFG = ROOT / "configs/kitti_models/voxel_rcnn_car.yaml"
+VOXELRCNN_REF = ROOT / "de6d_tpu_torch/testdata/voxelrcnn_jax_ref.npz"
+VOXELRCNN_SEED = 2027  # no trained Voxel-RCNN weights in the repository
 TRAIN_REF = ROOT / "de6d_tpu_torch/testdata/pointpillar_train_jax_ref.npz"
 KITTI_DIR = ROOT / "data/kitti"
 LOADER_REF = ROOT / "de6d_tpu_torch/testdata/kitti_loader_jax_ref.npz"
@@ -400,7 +436,7 @@ PARITY_TOL = 1e-3  # metres / score units, see the parity phase
 # term, is a difference of fp32 sums that cancels; its error is a few
 # ulps of the summands |a|² + |b|², whatever order the sums are taken in.
 MATRIX_RTOL = 1e-6
-SERVE_S = 3.0  # length of each pipelined serve window
+SERVE_S = 2.0  # length of each pipelined serve window
 SERIAL_BATCHES = 10
 PROFILE_BATCHES = 20
 
@@ -552,6 +588,10 @@ def load_second_scans():
 
 def load_pvrcnn_scans():
     return load_clipped_scans(PVRCNN_CFG, SCANS)
+
+
+def load_voxelrcnn_scans():
+    return load_clipped_scans(VOXELRCNN_CFG, SCANS)
 
 
 # ---------------------------------------------------------------------
@@ -1622,7 +1662,8 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
                       key="train_kitti", per_step=(("canvas", 1),
                                                    ("canvas_grad", 1)),
                       eval_per_batch=(("canvas", 1),), batch_size=4,
-                      nms_per_batch=(1, 2), val_anchor_scores=True):
+                      nms_per_batch=(1, 2), val_anchor_scores=True,
+                      falling=None):
     """``train / kitti``: ``tools/train.py``'s entry (its ``prepare``,
     ``train`` and ``evaluate``, as ``main`` runs them) with ``cfg_path``
     (``pointpillar.yaml``, bf16) as shipped at ``batch_size`` for one epoch
@@ -1638,8 +1679,12 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
     BatchNorm statistics the trained weights' foreground anchors' mean
     score over the background's must exceed the fresh init's (in eval mode
     the running statistics, moved 75 times at momentum 0.99, still hold
-    0.99^75 = 47 % of their initial zero mean and unit variance). Returns
-    the checkpoint's path."""
+    0.99^75 = 47 % of their initial zero mean and unit variance). With
+    ``falling`` (names of loss terms), every step's loss terms are
+    recorded, and those terms, not the total, must fall. Returns the
+    checkpoint's path. ``eval_per_batch`` None skips the post-training
+    eval, for a detector whose eval phase evaluates the checkpoint at
+    batch 8 right after (this one runs at the train batch)."""
     import copy
     import shutil
 
@@ -1660,11 +1705,24 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
     run = train_cli.prepare(argv)
     prep_s = time.perf_counter() - t0
     init_model = copy.deepcopy(run.model)
+    terms = []
+    if falling:
+        get_loss = run.model.get_training_loss
+
+        def recorded_loss(batch_dict):
+            loss, tb = get_loss(batch_dict)
+            terms.append({k: v.detach() for k, v in tb.items()})
+            return loss, tb
+
+        run.model.get_training_loss = recorded_loss
     reset_launches(kernels)
     t0 = time.perf_counter()
     train_cli.train(run)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if falling:
+        del run.model.get_training_loss
+        terms = {k: np.array([float(t[k]) for t in terms]) for k in terms[0]}
     launches = read_launches(kernels)
     steps = len(run.step_log)
     want = {k: steps * dict(per_step).get(k, 0) for k in kernels}
@@ -1673,33 +1731,38 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
     losses = np.array([float(x[2]) for x in run.step_log])
     if not np.isfinite(losses).all():
         fail(f"{tag}: non-finite losses {losses}")
-    if not losses[-10:].mean() < losses[:10].mean():
-        fail(f"{tag}: the loss did not fall: first 10 "
-             f"{losses[:10].mean()}, last 10 {losses[-10:].mean()}")
+    gated = terms if falling else {"loss": losses}
+    for k in falling or ("loss",):
+        if not gated[k][-10:].mean() < gated[k][:10].mean():
+            fail(f"{tag}: {k} did not fall: first 10 "
+                 f"{gated[k][:10].mean()}, last 10 {gated[k][-10:].mean()}")
     ckpt = run.ckpt_dir / "checkpoint_epoch_1"
     if not ckpt.is_file():
         fail(f"{tag}: no checkpoint at {ckpt}")
     data_s = np.array([x[0] for x in run.step_log])
     step_s = np.array([x[1] for x in run.step_log])
     iter_ms = (data_s + step_s) * 1e3
-    reset_launches(kernels)
-    t0 = time.perf_counter()
-    ret, _ = train_cli.evaluate(run)
-    eval_s = time.perf_counter() - t0
-    eval_launches = read_launches(kernels)
-    n_eval = -(-100 // batch_size)
-    # the fused NMS runs on the 1024-candidate prefix, and again on all
-    # 4096 where the prefix does not decide a batch (ops/nms.py cascade)
-    want = {k: n_eval * dict(eval_per_batch).get(k, 0) for k in kernels}
-    want["nms"] = eval_launches["nms"]
-    lo, hi = nms_per_batch
-    if (eval_launches != want
-            or not lo * n_eval <= want["nms"] <= hi * n_eval):
-        fail(f"{tag}: post-training eval launches {eval_launches} in "
-             f"{n_eval} batches, expected {dict(eval_per_batch)} and "
-             f"{lo}-{hi} fused NMS a batch")
-    if not (run.output_dir / "eval/eval_with_train/result.pkl").is_file():
-        fail(f"{tag}: the post-training eval wrote no result.pkl")
+    ret, eval_s, eval_launches = {}, None, None
+    if eval_per_batch is not None:
+        reset_launches(kernels)
+        t0 = time.perf_counter()
+        ret, _ = train_cli.evaluate(run)
+        eval_s = time.perf_counter() - t0
+        eval_launches = read_launches(kernels)
+        n_eval = -(-100 // batch_size)
+        # the fused NMS runs on the 1024-candidate prefix, and again on all
+        # 4096 where the prefix does not decide a batch (ops/nms.py cascade)
+        want = {k: n_eval * dict(eval_per_batch).get(k, 0) for k in kernels}
+        want["nms"] = eval_launches["nms"]
+        lo, hi = nms_per_batch
+        if (eval_launches != want
+                or not lo * n_eval <= want["nms"] <= hi * n_eval):
+            fail(f"{tag}: post-training eval launches {eval_launches} in "
+                 f"{n_eval} batches, expected {dict(eval_per_batch)} and "
+                 f"{lo}-{hi} fused NMS a batch")
+        if not (run.output_dir
+                / "eval/eval_with_train/result.pkl").is_file():
+            fail(f"{tag}: the post-training eval wrote no result.pkl")
     scores, sep = None, None
     if val_anchor_scores:
         scores = anchor_scores({"init": init_model, "trained": run.model},
@@ -1722,6 +1785,10 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
         "frames_per_s": batch_size * steps / wall,
         "first10_loss": float(losses[:10].mean()),
         "last10_loss": float(losses[-10:].mean()),
+        "terms_first10_last10": {k: [float(v[:10].mean()),
+                                     float(v[-10:].mean())]
+                                 for k, v in terms.items()} if falling
+        else None,
         "launches": launches, "eval_launches": eval_launches,
         "eval_s": eval_s,
         "eval_recall": {k: ret[k] for k in ret if k.startswith("recall/")},
@@ -1739,10 +1806,18 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
           f"{out['steps_per_s']:.2f} steps/s, {out['frames_per_s']:.2f} "
           f"frames/s, loader wait {out['loader_wait_share']:.1%} of the "
           f"loop; loss first 10 {out['first10_loss']:.4f} -> last 10 "
-          f"{out['last10_loss']:.4f}; launches {launches}; checkpoint "
-          f"{out['checkpoint']}; post-training eval {eval_s:.1f} s, "
-          f"launches {eval_launches}, recall {out['eval_recall']} "
-          f"(prepare {prep_s:.1f} s)" + ("" if scores is None else
+          f"{out['last10_loss']:.4f}" + ("" if not falling else
+          "; loss terms first 10 -> last 10 " + ", ".join(
+              f"{k} {a:.4g} -> {b:.4g}" for k, (a, b) in
+              out["terms_first10_last10"].items())
+          + f" (gated: {', '.join(falling)})")
+          + f"; launches {launches}; checkpoint "
+          f"{out['checkpoint']}; " + (
+              "no post-training eval (the eval phase that follows "
+              "evaluates the checkpoint)" if eval_s is None else
+              f"post-training eval {eval_s:.1f} s, launches "
+              f"{eval_launches}, recall {out['eval_recall']}")
+          + f" (prepare {prep_s:.1f} s)" + ("" if scores is None else
           f"; val anchor scores, fresh init / "
           f"trained with the running BatchNorm statistics / trained with "
           f"the batch's: foreground mean over background mean "
@@ -4031,27 +4106,28 @@ def second_stage_keys(out):
 
 @contextlib.contextmanager
 def recorded_sparse_calls():
-    """Within the block every neighbour-table and sparse-conv call of
-    ``de6d_tpu_torch.ops.sparse`` is recorded with its inputs (args,
+    """Within the block every neighbour-table, lookup and sparse-conv call
+    of ``de6d_tpu_torch.ops.sparse`` is recorded with its inputs (args,
     kwargs), in call order, and then run as usual."""
     from de6d_tpu_torch.ops import sparse as sp
 
-    calls = {"neighbor_table": [], "sparse_conv": []}
-    orig = (sp.neighbor_table, sp.sparse_conv)
+    names = ("neighbor_table", "lookup", "sparse_conv")
+    calls = {k: [] for k in names}
+    orig = {k: getattr(sp, k) for k in names}
 
-    def table(*args, **kwargs):
-        calls["neighbor_table"].append((args, kwargs))
-        return orig[0](*args, **kwargs)
+    def recorder(name):
+        def call(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return orig[name](*args, **kwargs)
+        return call
 
-    def conv(*args, **kwargs):
-        calls["sparse_conv"].append((args, kwargs))
-        return orig[1](*args, **kwargs)
-
-    sp.neighbor_table, sp.sparse_conv = table, conv
+    for k in names:
+        setattr(sp, k, recorder(k))
     try:
         yield calls
     finally:
-        sp.neighbor_table, sp.sparse_conv = orig
+        for k, fn in orig.items():
+            setattr(sp, k, fn)
 
 
 # the backbone's calls in order: a stage's submanifold table, then the
@@ -5271,7 +5347,10 @@ def phase_train_second(report, kernels, profile):
     """``train / second``: :func:`measure_train` with ``second.yaml`` as
     shipped (fp32, cuDNN's TF32 off as ``tools/train.py`` sets it) at
     batch 4 from the trained weights over the fixture's frames: exactly
-    :data:`SECOND_TRAIN_LAUNCHES` a step and no other kernel launch."""
+    :data:`SECOND_TRAIN_LAUNCHES` a step and no other kernel launch; 2
+    steps profiled, as PV-RCNN's and Voxel-RCNN's (5 until PR 18: the
+    profiler's events of cuDNN's ~33,000 FFT launches a step cost the
+    script its time limit)."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
@@ -5279,7 +5358,7 @@ def phase_train_second(report, kernels, profile):
     model = build_model(None, "cuda", SECOND_CFG, SECOND_PARAMS)[0]
     out, rows = measure_train(
         "train / second", model, second_train_batch("cuda"),
-        second_opt_cfg(), kernels, SECOND_TRAIN_LAUNCHES)
+        second_opt_cfg(), kernels, SECOND_TRAIN_LAUNCHES, profile_steps=2)
     ours = {k: sum(us for name, us, _ in rows if k in name)
             for k in ("neighbor_table_kernel", "sparse_conv_gather_kernel",
                       "sparse_conv_wgrad", "transposed_table_kernel")}
@@ -5318,10 +5397,10 @@ def pvrcnn_proposals(out, roi_cfg):
     return cand, order, scores
 
 
-def pvrcnn_opt_cfg():
+def pvrcnn_opt_cfg(cfg_path=PVRCNN_CFG):
     from de6d_tpu_torch.config import cfg_from_yaml_file
 
-    return dict(cfg_from_yaml_file(PVRCNN_CFG).OPTIMIZATION)
+    return dict(cfg_from_yaml_file(cfg_path).OPTIMIZATION)
 
 
 def phase_pvrcnn_kernels(report):
@@ -5419,11 +5498,48 @@ def grid_sphere_rois(kp, kp_valid, rois, ref_rois, grid_size, radii):
     return on
 
 
-def check_pvrcnn_parity(out, post, ref, model_cfg, tol=PARITY_TOL):
-    """PV-RCNN against the JAX reference ``ref`` (the fixture's arrays).
+def grid_face_rois(rois, ref_rois, grid_size, voxel_size, pc_min, strides):
+    """(R,) bool: the RoIs whose voxel-query pooling can part from the
+    reference's. ``rois`` and ``ref_rois`` (R, 7) are the port's and the
+    reference's RoIs from the same anchors. A grid point's cell at a
+    stride is the floor of its offset from the range corner times the
+    fp32 reciprocal of the cell size (``voxelrcnn_head.cell_scales``); a
+    grid point of the port's RoI lies within ``shift`` of the
+    reference's (the grid displacement between the two RoIs plus two ulps
+    of the coordinates), and the fp32 offset and product each round by
+    half an ulp. A RoI is returned when, at one of ``strides``, a grid
+    point's exact position within that band of its own lies on both
+    sides of a cell face."""
+    import numpy as np
+    import torch
 
-    1. Keypoints (d-fps on the raw points, no learned input): identical
-       picks. Keypoint scores within ``tol``.
+    from de6d_tpu_torch.models.roi_heads.pvrcnn_head import roi_grid_points
+    from de6d_tpu_torch.models.roi_heads.voxelrcnn_head import cell_scales
+
+    g = roi_grid_points(rois[None, :, :7], grid_size)[0].double()
+    g_ref = roi_grid_points(ref_rois[None, :, :7], grid_size)[0].double()
+    shift = ((g - g_ref).norm(dim=-1).amax(dim=-1)
+             + 2.0 ** -22 * g.abs().amax(dim=(-1, -2)))[:, None, None]
+    corner = torch.as_tensor(np.asarray(pc_min, np.float64), device=g.device)
+    on = torch.zeros(g.shape[0], dtype=torch.bool, device=g.device)
+    for s in strides:
+        scale = torch.as_tensor(cell_scales(voxel_size, s).astype(np.float64),
+                                device=g.device)
+        u = (g - corner) * scale
+        du = shift * scale + 4 * 2.0 ** -24 * (u.abs() + 1)
+        on |= (torch.floor(u - du) != torch.floor(u + du)).flatten(1).any(1)
+    return on
+
+
+def check_pvrcnn_parity(out, post, ref, model_cfg, tol=PARITY_TOL,
+                        tag="parity / pv_rcnn", boundary=None):
+    """PV-RCNN (or, given ``boundary``, another detector with an
+    anchor head and a RoI-grid head) against the JAX reference ``ref``
+    (the fixture's arrays).
+
+    1. Keypoints (d-fps on the raw points, no learned input), where the
+       reference has them: identical picks. Keypoint scores within
+       ``tol``.
     2. Proposals: the port's anchor scores at the reference's stored
        window of its best anchors within ``tol`` (largest difference
        ``delta``). The top ``NMS_PRE_MAXSIZE`` order may hold another
@@ -5435,10 +5551,12 @@ def check_pvrcnn_parity(out, post, ref, model_cfg, tol=PARITY_TOL):
        from the reference's only at a near-tie (:func:`pair_roi_lists`).
     4. RoIs from the same anchor: boxes within ``tol``; ``rcnn_cls`` and
        ``rcnn_reg`` within ``tol``, and in the slots past the count (zero
-       boxes, pooled and scored as in JAX) too — except a RoI with a
-       keypoint on a grouping sphere of one of its grid points
-       (:func:`grid_sphere_rois`), whose pooled groups may differ; those
-       are counted and reported.
+       boxes, pooled and scored as in JAX) too — except a RoI on a
+       pooling boundary, whose pooled groups may differ; those are
+       counted and reported. The boundary is ``boundary(b, rois,
+       ref_rois)`` ((R,) bool for sample ``b``'s paired RoIs), by default
+       a keypoint on a grouping sphere of one of the RoI's grid points
+       (:func:`grid_sphere_rois`).
     5. Detections of a sample whose RoI list counts as the reference's
        and none of whose RoIs on a sphere moved: counts and labels equal,
        boxes and scores within ``tol``, slot by slot, or as a set
@@ -5452,19 +5570,27 @@ def check_pvrcnn_parity(out, post, ref, model_cfg, tol=PARITY_TOL):
 
     from de6d_tpu_torch.ops.nms import stable_top_k
 
-    tag = "parity / pv_rcnn"
-
     def close(name, got, want, where=""):
         return close_to(tag, name, got, want, tol, where)
 
+    pool = model_cfg["ROI_HEAD"]["ROI_GRID_POOL"]
+    if boundary is None:
+        radii = [float(r) for r in pool["POOL_RADIUS"]]
+
+        def boundary(b, rois, ref_rois):
+            return grid_sphere_rois(
+                out["point_coords"][b], out["point_valid"][b], rois,
+                ref_rois, int(pool["GRID_SIZE"]), radii)
+
     diffs = {}
-    if not np.array_equal(out["keypoint_idx"].cpu().numpy(),
-                          ref["keypoint_idx"]):
-        raise RuntimeError(f"{tag}: keypoint picks (d-fps) differ from the "
-                           "reference")
-    diffs["point_cls_scores"] = close(
-        "keypoint scores", out["point_cls_scores"].cpu().numpy(),
-        ref["point_cls_scores"])
+    if "keypoint_idx" in ref:
+        if not np.array_equal(out["keypoint_idx"].cpu().numpy(),
+                              ref["keypoint_idx"]):
+            raise RuntimeError(f"{tag}: keypoint picks (d-fps) differ from "
+                               "the reference")
+        diffs["point_cls_scores"] = close(
+            "keypoint scores", out["point_cls_scores"].cpu().numpy(),
+            ref["point_cls_scores"])
 
     roi_cfg = model_cfg["ROI_HEAD"]["NMS_CONFIG"]["TEST"]
     cand, order_t, scores_t = pvrcnn_proposals(out, roi_cfg)
@@ -5512,9 +5638,7 @@ def check_pvrcnn_parity(out, post, ref, model_cfg, tol=PARITY_TOL):
     got = {k: v.cpu().numpy() for k, v in post.items()}
     for k in ("rois", "rcnn_cls", "rcnn_reg"):
         got[k] = out[k].cpu().numpy()
-    pool = model_cfg["ROI_HEAD"]["ROI_GRID_POOL"]
-    radii = [float(r) for r in pool["POOL_RADIUS"]]
-    partings, on_spheres, skipped = [], [], []
+    partings, on_boundary, skipped = [], [], []
     for k in ("rois", "rcnn_cls", "rcnn_reg", "pred_boxes", "pred_scores"):
         diffs[k] = 0.0
     for b in range(roi_idx.shape[0]):
@@ -5536,10 +5660,9 @@ def check_pvrcnn_parity(out, post, ref, model_cfg, tol=PARITY_TOL):
             "rois", got["rois"][b, gi], ref["rois"][b, ri], where))
         ref_rois = torch.as_tensor(ref["rois"][b, ri],
                                    device=out["rois"].device)
-        on = grid_sphere_rois(
-            out["point_coords"][b], out["point_valid"][b],
-            out["rois"][b, torch.as_tensor(gi, device=ref_rois.device)],
-            ref_rois, int(pool["GRID_SIZE"]), radii).cpu().numpy()
+        on = boundary(
+            b, out["rois"][b, torch.as_tensor(gi, device=ref_rois.device)],
+            ref_rois).cpu().numpy()
 
         def rel(k):
             want = ref[k][b, ri].astype(np.float64)
@@ -5547,8 +5670,8 @@ def check_pvrcnn_parity(out, post, ref, model_cfg, tol=PARITY_TOL):
             return d.reshape(len(gi), -1).max(axis=1)
 
         moved = on & ((rel("rcnn_cls") > tol) | (rel("rcnn_reg") > tol))
-        on_spheres.append({"sample": b, "rois": int(on.sum()),
-                           "moved": int(moved.sum())})
+        on_boundary.append({"sample": b, "rois": int(on.sum()),
+                            "moved": int(moved.sum())})
         for k in ("rcnn_cls", "rcnn_reg"):
             diffs[k] = max(diffs[k], close(
                 k, got[k][b, gi[~on]], ref[k][b, ri[~on]], where))
@@ -5575,8 +5698,26 @@ def check_pvrcnn_parity(out, post, ref, model_cfg, tol=PARITY_TOL):
     return {"counts": got["pred_count"].tolist(),
             "roi_counts": roi_cnt.tolist(), "max_abs_diff": diffs,
             "candidates_swapped": swapped, "partings": partings,
-            "rois_on_a_sphere": on_spheres,
+            "rois_on_a_boundary": on_boundary,
             "detections_not_compared": skipped}
+
+
+def check_voxelrcnn_parity(out, post, ref, model_cfg, spec, tol=PARITY_TOL):
+    """Voxel-RCNN against the JAX reference ``ref``:
+    :func:`check_pvrcnn_parity` without keypoints, the pooling boundary
+    a grid point whose cell at one of the pooled scales can part
+    (:func:`grid_face_rois`, ``spec`` the model's ``DatasetSpec``)."""
+    pool = model_cfg["ROI_HEAD"]["ROI_GRID_POOL"]
+    strides = [int(out["multi_scale_3d_strides"][name])
+               for name in pool["FEATURES_SOURCE"]]
+
+    def boundary(b, rois, ref_rois):
+        return grid_face_rois(rois, ref_rois, int(pool["GRID_SIZE"]),
+                              spec.voxel_size, spec.point_cloud_range[:3],
+                              strides)
+
+    return check_pvrcnn_parity(out, post, ref, model_cfg, tol,
+                               "parity / voxel_rcnn", boundary)
 
 
 def match_detections(tag, got, ref, tol, where=""):
@@ -5635,7 +5776,7 @@ def phase_pvrcnn_parity(report):
           f"reference: keypoint picks identical, "
           f"{res['candidates_swapped']} proposal candidates swapped at "
           f"near-ties, {len(res['partings'])} RoI lists parted, RoIs with a "
-          f"keypoint on a grouping sphere {res['rois_on_a_sphere']}, "
+          f"keypoint on a grouping sphere {res['rois_on_a_boundary']}, "
           f"detections not compared for samples "
           f"{res['detections_not_compared']}, RoIs {res['roi_counts']}, "
           f"detections {res['counts']}, max |d| keypoint score "
@@ -5704,6 +5845,52 @@ PVRCNN_TRAIN_F64 = {"grad": 2.1e-2, "loss": 3e-6, "grad_norm": 2e-4,
 PVRCNN_TRAIN_TOL = {k: 2 * v for k, v in PVRCNN_TRAIN_F64.items()}
 
 
+class TrainRef(typing.NamedTuple):
+    """A two-stage detector's train parity: its name (the phases'
+    ``train_<name>``), yaml, fixture, the numpy seed of its initial
+    weights, and the float64 distances and tolerances of its fp32 step."""
+    name: str
+    cfg: Path
+    ref: Path
+    seed: int
+    f64: dict
+    tol: dict
+
+
+PVRCNN_TRAIN = TrainRef("pv_rcnn", PVRCNN_CFG, PVRCNN_TRAIN_REF,
+                        PVRCNN_TRAIN_SEED, PVRCNN_TRAIN_F64,
+                        PVRCNN_TRAIN_TOL)
+
+VOXELRCNN_TRAIN_REF = (ROOT / "de6d_tpu_torch/testdata/"
+                       "voxelrcnn_train_jax_ref.npz")
+# numpy seed of Voxel-RCNN's train weights (flax's initialisers, as
+# PVRCNN_TRAIN_SEED)
+VOXELRCNN_TRAIN_SEED = 2027
+# How far fp32 evaluations of the fixture's full-width Voxel-RCNN
+# trajectory lie from the float64 evaluation of the same decisions, as
+# PVRCNN_TRAIN_F64 measures them, the largest of the JAX package's and
+# the port's, on the CPU (tests/test_torch_voxelrcnn_train.py::
+# test_full_width_train_step_matches_fixture_on_cpu prints them) and on
+# an H100 (``parity / train_voxel_rcnn`` prints them), rounded up: the
+# first step's gradients relative to each leaf's largest |entry| (the
+# port on the CPU 2.83e-2, JAX 1.09e-2, the port on the card 3.56e-3),
+# its loss terms relative (JAX 6.91e-6 from the card's float64 step,
+# whose class targets come from the card's fp32 IoU; 6.9e-7 on the CPU)
+# and gradient norm (JAX 1.67e-4), its running statistics absolute
+# (6.97e-8), the sampled RoIs' boxes relative above 1 m (the card 4.29e-6)
+# and their class targets absolute (1.98e-5; at least JAX's IoU round-off,
+# 1e-4, doubled), the losses of the 3 Adam steps relative (the port on
+# the CPU 6.50e-3, JAX 3.55e-3) and the parameters after them absolute
+# (the port on the CPU 1.74e-3).
+VOXELRCNN_TRAIN_F64 = {"grad": 3e-2, "loss": 1e-5, "grad_norm": 3e-4,
+                       "stats": 2e-7, "boxes": 1e-5, "cls_targets": 2e-4,
+                       "losses": 1e-2, "params": 3e-3}
+VOXELRCNN_TRAIN_TOL = {k: 2 * v for k, v in VOXELRCNN_TRAIN_F64.items()}
+VOXELRCNN_TRAIN = TrainRef("voxel_rcnn", VOXELRCNN_CFG, VOXELRCNN_TRAIN_REF,
+                           VOXELRCNN_TRAIN_SEED, VOXELRCNN_TRAIN_F64,
+                           VOXELRCNN_TRAIN_TOL)
+
+
 class RecordedRoIStage:
     """Within the block the port's ``roi_head_utils.proposal_layer`` and
     ``assign_roi_targets`` record what they return (``self.proposals``,
@@ -5761,31 +5948,31 @@ class RecordedRoIStage:
         ru.proposal_layer, ru.assign_roi_targets = self.orig
 
 
-def pvrcnn_train_model(dev):
-    """PV-RCNN (``pv_rcnn.yaml`` as shipped, fp32) on ``dev`` with the
-    layers drawn as flax initialises them from :data:`PVRCNN_TRAIN_SEED`
-    (numpy draws on the CPU, then moved: the same weights on every device
-    and machine)."""
+def pvrcnn_train_model(dev, cfg_path=PVRCNN_CFG, seed=PVRCNN_TRAIN_SEED):
+    """PV-RCNN (``pv_rcnn.yaml`` as shipped, fp32), or the detector of
+    ``cfg_path``, on ``dev`` with the layers drawn as flax initialises
+    them from ``seed`` (numpy draws on the CPU, then moved: the same
+    weights on every device and machine)."""
     import numpy as np
 
     from de6d_tpu_torch.config import cfg_from_yaml_file
     from de6d_tpu_torch.models import build_network
 
-    cfg = cfg_from_yaml_file(PVRCNN_CFG)
+    cfg = cfg_from_yaml_file(cfg_path)
     mc = copy.deepcopy(cfg.MODEL)
-    gen = np.random.default_rng(PVRCNN_TRAIN_SEED)
+    gen = np.random.default_rng(seed)
     model = build_network(mc, len(cfg.CLASS_NAMES), spec_from_cfg(cfg),
                           device=dev, generator=gen)
     return model, mc
 
 
-def pvrcnn_train_batch(dev):
-    """The fixture's batch: the JAX loader's first batch of 2 on
-    ``data/kitti``'s train split (``pv_rcnn.yaml``, one worker)."""
+def pvrcnn_train_batch(dev, ref_path=PVRCNN_TRAIN_REF):
+    """The fixture's batch: the JAX loader's first batch on
+    ``data/kitti``'s train split (one worker)."""
     import numpy as np
     import torch
 
-    with np.load(PVRCNN_TRAIN_REF) as ref:
+    with np.load(ref_path) as ref:
         return {k: torch.from_numpy(ref[k]).to(dev)
                 for k in ("points", "points_mask", "gt_boxes")}
 
@@ -5962,11 +6149,12 @@ def check_pvrcnn_sampling(tag, targets, ref, tol):
             "local_target_diff": local}
 
 
-def pvrcnn_first_step(dev, ref, batch, tag):
+def pvrcnn_first_step(dev, ref, batch, tag, spec=PVRCNN_TRAIN):
     """The fp32 train step's forward and backward from
-    :func:`pvrcnn_train_model`'s weights on ``batch``, its discrete
-    decisions held against the fixture ``ref``: stage keys, keypoint
-    picks, keypoint and anchor labels identical; the proposals by
+    :func:`pvrcnn_train_model`'s weights (of ``spec``, a
+    :class:`TrainRef`) on ``batch``, its discrete decisions held against
+    the fixture ``ref``: stage keys, keypoint picks and labels (where the
+    detector has keypoints) and anchor labels identical; the proposals by
     :func:`check_pvrcnn_proposals` (where they part at a near-tie, the
     step again on the fixture's proposals). Returns a dict: the model
     after the backward and ``init`` before it, ``out``, ``grads``,
@@ -5977,7 +6165,7 @@ def pvrcnn_first_step(dev, ref, batch, tag):
 
     from de6d_tpu_torch.ops.nms import stable_top_k
 
-    model, mc = pvrcnn_train_model(dev)
+    model, mc = pvrcnn_train_model(dev, spec.cfg, spec.seed)
     init = copy.deepcopy(model)
     with RecordedRoIStage() as rec:
         out, grads, metrics, stats = train_gradients(model, batch)
@@ -5985,7 +6173,7 @@ def pvrcnn_first_step(dev, ref, batch, tag):
         if not np.array_equal(keys.cpu().numpy(), ref[f"keys_{s + 1}"]):
             raise RuntimeError(f"{tag}: stage {s + 1}'s site keys differ")
     for k in ("keypoint_idx", "point_cls_labels"):
-        if not np.array_equal(out[k].cpu().numpy(), ref[k]):
+        if k in ref and not np.array_equal(out[k].cpu().numpy(), ref[k]):
             raise RuntimeError(f"{tag}: {k} differ")
     labels = out["box_cls_labels"].reshape(-1).cpu().numpy()
     nz = np.flatnonzero(labels)
@@ -6016,7 +6204,7 @@ def pvrcnn_first_step(dev, ref, batch, tag):
             "positives": int((labels > 0).sum())}
 
 
-def pvrcnn_trajectory(r, batch, steps, ref):
+def pvrcnn_trajectory(r, batch, steps, ref, spec=PVRCNN_TRAIN):
     """Continue :func:`pvrcnn_first_step`'s result ``r`` into ``steps``
     fp32 Adam steps (``make_train_step`` after the first), each later
     step on the fixture ``ref``'s proposals and sampled RoIs of that step
@@ -6028,7 +6216,8 @@ def pvrcnn_trajectory(r, batch, steps, ref):
     )
 
     model = r["model"]
-    opt, sched = build_optimizer_and_schedule(pvrcnn_opt_cfg(), model, 1)
+    opt, sched = build_optimizer_and_schedule(pvrcnn_opt_cfg(spec.cfg),
+                                              model, 1)
     state = create_train_state(model, opt)
     r["metrics"]["grad_norm"] = float(opt.step())
     state.step += 1
@@ -6049,7 +6238,7 @@ def pvrcnn_trajectory(r, batch, steps, ref):
     return losses, decisions, sum(sched(k) for k in range(steps))
 
 
-def pvrcnn_f64_run(init, batch, decisions, steps):
+def pvrcnn_f64_run(init, batch, decisions, steps, spec=PVRCNN_TRAIN):
     """The float64 trajectory from ``init`` (the model before the first
     step) with the fp32 trajectory's ``decisions`` (each step's proposals
     and sampled RoIs): the first step's (output, gradients, loss terms,
@@ -6062,7 +6251,7 @@ def pvrcnn_f64_run(init, batch, decisions, steps):
     )
 
     model = f64_copy(init)
-    opt, _ = build_optimizer_and_schedule(pvrcnn_opt_cfg(), model, 1)
+    opt, _ = build_optimizer_and_schedule(pvrcnn_opt_cfg(spec.cfg), model, 1)
     state = create_train_state(model, opt)
     with plain_sparse_conv(), RecordedRoIStage(
             replay_proposals=decisions[0], replay_targets=decisions[1],
@@ -6080,51 +6269,56 @@ def pvrcnn_f64_run(init, batch, decisions, steps):
     return first, losses, params
 
 
-def measure_pvrcnn_train_f64(dev, steps=3):
-    """How far this device's fp32 PV-RCNN trajectory and the fixture's JAX
-    one lie from the float64 trajectory of the same decisions
-    (:func:`pvrcnn_f64_distances`): {"port": ..., "jax": ...}."""
+def measure_pvrcnn_train_f64(dev, steps=3, spec=PVRCNN_TRAIN):
+    """How far this device's fp32 trajectory of ``spec``'s detector
+    (PV-RCNN's by default) and the fixture's JAX one lie from the float64
+    trajectory of the same decisions (:func:`pvrcnn_f64_distances`):
+    {"port": ..., "jax": ...}."""
     import numpy as np
 
-    ref = dict(np.load(PVRCNN_TRAIN_REF))
-    batch = pvrcnn_train_batch(dev)
-    r = pvrcnn_first_step(dev, ref, batch, "f64 / train_pv_rcnn")
+    ref = dict(np.load(spec.ref))
+    batch = pvrcnn_train_batch(dev, spec.ref)
+    r = pvrcnn_first_step(dev, ref, batch, f"f64 / train_{spec.name}", spec)
     g32 = {n: g.astype(np.float32) for n, g in r["grads"].items()}
-    losses, decisions, _ = pvrcnn_trajectory(r, batch, steps, ref)
+    losses, decisions, _ = pvrcnn_trajectory(r, batch, steps, ref, spec)
     params = {n: p.detach().cpu().numpy().reshape(-1)
               for n, p in r["model"].named_parameters()}
     return pvrcnn_f64_distances(r["init"], batch, g32, r["metrics"],
-                                r["stats"], losses, params, decisions, ref)
+                                r["stats"], losses, params, decisions, ref,
+                                spec)
 
 
-def check_pvrcnn_train_parity(dev, measure_f64=True, steps=3):
-    """PV-RCNN's train step in fp32 from :func:`pvrcnn_train_model`'s
-    weights on the fixture's batch against the JAX step stored in
-    ``pvrcnn_train_jax_ref.npz``: the decisions by
-    :func:`pvrcnn_first_step`; the sampled RoIs
+def check_pvrcnn_train_parity(dev, measure_f64=True, steps=3,
+                              spec=PVRCNN_TRAIN):
+    """The train step of ``spec``'s detector (PV-RCNN's by default) in
+    fp32 from :func:`pvrcnn_train_model`'s weights on the fixture's batch
+    against the JAX step stored in the fixture (``pvrcnn_train_jax_ref.
+    npz``): the decisions by :func:`pvrcnn_first_step`; the sampled RoIs
     (:func:`check_pvrcnn_sampling`); loss terms, gradient norm, every
     gradient (against its leaf's largest |entry|) and the running
-    statistics after the step within :data:`PVRCNN_TRAIN_TOL`; the losses
-    of ``steps`` Adam steps and the parameters after them; with
-    ``measure_f64``, this device's fp32 step no farther from its float64
-    step of the same decisions than :data:`PVRCNN_TRAIN_F64`. Returns a
-    report; raises RuntimeError where a check fails."""
+    statistics after the step within ``spec.tol`` (:data:`PVRCNN_TRAIN_
+    TOL`); the losses of ``steps`` Adam steps and the parameters after
+    them; with ``measure_f64``, this device's fp32 step no farther from
+    its float64 step of the same decisions than ``spec.f64``
+    (:data:`PVRCNN_TRAIN_F64`). Returns a report; raises RuntimeError
+    where a check fails."""
     import numpy as np
 
     from de6d_tpu_torch.ops.sparse import INVALID
 
-    tol = PVRCNN_TRAIN_TOL
-    tag = "parity / train_pv_rcnn"
-    ref = dict(np.load(PVRCNN_TRAIN_REF))
-    batch = pvrcnn_train_batch(dev)
-    r = pvrcnn_first_step(dev, ref, batch, tag)
+    tol = spec.tol
+    tag = f"parity / train_{spec.name}"
+    ref = dict(np.load(spec.ref))
+    batch = pvrcnn_train_batch(dev, spec.ref)
+    r = pvrcnn_first_step(dev, ref, batch, tag, spec)
     out, grads, metrics, stats, rec, replay = (
         r[k] for k in ("out", "grads", "metrics", "stats", "rec", "replay"))
     model = r["model"]
     sampling = check_pvrcnn_sampling(tag, rec.targets[0], ref, tol)
     # the gradients are read before the steps move the parameters
     g32 = {n: g.astype(np.float32) for n, g in grads.items()}
-    losses, decisions, lr_sum = pvrcnn_trajectory(r, batch, steps, ref)
+    losses, decisions, lr_sum = pvrcnn_trajectory(r, batch, steps, ref,
+                                                  spec)
     rel = {}
     for k, v in metrics.items():
         want = float(ref[f"metric/{k}"])
@@ -6162,17 +6356,18 @@ def check_pvrcnn_train_parity(dev, measure_f64=True, steps=3):
     f64 = None
     if measure_f64:
         f64 = pvrcnn_f64_distances(r["init"], batch, g32, metrics, stats,
-                                   losses, params, decisions, ref)
+                                   losses, params, decisions, ref, spec)
         for k, v in f64["port"].items():
-            if not v <= PVRCNN_TRAIN_F64[k]:
+            if not v <= spec.f64[k]:
                 raise RuntimeError(
                     f"{tag}: the {k} of this device's fp32 step lies "
                     f"{v:.3g} from the float64 step, more than the CPU "
-                    f"runs' {PVRCNN_TRAIN_F64[k]:.3g} the tolerance rests on")
+                    f"runs' {spec.f64[k]:.3g} the tolerance rests on")
     return {"f64_distance": f64, "proposals": r["proposals"],
             "proposals_replayed": replay is not None, "sampling": sampling,
             "positives": r["positives"],
-            "keypoint_positives": int((out["point_cls_labels"] > 0).sum()),
+            "keypoint_positives": (int((out["point_cls_labels"] > 0).sum())
+                                   if "point_cls_labels" in out else None),
             "stage_sites": [int((k != INVALID).sum())
                             for k in second_stage_keys(out)],
             "metrics": metrics, "metrics_rel_diff": rel, "losses": losses,
@@ -6183,7 +6378,7 @@ def check_pvrcnn_train_parity(dev, measure_f64=True, steps=3):
 
 
 def pvrcnn_f64_distances(init, batch, g32, m32, s32, losses32, params32,
-                         decisions, ref):
+                         decisions, ref, spec=PVRCNN_TRAIN):
     """The float64 trajectory of the fp32 one's ``decisions``
     (:func:`pvrcnn_f64_run`): how far this device's fp32 trajectory and
     the fixture's JAX one lie from it: the first step's gradients, loss
@@ -6198,7 +6393,7 @@ def pvrcnn_f64_distances(init, batch, g32, m32, s32, losses32, params32,
 
     steps = len(losses32)
     (out64, g64, m64, s64), losses64, p64 = pvrcnn_f64_run(
-        init, batch, decisions, steps)
+        init, batch, decisions, steps, spec)
     dist = {"port": f64_distances(g32, {k: v for k, v in m32.items()
                                         if k != "grad_norm"}, g64, m64)}
     jax_g = {}
@@ -6423,17 +6618,20 @@ def phase_train_pvrcnn(report, kernels, profile):
               f"{name[:90]}")
 
 
-def phase_eval_pvrcnn_kitti(report, kernels, ckpt):
+def phase_eval_pvrcnn_kitti(report, kernels, ckpt, cfg_path=PVRCNN_CFG,
+                            name="pv_rcnn", per_batch=None):
     """``eval / pv_rcnn_kitti``: ``tools/test.py --ckpt`` on ``train /
-    pv_rcnn_kitti``'s checkpoint (fp32, ``pv_rcnn.yaml``) over the 100 val
-    frames at batch 8: ms a frame, the recall counters, exactly
-    :data:`PVRCNN_EVAL_LAUNCHES` a batch and no other kernel launch."""
+    pv_rcnn_kitti``'s checkpoint (fp32, ``pv_rcnn.yaml``; or ``name``'s,
+    of ``cfg_path``) over the 100 val frames at batch 8: ms a frame, the
+    recall counters, exactly ``per_batch`` (:data:`PVRCNN_EVAL_LAUNCHES`)
+    a batch and no other kernel launch."""
     import torch
 
     from de6d_tpu_torch.tools import test as test_cli
 
-    tag = "eval / pv_rcnn_kitti"
-    argv = ["--cfg_file", str(PVRCNN_CFG), "--ckpt", str(ckpt),
+    per_batch = PVRCNN_EVAL_LAUNCHES if per_batch is None else per_batch
+    tag = f"eval / {name}_kitti"
+    argv = ["--cfg_file", str(cfg_path), "--ckpt", str(ckpt),
             "--extra_tag", "chip_smoke", "--batch_size", str(EVAL_BATCH),
             "--workers", "4", "--allow-zero-recall", "--set",
             "DATA_CONFIG.DATA_PATH", str(KITTI_DIR)]
@@ -6444,10 +6642,10 @@ def phase_eval_pvrcnn_kitti(report, kernels, ckpt):
     wall = time.perf_counter() - t0
     launches = read_launches(kernels)
     n = -(-100 // EVAL_BATCH)
-    want = {k: n * PVRCNN_EVAL_LAUNCHES.get(k, 0) for k in kernels}
+    want = {k: n * per_batch.get(k, 0) for k in kernels}
     if launches != want:
         fail(f"{tag}: launches {launches} in {n} batches, expected {want}")
-    out_dir = (ROOT / "output/kitti_models" / PVRCNN_CFG.stem
+    out_dir = (ROOT / "output/kitti_models" / Path(cfg_path).stem
                / "chip_smoke/eval/single")
     if not (out_dir / "result.pkl").is_file():
         fail(f"{tag}: tools/test.py wrote no result.pkl")
@@ -6456,8 +6654,9 @@ def phase_eval_pvrcnn_kitti(report, kernels, ckpt):
            "steady_ms_per_frame": (ret["steady_sec_per_example"] or 0) * 1e3,
            "recall_counts": ret["recall_counts"], "launches": launches,
            "ap_moderate": {c: ret[f"{c}_3d/moderate_R40"]
-                           for c in ("Car", "Pedestrian", "Cyclist")}}
-    report["eval_pv_rcnn_kitti"] = out
+                           for c in ("Car", "Pedestrian", "Cyclist")
+                           if f"{c}_3d/moderate_R40" in ret}}
+    report[f"eval_{name}_kitti"] = out
     print(f"{tag}: tools/test.py --ckpt on the train checkpoint, fp32 at "
           f"batch {EVAL_BATCH} over the 100 val frames in {wall:.1f} s: "
           f"{out['ms_per_frame']:.2f} ms a frame (steady p50 "
@@ -6465,6 +6664,225 @@ def phase_eval_pvrcnn_kitti(report, kernels, ckpt):
           f"{out['recall_counts']}, 3D AP (R40) moderate "
           f"{out['ap_moderate']}; launches {launches} in {n} batches",
           flush=True)
+
+# ---------------------------------------------------------------------
+# Voxel-RCNN: the lookup kernel at the voxel-query pool's shapes, serve,
+# parity, training, tools/train.py and tools/test.py on data/kitti
+# ---------------------------------------------------------------------
+
+# a Voxel-RCNN batch or step: the pool's lookup, one launch a pooled scale
+VOXELRCNN_POOL_LOOKUPS = 3
+# an eval batch: the proposal layer's and the final NMS's mask and
+# resolve (100 RoIs: not a multiple of 128, so not the fused NMS), the
+# backbone's tables and convs, the pool's lookups
+VOXELRCNN_EVAL_LAUNCHES = {"nms_mask": 2, "nms_resolve": 2,
+                           "neighbor_table": 8, "sparse_conv": 12,
+                           "lookup": VOXELRCNN_POOL_LOOKUPS}
+# a train step: the proposal layer's mask and resolve (9000 -> 512), the
+# pool's lookups and SECOND's backbone kernels (the RoI head's cotangents
+# enter x_conv2, x_conv3 and x_conv4, each of whose convs already has its
+# data gradient in SECOND's step)
+VOXELRCNN_TRAIN_LAUNCHES = {"nms_mask": 1, "nms_resolve": 1,
+                            "lookup": VOXELRCNN_POOL_LOOKUPS,
+                            **SECOND_TRAIN_LAUNCHES}
+# steps of ``train / voxel_rcnn``, 2 of them profiled
+VOXELRCNN_TRAIN_STEPS = 10
+# the loss terms that must fall over ``train / voxel_rcnn_kitti``'s epoch:
+# the anchor head's (targets fixed by the gt boxes) and the RoI head's
+# classification. The RoI head's regression is averaged over the RoIs it
+# regresses, whose count grows as the proposals improve (1.7 -> 24.1 a
+# batch of 4 over the epoch on an H100, where that term rose 2.00 ->
+# 3.88 and the total 5.66 -> 5.98 while the anchor head's loss fell 2.96
+# -> 1.58), so the total is reported, not gated.
+VOXELRCNN_FALLING = ("rpn_loss", "rcnn_loss_cls")
+
+
+def voxelrcnn_pool_ms(model, out):
+    """Events-timed ms of the RoI head's voxel-query pool on ``out`` (an
+    eval forward's RoIs and stages), by scale: the lookup, the gather, the
+    MLP and the max over the 27 neighbours."""
+    import torch
+
+    from de6d_tpu_torch.models.roi_heads.pvrcnn_head import roi_grid_points
+    from de6d_tpu_torch.models.roi_heads.voxelrcnn_head import (
+        voxel_query_pool,
+    )
+
+    head = model.roi_head
+    rois = out["rois"]
+    pts = roi_grid_points(rois[..., :7], head.grid_size).reshape(
+        rois.shape[0], -1, 3)
+    ms = out["multi_scale_3d_features"]
+    strides = out["multi_scale_3d_strides"]
+    pools = {}
+    with torch.no_grad():
+        for i, name in enumerate(head.sources):
+            feats, keys, grid = ms[name]
+            mlp = getattr(head, f"SharedMLP_{i}")
+            args = (feats, keys, grid, pts, head.voxel_size, head.pc_min,
+                    int(strides[name]))
+            pools[name] = time_ms(
+                lambda: mlp(voxel_query_pool(*args)[0]).amax(dim=2), 10)
+    return pools
+
+
+def phase_voxelrcnn_kernels(report):
+    """``kernels / voxel_rcnn``: from one bf16 forward of the served
+    Voxel-RCNN (``voxel_rcnn_car.yaml``, weights from
+    :data:`VOXELRCNN_SEED`) on the 8 scans clipped to its range, the
+    lookup kernel on the RoI pool's 3 calls (x_conv2, x_conv3, x_conv4:
+    8 samples x 583,200 queries each) against ``lookup_plain`` bit for
+    bit (:func:`check_lookup`: ``hit`` and ``idx`` everywhere), ms by
+    events and in a CUDA graph, ``torch.searchsorted``, the bytes bound;
+    the pool's time a batch (:func:`voxelrcnn_pool_ms`). The report's
+    ``lookup`` entry takes these per-batch sums: the pool is the kernel's
+    path."""
+    import torch
+
+    model, mc, nc = build_model("bfloat16", "cuda", VOXELRCNN_CFG,
+                                VOXELRCNN_SEED)
+    pts, mask = load_voxelrcnn_scans()
+    with torch.no_grad(), recorded_sparse_calls() as calls:
+        out = model({"points": torch.from_numpy(pts).cuda(),
+                     "points_mask": torch.from_numpy(mask).cuda()})
+    names = list(model.roi_head.sources)
+    if len(calls["lookup"]) != len(names):
+        fail(f"kernels / voxel_rcnn: {len(calls['lookup'])} lookups in one "
+             f"forward, expected {len(names)}")
+    lines = check_lookup({
+        f"voxel_rcnn_{name}": tuple(a.contiguous() for a in args)
+        for name, (args, _) in zip(names, calls["lookup"])})
+    pools = voxelrcnn_pool_ms(model, out)
+    per_batch = {k: sum(ln[k] for ln in lines.values()) for k in (
+        "ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
+    second = {k: report["lookup"][k] for k in per_batch}
+    report["lookup"].update(per_batch, second_keys=second,
+                            pool_lookups=lines)
+    report["voxelrcnn_pool"] = {"pool_ms": pools,
+                                "rois": list(out["rois"].shape),
+                                "roi_valid": out["roi_valid"].sum(-1)
+                                .tolist()}
+    print(f"kernels / voxel_rcnn: the pool's 3 lookups a batch of 8, hit "
+          f"and idx identical to the plain version: {per_batch['ms']:.4f} "
+          f"ms (device {per_batch['device_ms']:.4f}, plain "
+          f"{per_batch['plain_ms']:.4f}, searchsorted "
+          f"{per_batch['library_ms']:.4f}, bound {per_batch['bound_ms']:.5f}"
+          f" ms); the pool (lookup, gather, MLP, max) by scale "
+          f"{ {k: round(v, 4) for k, v in pools.items()} } ms; RoIs "
+          f"{report['voxelrcnn_pool']['roi_valid']}", flush=True)
+    return model, mc, nc
+
+
+def phase_voxelrcnn_parity(report):
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        post_processing,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, mc, nc = build_model("float32", "cuda", VOXELRCNN_CFG,
+                                VOXELRCNN_SEED)
+    pts, mask = load_voxelrcnn_scans()
+    with torch.no_grad():
+        out = model({"points": torch.from_numpy(pts[:2]).cuda(),
+                     "points_mask": torch.from_numpy(mask[:2]).cuda()})
+        post = post_processing(out, mc["POST_PROCESSING"], nc)
+        try:
+            res = check_voxelrcnn_parity(
+                out, post, dict(np.load(VOXELRCNN_REF)), mc, model.spec)
+        except RuntimeError as e:
+            fail(str(e))
+    report["parity_voxel_rcnn"] = res
+    d = res["max_abs_diff"]
+    print(f"parity / voxel_rcnn: fp32 (TF32 off) on 2 scans matches the JAX "
+          f"reference: {res['candidates_swapped']} proposal candidates "
+          f"swapped at near-ties, {len(res['partings'])} RoI lists parted, "
+          f"RoIs with a grid point on a cell face "
+          f"{res['rois_on_a_boundary']}, detections not compared for "
+          f"samples {res['detections_not_compared']}, RoIs "
+          f"{res['roi_counts']}, detections {res['counts']}, max |d| anchor "
+          f"score {d['anchor_scores']:.3g}, RoI {d['rois']:.3g}, rcnn_cls "
+          f"{d['rcnn_cls']:.3g}, rcnn_reg {d['rcnn_reg']:.3g}, box "
+          f"{d['pred_boxes']:.3g}, score {d['pred_scores']:.3g} (tol "
+          f"{PARITY_TOL})", flush=True)
+
+
+def phase_voxelrcnn_train_parity(report):
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        r = check_pvrcnn_train_parity("cuda", spec=VOXELRCNN_TRAIN)
+    except RuntimeError as e:
+        fail(str(e))
+    report["voxelrcnn_train_parity"] = r
+    p, s = r["proposals"], r["sampling"]
+    own, jax_own = (
+        {k: float(f"{v:.3g}") for k, v in r["f64_distance"][side].items()}
+        for side in ("port", "jax"))
+    print(f"parity / train_voxel_rcnn: fp32 (TF32 off) step on the "
+          f"fixture's batch matches the JAX step: stage keys (sites "
+          f"{r['stage_sites']}) and {r['positives']} positive anchors "
+          f"identical; proposals {p['proposal_counts']} (anchor scores "
+          f"{p['anchor_score_diff']:.3g}, {p['candidates_swapped']} "
+          f"candidates swapped at near-ties, {len(p['partings'])} lists "
+          f"parted, replayed: {r['proposals_replayed']}); sampled RoIs "
+          f"{s['sampled_valid']} valid, {s['foreground']} regressed, "
+          f"identical, boxes {s['box_diff']:.3g}, class targets "
+          f"{s['cls_target_diff']:.3g}; loss terms and grad_norm within "
+          f"{max(r['metrics_rel_diff'].values()):.3g} relative (loss "
+          f"{r['metrics']['loss']:.6f}, grad_norm "
+          f"{r['metrics']['grad_norm']:.6f}), gradients within "
+          f"{r['max_grad_diff_of_leaf_max']:.3g} of their leaf's max, "
+          f"statistics {r['max_batch_stats_diff']:.3g}; losses of 3 Adam "
+          f"steps {[round(x, 6) for x in r['losses']]} (within "
+          f"{max(r['losses_rel_diff']):.3g}), parameters after them within "
+          f"{r['params3_max_diff']:.3g} (learning rates summed "
+          f"{r['lr_sum']:.3g}); tolerances {VOXELRCNN_TRAIN_TOL}; this "
+          f"card's fp32 step from its float64 step: {own}; the JAX step's: "
+          f"{jax_own}", flush=True)
+
+
+def phase_train_voxelrcnn(report, kernels, profile):
+    """``train / voxel_rcnn``: :func:`measure_train` with
+    ``voxel_rcnn_car.yaml`` as shipped (fp32, cuDNN's TF32 off as
+    ``tools/train.py`` sets it) from :data:`VOXELRCNN_TRAIN_SEED`'s
+    weights over the fixture's frames (the JAX loader's first batch of
+    2): exactly :data:`VOXELRCNN_TRAIN_LAUNCHES` a step and no other
+    kernel launch; the device time by kernel, the pool's share."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = pvrcnn_train_model("cuda", VOXELRCNN_CFG, VOXELRCNN_TRAIN_SEED)[0]
+    out, rows = measure_train(
+        "train / voxel_rcnn", model,
+        pvrcnn_train_batch("cuda", VOXELRCNN_TRAIN_REF),
+        pvrcnn_opt_cfg(VOXELRCNN_CFG), kernels, VOXELRCNN_TRAIN_LAUNCHES,
+        steps=VOXELRCNN_TRAIN_STEPS, profile_steps=2)
+    names = ("lookup_kernel", "nms_mask_kernel", "nms_resolve_kernel",
+             "neighbor_table_kernel", "sparse_conv_gather_kernel",
+             "sparse_conv_wgrad_kernel", "transposed_table_kernel")
+    ours = {k: sum(us for name, us, _ in rows if k in name) for k in names}
+    out.update(compute_dtype="float32 (voxel_rcnn_car.yaml; TF32 off)",
+               kernels_device_us_per_step=ours,
+               hand_kernels_share_of_device=sum(ours.values()) / 1e3
+               / out["device_ms_per_step"],
+               profile_top=[list(r) for r in rows[:25]])
+    report["train_voxel_rcnn"] = out
+    print(train_line("train / voxel_rcnn", out, "(fp32, voxel_rcnn_car.yaml,"
+                     " TF32 off) at full width through train_model")
+          + f"; hand-written kernels "
+          f"{ {k: f'{us:.1f} us' for k, us in ours.items()} } "
+          f"({out['hand_kernels_share_of_device']:.1%} of the device time)",
+          flush=True)
+    for name, us, c in rows[:12 if profile else 8]:
+        print(f"train / voxel_rcnn profile: {us:10.1f} us  x{c:6.1f}  "
+              f"{name[:90]}")
 
 
 def main():
@@ -6482,6 +6900,10 @@ def main():
 
     profile = "--profile" in sys.argv[1:]
     t_start = time.perf_counter()
+
+    def stamp(what):
+        report.setdefault("seconds_at", {})[what] = (time.perf_counter()
+                                                     - t_start)
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
               "device": torch.cuda.get_device_name(0)}
 
@@ -6496,16 +6918,22 @@ def main():
             print(f"build:   {line.strip()}")
 
     check_grad_guard(report)
+    stamp("grad_guard")
     nms = nms_fused.nms_keep_batched
     model, mc = phase_kernels("cuda", report)
+    stamp("kernels")
     pts, mask = load_scans()
     report["serve"] = phase_serve(
         "serve", model, mc, 3, pts, mask,
         {"canvas": canvas.scatter_canvas, "nms": nms}, 7, profile)
+    stamp("serve")
     del model
     phase_parity("cuda", report)
+    stamp("parity")
     phase_canvas_grad(report)
+    stamp("canvas_grad")
     phase_train_parity(report)
+    stamp("train_parity")
     every_kernel = {"canvas": canvas.scatter_canvas,
                     "canvas_grad": canvas.scatter_canvas_grad,
                     "nms": nms, "nms_mask": nms_mask.nms_suppression_mask,
@@ -6519,24 +6947,36 @@ def main():
                     "sparse_conv_dgrad_mirrored": MirroredDgrad(),
                     "transposed_table": lookup.transposed_table}
     phase_train(report, every_kernel, profile)
+    stamp("train")
     phase_pipeline(report)
+    stamp("pipeline")
     ckpt = phase_train_kitti(report, every_kernel)
+    stamp("train_kitti")
     phase_eval_kitti(report, every_kernel, ckpt)
+    stamp("eval_kitti")
 
     model, mc = phase_det6d_kernels(report)
+    stamp("det6d_kernels")
     pts, mask = load_det6d_scans()
     report["serve_det6d"] = phase_serve(
         "serve / det6d", model, mc, 1, pts, mask,
         {"fps": fps.fps, "nms": nms}, 9, profile,
         per_batch={"fps": 3, "nms": 1})
+    stamp("serve / det6d")
     del model
     phase_det6d_parity(report)
+    stamp("det6d_parity")
     phase_det6d_train_parity(report)
+    stamp("det6d_train_parity")
     phase_det6d_train(report, every_kernel, profile)
+    stamp("det6d_train")
     phase_det6d_train_slopedkitti(report, every_kernel)
+    stamp("det6d_train_slopedkitti")
     phase_det6d_eval(report, every_kernel)
+    stamp("det6d_eval")
 
     model, mc = phase_rcnn_kernels(report)
+    stamp("rcnn_kernels")
     pts, mask = load_rcnn_scans()
     report["serve_pointrcnn"] = phase_serve(
         "serve / pointrcnn", model, mc, 3, pts, mask,
@@ -6544,53 +6984,69 @@ def main():
          "nms_resolve": nms_mask.nms_resolve, "fps": fps.fps, "nms": nms},
         7, profile,
         per_batch={"nms_mask": 2, "nms_resolve": 2, "fps": 6, "nms": 0})
+    stamp("serve / pointrcnn")
     del model
     phase_rcnn_parity(report)
+    stamp("rcnn_parity")
 
     ffps = matrix_fps.matrix_fps
     model, mc = phase_ssd3d_kernels(report)
+    stamp("ssd3d_kernels")
     pts, mask = load_ssd3d_scans()
     report["serve_3dssd"] = phase_serve(
         "serve / 3dssd", model, mc, 1, pts, mask,
         {"matrix_fps": ffps, "fps": fps.fps, "nms": nms}, 7, profile,
         per_batch={"matrix_fps": 2, "fps": 2, "nms": 1})
+    stamp("serve / 3dssd")
     del model
     phase_point_parity("parity / 3dssd", SSD3D_CFG, SSD3D_SEED, SSD3D_REF,
                        report)
 
+    stamp("parity / 3dssd")
     model, mc, nc = build_model("bfloat16", "cuda", IASSD_CFG, IASSD_SEED)
     phase_nms_case("iassd", model, mc, pts, mask, report)
+    stamp("nms_case")
     report["serve_iassd"] = phase_serve(
         "serve / iassd", model, mc, nc, pts, mask,
         {"matrix_fps": ffps, "fps": fps.fps, "nms": nms}, 7, profile,
-        per_batch={"matrix_fps": 0, "fps": 2, "nms": 1}, serve_s=2.0)
+        per_batch={"matrix_fps": 0, "fps": 2, "nms": 1})
+    stamp("serve / iassd")
     del model
     phase_point_parity("parity / iassd", IASSD_CFG, IASSD_SEED, IASSD_REF,
                        report)
+    stamp("parity / iassd")
 
     model, mc, nc = phase_second_kernels(report)
+    stamp("second_kernels")
     pts, mask = load_second_scans()
     report["serve_second"] = phase_serve(
         "serve / second", model, mc, nc, pts, mask,
         {"neighbor_table": lookup.neighbor_table, "lookup": lookup.lookup,
          "sparse_conv": sparse_conv.sparse_conv, "nms": nms}, 7, profile,
-        per_batch={"neighbor_table": 8, "lookup": 0, "sparse_conv": 12},
-        serve_s=2.0)
+        per_batch={"neighbor_table": 8, "lookup": 0, "sparse_conv": 12})
+    stamp("serve / second")
     del model
     phase_second_parity(report)
+    stamp("second_parity")
     phase_sparse_conv_grad(report)
+    stamp("sparse_conv_grad")
     phase_second_train_parity(report)
+    stamp("second_train_parity")
     phase_train_second(report, every_kernel, profile)
+    stamp("train_second")
     second_eval = (("neighbor_table", 8), ("sparse_conv", 12))
     ckpt = phase_train_kitti(report, every_kernel, SECOND_CFG,
                              "train / second_kitti", "train_second_kitti",
                              tuple(SECOND_TRAIN_LAUNCHES.items()),
                              second_eval)
+    stamp("train / second_kitti")
     phase_eval_kitti(report, every_kernel, ckpt, SECOND_CFG, SECOND_PARAMS,
                      SECOND_EVAL_REF, "eval / second_kitti",
                      "eval_second_kitti", second_eval, (1, 2))
+    stamp("eval / second_kitti")
 
     model, mc, nc = phase_pvrcnn_kernels(report)
+    stamp("pvrcnn_kernels")
     pts, mask = load_pvrcnn_scans()
     report["serve_pv_rcnn"] = phase_serve(
         "serve / pv_rcnn", model, mc, nc, pts, mask,
@@ -6603,17 +7059,54 @@ def main():
         per_batch={"fps": 1, "nms_mask": 2, "nms_resolve": 2,
                    "neighbor_table": 8, "sparse_conv": 12, "nms": 0,
                    "canvas": 0, "lookup": 0, "matrix_fps": 0})
+    stamp("serve / pv_rcnn")
     del model
     phase_pvrcnn_parity(report)
+    stamp("pvrcnn_parity")
     phase_pvrcnn_train_parity(report)
+    stamp("pvrcnn_train_parity")
     phase_pvrcnn_train_kernels(report)
+    stamp("pvrcnn_train_kernels")
     phase_train_pvrcnn(report, every_kernel, profile)
+    stamp("train_pvrcnn")
     ckpt = phase_train_kitti(
         report, every_kernel, PVRCNN_CFG, "train / pv_rcnn_kitti",
         "train_pv_rcnn_kitti", tuple(PVRCNN_TRAIN_LAUNCHES.items()),
-        tuple(PVRCNN_EVAL_LAUNCHES.items()), batch_size=2,
-        nms_per_batch=(0, 0), val_anchor_scores=False)
+        None, batch_size=2, val_anchor_scores=False)
+    stamp("train / pv_rcnn_kitti")
     phase_eval_pvrcnn_kitti(report, every_kernel, ckpt)
+    stamp("eval / pv_rcnn_kitti")
+
+    model, mc, nc = phase_voxelrcnn_kernels(report)
+    stamp("voxelrcnn_kernels")
+    pts, mask = load_voxelrcnn_scans()
+    report["serve_voxel_rcnn"] = phase_serve(
+        "serve / voxel_rcnn", model, mc, nc, pts, mask,
+        {"lookup": lookup.lookup, "nms_mask": nms_mask.nms_suppression_mask,
+         "nms_resolve": nms_mask.nms_resolve,
+         "neighbor_table": lookup.neighbor_table,
+         "sparse_conv": sparse_conv.sparse_conv, "nms": nms,
+         "fps": fps.fps, "canvas": canvas.scatter_canvas,
+         "matrix_fps": matrix_fps.matrix_fps}, 7, True,
+        per_batch={**VOXELRCNN_EVAL_LAUNCHES, "nms": 0, "fps": 0,
+                   "canvas": 0, "matrix_fps": 0})
+    stamp("serve / voxel_rcnn")
+    del model
+    phase_voxelrcnn_parity(report)
+    stamp("voxelrcnn_parity")
+    phase_voxelrcnn_train_parity(report)
+    stamp("voxelrcnn_train_parity")
+    phase_train_voxelrcnn(report, every_kernel, profile)
+    stamp("train_voxelrcnn")
+    ckpt = phase_train_kitti(
+        report, every_kernel, VOXELRCNN_CFG, "train / voxel_rcnn_kitti",
+        "train_voxel_rcnn_kitti", tuple(VOXELRCNN_TRAIN_LAUNCHES.items()),
+        None, batch_size=4, val_anchor_scores=False,
+        falling=VOXELRCNN_FALLING)
+    stamp("train / voxel_rcnn_kitti")
+    phase_eval_pvrcnn_kitti(report, every_kernel, ckpt, VOXELRCNN_CFG,
+                            "voxel_rcnn", VOXELRCNN_EVAL_LAUNCHES)
+    stamp("eval / voxel_rcnn_kitti")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6644,13 +7137,21 @@ def main():
                "pv_rcnn_train_kitti":
                    report["train_pv_rcnn_kitti"]["launches"],
                "pv_rcnn_eval_kitti":
-                   report["eval_pv_rcnn_kitti"]["launches"]}
+                   report["eval_pv_rcnn_kitti"]["launches"],
+               "voxel_rcnn": report["serve_voxel_rcnn"]["launches"],
+               "voxel_rcnn_train": report["train_voxel_rcnn"]["launches"],
+               "voxel_rcnn_train_kitti":
+                   report["train_voxel_rcnn_kitti"]["launches"],
+               "voxel_rcnn_eval_kitti":
+                   report["eval_voxel_rcnn_kitti"]["launches"]}
     kernels = []
-    # the sparse conv's launches split by dtype: the train paths and
-    # PV-RCNN's eval run it in fp32 (second.yaml, pv_rcnn.yaml), the others
-    # in bf16
+    # the sparse conv's launches split by dtype: the train paths and the
+    # evals from a train checkpoint run it in fp32 (second.yaml,
+    # pv_rcnn.yaml, voxel_rcnn_car.yaml), the others in bf16
     fp32_paths = ("second_train", "second_train_kitti", "pv_rcnn_train",
-                  "pv_rcnn_train_kitti", "pv_rcnn_eval_kitti")
+                  "pv_rcnn_train_kitti", "pv_rcnn_eval_kitti",
+                  "voxel_rcnn_train", "voxel_rcnn_train_kitti",
+                  "voxel_rcnn_eval_kitti")
     for key in ("canvas", "canvas_grad", "nms", "nms_mask", "fps",
                 "matrix_fps", "lookup", "neighbor_table", "sparse_conv",
                 "sparse_conv_fp32", "sparse_conv_dgrad", "sparse_conv_wgrad",
@@ -6670,6 +7171,12 @@ def main():
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    ends = list(report["seconds_at"].items())
+    print("time: seconds a phase: " + ", ".join(
+        f"{k} {v - (ends[i - 1][1] if i else 0.0):.1f}"
+        for i, (k, v) in enumerate(ends))
+        + f"; build {report['build']['seconds']:.1f} s (in the first), "
+        f"total {report['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -127,7 +127,10 @@ class Detector3DTemplate(nn.Module):
             point_in = self.pfe.num_point_features_before_fusion
             point_out = self.pfe.num_point_features
         elif "POINT_HEAD" in cfg or "ROI_HEAD" in cfg:
-            point_in = point_out = self.backbone_3d.num_point_features
+            # a voxel backbone has no point features: its RoI head reads
+            # the stages (multi_scale_channels)
+            point_in = point_out = getattr(self.backbone_3d,
+                                           "num_point_features", 0)
         if "POINT_HEAD" in cfg:
             head_cfg = cfg["POINT_HEAD"]
             self.point_head = POINT_HEADS.get(head_cfg["NAME"])(
@@ -145,6 +148,10 @@ class Detector3DTemplate(nn.Module):
                 input_channels=point_out,
                 num_class=1 if head_cfg.get("CLASS_AGNOSTIC", False)
                 else num_class,
+                voxel_size=spec.voxel_size,
+                point_cloud_range=spec.point_cloud_range,
+                multi_scale_channels=getattr(
+                    self.backbone_3d, "multi_scale_channels", None),
             )
             self.module_names.append("roi_head")
 
@@ -172,11 +179,12 @@ class Detector3DTemplate(nn.Module):
         box and class, or (B, M, 10): 9-DoF box and class, read by the head
         that writes its predictions and targets for
         :meth:`get_training_loss` (the detectors with ``TRAINABLE``:
-        PointPillars, Det6D, 3DSSD, SECOND, PV-RCNN)."""
+        PointPillars, Det6D, 3DSSD, SECOND, PV-RCNN, Voxel-RCNN)."""
         if self.training and not self.TRAINABLE:
             raise NotImplementedError(
                 f"{type(self).__name__}: training is not ported yet (the "
-                "port trains PointPillars, Det6D, 3DSSD, SECOND and PV-RCNN)")
+                "port trains PointPillars, Det6D, 3DSSD, SECOND, PV-RCNN "
+                "and Voxel-RCNN)")
         with torch.set_grad_enabled(self.training):
             batch_dict = self.maybe_voxelize(dict(batch_dict))
             for name in self.module_names:
@@ -188,7 +196,8 @@ class Detector3DTemplate(nn.Module):
         ported for the detectors with ``TRAINABLE``."""
         raise NotImplementedError(
             f"{type(self).__name__}: training is not ported yet (the port "
-            "trains PointPillars, Det6D, 3DSSD, SECOND and PV-RCNN)")
+            "trains PointPillars, Det6D, 3DSSD, SECOND, PV-RCNN and "
+            "Voxel-RCNN)")
 
 
 def rank_candidates(batch_dict, post_cfg):

@@ -1,2 +1,3 @@
 from . import pointrcnn_head  # noqa: F401  (registers PointRCNNHead)
 from . import pvrcnn_head  # noqa: F401  (registers PVRCNNHead)
+from . import voxelrcnn_head  # noqa: F401  (registers VoxelRCNNHead)

@@ -9,10 +9,11 @@ raises unless ``--device cpu`` is given):
   python -m de6d_tpu_torch.tools.train --cfg_file configs/slopedkitti_models/det6d_car.yaml --epochs 1
   python -m de6d_tpu_torch.tools.train --cfg_file configs/kitti_models/second.yaml --epochs 1
   python -m de6d_tpu_torch.tools.train --cfg_file configs/kitti_models/pv_rcnn.yaml --epochs 1
+  python -m de6d_tpu_torch.tools.train --cfg_file configs/kitti_models/voxel_rcnn_car.yaml --epochs 1
   python -m de6d_tpu_torch.tools.train --cfg_file ... --epochs 1 --device cpu
 
 Any detector with a ported loss trains (PointPillars, Det6D, 3DSSD,
-SECOND, PV-RCNN); the dataset comes from the config's ``DATA_CONFIG.DATASET``
+SECOND, PV-RCNN, Voxel-RCNN); the dataset comes from the config's ``DATA_CONFIG.DATASET``
 (KITTI, SlopedKITTI). Nothing here depends on the configuration.
 cuDNN's convolutions run in fp32 where the config computes in fp32
 (PyTorch's default TF32 is turned off).

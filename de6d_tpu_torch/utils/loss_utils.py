@@ -73,16 +73,33 @@ def weighted_binary_cross_entropy(logits, targets, weights=None):
     return loss
 
 
+def _scaled_norm(v):
+    """Euclidean norm over the last axis of ``v`` scaled by the power of two
+    of its largest entry, so the squares cannot overflow: the same bits as
+    ``torch.linalg.norm`` (and its gradient) wherever no square overflows,
+    and the finite norm up to fp32's largest number where they do."""
+    _, e = torch.frexp(v.detach().abs().amax(dim=-1, keepdim=True))
+    # within +-100 the scale and its inverse are normal fp32 numbers
+    scale = torch.ldexp(torch.ones_like(v[..., :1]), -e.clamp(-100, 100))
+    return torch.linalg.norm(v * scale, dim=-1) / scale[..., 0]
+
+
 def get_corner_loss_lidar(pred_boxes, gt_boxes):
     """(N, 7) × (N, 7) → (N,): Huber (delta 1) of each corner's distance
     to the gt box's or to the gt box turned by pi, whichever is nearer,
-    averaged over the 8 corners."""
+    averaged over the 8 corners.
+
+    The JAX package's loss wherever its value is finite. Where its squared
+    distances overflow (a box decoded from a size code above ~43, as an
+    RoI head's codes reach in its first steps) it is inf and its gradient
+    NaN; here the distance is the scaled norm's, and the quadratic branch
+    sees 0 where it is not taken, so neither branch's gradient is 0 * inf."""
     pred = geometry.boxes_to_corners_3d(pred_boxes)
     gt = geometry.boxes_to_corners_3d(gt_boxes)
     flipped = torch.cat([gt_boxes[:, :6], gt_boxes[:, 6:7] + math.pi,
                          gt_boxes[:, 7:]], dim=-1)
     gt_flip = geometry.boxes_to_corners_3d(flipped)
-    dist = torch.minimum(torch.linalg.norm(pred - gt, dim=-1),
-                         torch.linalg.norm(pred - gt_flip, dim=-1))
-    d = dist.abs()
-    return torch.where(d < 1.0, 0.5 * dist * dist, d - 0.5).mean(dim=1)
+    dist = torch.minimum(_scaled_norm(pred - gt), _scaled_norm(pred - gt_flip))
+    near = dist < 1.0
+    q = torch.where(near, dist, 0.0)
+    return torch.where(near, 0.5 * q * q, dist - 0.5).mean(dim=1)

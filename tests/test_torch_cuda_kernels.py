@@ -1531,3 +1531,107 @@ def test_nms_mask_kernel_at_pvrcnn_train_size(cuda_device):  # noqa: F811
     assert torch.equal(got, ref) and bool((got != 0).any())
     rsel, rnsel = nms_mask.nms_resolve_plain(ref, counts, 512)
     assert torch.equal(sel, rsel) and torch.equal(nsel, rnsel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride,v", [(2, 16000), (4, 8000), (8, 4000)])
+def test_lookup_kernel_at_voxelrcnn_pool_shapes(cuda_device, stride, v):  # noqa: F811
+    """The lookup entry as Voxel-RCNN's pool calls it, one launch for a
+    scale: 8 samples of 100 RoIs x 216 grid points x 27 neighbours
+    (583,200 queries a sample), tables of the stage's cap with an INVALID
+    tail, RoIs on the sites and some off the grid; ``idx`` and ``hit``
+    equal to the plain version's everywhere."""
+    from de6d_tpu_torch.models.roi_heads.pvrcnn_head import roi_grid_points
+    from de6d_tpu_torch.models.roi_heads.voxelrcnn_head import (
+        voxel_query_pool,
+    )
+
+    vs, pc = (0.05, 0.05, 0.1), (0.0, -40.0, -3.0)
+    grid = {2: (21, 800, 704), 4: (11, 400, 352), 8: (5, 200, 176)}[stride]
+    rng = np.random.RandomState(stride)
+    keys = sparse_site_keys(rng, grid, v, [v, v - 1000, v // 2, 0, v, v,
+                                           v - 1, 17])
+    rois = np.concatenate([rng.uniform([0, -40, -3.5], [70.4, 40, 1.5],
+                                       (8, 100, 3)),
+                           rng.uniform([3, 1.4, 1.4], [4.5, 1.9, 1.7],
+                                       (8, 100, 3)),
+                           rng.uniform(-np.pi, np.pi, (8, 100, 1))],
+                          -1).astype(np.float32)
+    t_keys = torch.from_numpy(keys).to(cuda_device)
+    pts = roi_grid_points(torch.from_numpy(rois).to(cuda_device),
+                          6).reshape(8, -1, 3)
+    feats = torch.ones((8, v, 1), device=cuda_device)
+    calls = []
+    orig = sparse.lookup
+
+    def both(table, queries):
+        calls.append((table, queries))
+        return orig(table, queries)
+
+    sparse.lookup = both
+    before = lookup.lookup.launches
+    try:
+        voxel_query_pool(feats, t_keys, grid, pts, vs, pc, stride)
+    finally:
+        sparse.lookup = orig
+    torch.cuda.synchronize()
+    assert lookup.lookup.launches == before + 1 and len(calls) == 1
+    table, queries = calls[0]
+    assert tuple(queries.shape) == (8, 583200)
+    idx, hit = lookup.lookup(table, queries)
+    ridx, rhit = lookup.lookup_plain(table, queries)
+    assert torch.equal(hit, rhit) and torch.equal(idx, ridx)
+    assert 0 < int(hit.sum()) < hit.numel()
+
+
+@pytest.mark.cuda
+def test_voxelrcnn_train_step_on_the_card_equals_cpu(cuda_device):  # noqa: F811
+    """One fp32 train step (TF32 off) of ``voxel_rcnn_car.yaml`` at small
+    widths (1024 proposal candidates) on ``data/kitti``'s first two train
+    frames: the card's, with the CPU step's proposals and sampled RoIs,
+    against the CPU's. Sums run in another order on each device, so each
+    step is held against the float64 step of the same decisions (on the
+    CPU): the card's loss terms and gradients lie no farther from it than
+    twice the CPU's fp32 step does, plus 1e-6 (relative; gradients of each
+    leaf's largest |entry|), and every gradient, down to the sparse
+    backbone, is finite."""
+    import chip_smoke as cs
+    from de6d_tpu_torch.config import cfg_from_yaml_file
+    from de6d_tpu_torch.models import build_network
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cfg_from_yaml_file(str(cs.VOXELRCNN_CFG))
+    mc = copy.deepcopy(cfg.MODEL)
+    mc["BACKBONE_3D"].update(NUM_FILTERS=[8, 8, 16, 16, 16], OUT_CHANNELS=16)
+    mc["MAP_TO_BEV"]["NUM_BEV_FEATURES"] = 32
+    mc["BACKBONE_2D"].update(LAYER_NUMS=[1, 1], NUM_FILTERS=[32, 64],
+                             NUM_UPSAMPLE_FILTERS=[32, 32])
+    roi = mc["ROI_HEAD"]
+    roi.update(SHARED_FC=[32], CLS_FC=[16], REG_FC=[16])
+    roi["ROI_GRID_POOL"].update(GRID_SIZE=3, POOL_MLPS={
+        "x_conv2": [8], "x_conv3": [8], "x_conv4": [8]})
+    roi["TARGET_CONFIG"]["ROI_PER_IMAGE"] = 32
+    roi["NMS_CONFIG"]["TRAIN"]["NMS_PRE_MAXSIZE"] = 1024
+    model = build_network(mc, 1, cs.spec_from_cfg(cfg), device="cpu",
+                          generator=np.random.default_rng(0))
+    batch = cs.pvrcnn_train_batch("cpu", cs.VOXELRCNN_TRAIN_REF)
+    init = copy.deepcopy(model)
+    with cs.RecordedRoIStage() as rec:
+        _, g_cpu, m_cpu, _ = cs.train_gradients(model, batch)
+    with cs.plain_sparse_conv(), cs.RecordedRoIStage(
+            rec.proposals, rec.targets, dtype=torch.float64):
+        _, g64, m64, _ = cs.train_gradients(cs.f64_copy(init), batch)
+    dev = {k: [{n: t.to(cuda_device) for n, t in d.items()} for d in v]
+           for k, v in (("p", rec.proposals), ("t", rec.targets))}
+    with cs.RecordedRoIStage(dev["p"], dev["t"]):
+        _, g_card, m_card, _ = cs.train_gradients(
+            copy.deepcopy(init).to(cuda_device),
+            {k: t.to(cuda_device) for k, t in batch.items()})
+    assert int(rec.targets[0]["reg_valid_mask"].sum()) > 0
+    assert all(np.isfinite(g).all() for g in g_card.values())
+    m64 = {k: v for k, v in m64.items() if k != "grad_norm"}
+    cpu = cs.f64_distances(g_cpu, m_cpu, g64, m64)
+    card = cs.f64_distances(g_card, m_card, g64, m64)
+    for k in ("grad", "loss"):
+        assert card[k] <= 2 * cpu[k] + 1e-6, (k, card, cpu)

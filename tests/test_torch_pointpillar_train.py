@@ -608,8 +608,8 @@ def test_other_detectors_refuse_training():
     torch.nn.Module.__init__(model)
     model.train()
     with pytest.raises(NotImplementedError,
-                       match="PointRCNN.*PointPillars, Det6D, 3DSSD, SECOND "
-                             "and PV-RCNN"):
+                       match="PointRCNN.*PointPillars, Det6D, 3DSSD, SECOND, "
+                             "PV-RCNN and Voxel-RCNN"):
         model({"points": torch.zeros(1, 4, 4)})
     with pytest.raises(NotImplementedError, match="PointRCNN"):
         model.get_training_loss({})
