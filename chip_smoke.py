@@ -59,17 +59,18 @@ Phases, one status line each; any failure exits non-zero:
                     JAX loader's batches stored in ``de6d_tpu_torch/
                     testdata/kitti_loader_jax_ref.npz``, bit for bit
                     (:func:`check_loader`); host ms per batch over train
-                    epoch 0 with 1 and 4 workers, with 4 in the loader's
-                    own process, and over the val split.
+                    epoch 0 with 4 workers and over its first 20 batches
+                    with 1 (since PR 19), with 4 in the loader's own
+                    process, and over the val split.
 4e. train / kitti — ``tools/train.py`` (``prepare``, ``train``,
                     ``evaluate``) in bf16 at batch 4 for one epoch of
                     ``data/kitti`` from the fresh init: step ms, steps/s,
                     frames/s, the loader's share of the loop, the loss
                     falling, exactly 1 canvas forward and 1 backward
-                    launch a step and no other kernel, the checkpoint,
-                    the post-training eval (1 canvas and 1-2 fused-NMS
-                    launches a batch: the 1024-prefix cascade); the
-                    anchors' val scores (:func:`anchor_scores`): with the
+                    launch a step and no other kernel, the checkpoint
+                    (no post-training eval since PR 19: 4f evaluates the
+                    checkpoint through ``tools/test.py``); the anchors'
+                    val scores (:func:`anchor_scores`): with the
                     batch's BatchNorm statistics the foreground anchors'
                     mean over the background's must exceed the fresh
                     init's.
@@ -265,11 +266,13 @@ Phases, one status line each; any failure exits non-zero:
                     gradients and 4 transposed tables a step and no other
                     kernel launch.
 19d. train / second_kitti — ``tools/train.py`` on ``second.yaml`` for one
-                    epoch of ``data/kitti`` at batch 4 from the fresh
-                    init, as phase 4e: steps/s, the loader's share, the
+                    epoch of ``data/kitti`` cut to 160 train frames (40
+                    steps, since PR 19; :func:`cut_tree`) at batch 4 from
+                    the fresh init, as phase 4e: steps/s, the loader's
+                    share, the
                     loss falling, the launches of 19c a step, the
-                    checkpoint; the post-training eval with 8 neighbour
-                    tables, 12 convs and 1-2 fused-NMS launches a batch.
+                    checkpoint (no post-training eval since PR 19: 19e
+                    evaluates the checkpoint).
 19e. eval / second_kitti — as phase 4f with SECOND: the trained weights
                     over the 100 val frames at batch 8, fp32 against
                     ``de6d_tpu_torch/testdata/second_eval_jax_ref.npz``;
@@ -366,6 +369,35 @@ Phases, one status line each; any failure exits non-zero:
 23f. eval / voxel_rcnn_kitti — ``tools/test.py --ckpt`` on 23e's
                     checkpoint over the 100 val frames at batch 8, with
                     :data:`VOXELRCNN_EVAL_LAUNCHES` a batch.
+
+24. kernels / point_train — FPS against its plain version at the
+                    Det6D D.R. model's shapes (bf16, ``configs/
+                    slopedkitti_models/det6d_dr_car.yaml``, weights from a
+                    numpy seed, the 8 Det6D scans: d-fps 8 x 16384 -> 4096,
+                    s-fps -> 1024, -> 512) and IA-SSD's train shapes (the
+                    fixture's batch of 8: D-FPS 8 x 16384 -> 4096, 8 x 4096
+                    -> 1024); the fused NMS at the D.R. head's candidates
+                    (8 x 512 -> 500).
+24a. serve / det6d_dr — ``StreamingDetector`` with that model: exactly 3
+                    FPS and 1 fused-NMS launches a batch; profiled over 5
+                    batches (device ms, idle share).
+24b. parity / det6d_dr — fp32 (TF32 off) on 2 scans against
+                    ``det6d_dr_jax_ref.npz`` (:func:`check_det6d_parity`).
+24c-f, D.R. then IA-SSD (:class:`PointTrain`, :data:`DET6D_DR_TRAIN`,
+                    :data:`IASSD_TRAIN`): parity / train_<name>, the fp32
+                    step from flax's initialisers against
+                    ``{det6d_dr,iassd}_train_jax_ref.npz`` with the picks
+                    (and IA-SSD's vote centres) replayed, within twice
+                    the step's fp32-vs-float64 distance; train / <name>,
+                    :data:`POINT_TRAIN_STEPS` fp32 steps at batch 8, 3 or
+                    2 FPS a step; train / <name>_<tree>, ``tools/train.py``
+                    for 10 steps of 8 on ``data/slopedkitti`` /
+                    ``data/kitti`` cut to 80 train and 50 val frames
+                    (:func:`cut_tree`), the loss (IA-SSD: its box,
+                    corner and instance terms) falling; eval /
+                    <name>_<tree>, ``tools/test.py --ckpt`` over the 50
+                    val frames at batch 8, 3 or 2 FPS and 1 fused NMS a
+                    batch.
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of the kernels, the last line
@@ -943,7 +975,8 @@ def check_grad_guard(report):
 # ---------------------------------------------------------------------
 
 def phase_serve(tag, model, mc, nc, pts, mask, kernels, box_width, profile,
-                per_batch=None, serve_s=SERVE_S):
+                per_batch=None, serve_s=SERVE_S,
+                profile_batches=PROFILE_BATCHES):
     """Serve the 8 scans at batch 8 through ``StreamingDetector``: a warm
     batch, SERIAL_BATCHES synchronous batches, then a pipelined window of
     ``serve_s`` seconds. ``kernels`` maps a name to a wrapper whose launch count is
@@ -1015,14 +1048,14 @@ def phase_serve(tag, model, mc, nc, pts, mask, kernels, box_width, profile,
           f"launches {launches} over {batches} batches, peak "
           f"{out['peak_mem_gib']:.2f} GiB", flush=True)
     if profile:
-        out["profile"] = phase_profile(tag, det, frames, serial_ms)
+        out["profile"] = phase_profile(tag, det, frames, serial_ms,
+                                       profile_batches)
     return out
 
 
-def phase_profile(tag, det, frames, serial_ms):
+def phase_profile(tag, det, frames, serial_ms, n=PROFILE_BATCHES):
     from torch.profiler import ProfilerActivity, profile
 
-    n = PROFILE_BATCHES
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -1605,17 +1638,22 @@ def check_loader(workers=4):
     return res
 
 
-def time_loader(training, batch_size, workers, epoch=0):
-    """Host ms per batch over a whole epoch of the port's loader, after
-    its first batch (which waits for the loader's process to start), and
-    the seconds to that first batch. Returns (ms, batches, start s)."""
+def time_loader(training, batch_size, workers, epoch=0, max_batches=None):
+    """Host ms per batch over a whole epoch of the port's loader (its
+    first ``max_batches`` where given), after its first batch (which waits
+    for the loader's process to start), and the seconds to that first
+    batch. Returns (ms, batches, start s)."""
     _, loader = kitti_loader(training, batch_size, workers)
     loader.set_epoch(epoch)
     t0 = time.perf_counter()
     it = iter(loader)
     next(it)
     t1 = time.perf_counter()
-    n = 1 + sum(1 for _ in it)
+    n = 1
+    for _ in it:
+        n += 1
+        if n == max_batches:
+            break
     ms = (time.perf_counter() - t1) * 1e3 / (n - 1)
     loader.close()
     return ms, n, t1 - t0
@@ -1623,14 +1661,16 @@ def time_loader(training, batch_size, workers, epoch=0):
 
 def phase_pipeline(report):
     """``pipeline / kitti``: the loader against the JAX loader's batches,
-    then its host ms per batch over train epoch 0 (batch 4) with 1 and 4
-    workers and over the val split (batch 8), and the seconds its process
-    takes to give the first batch."""
+    then its host ms per batch over train epoch 0 (batch 4) with 4 workers
+    and over its first 20 batches with 1, and over the val split (batch
+    8), and the seconds its process takes to give the first batch."""
     t0 = time.perf_counter()
     res = check_loader(workers=4)
     check_s = time.perf_counter() - t0
     for workers in (1, 4):
-        ms, n, start_s = time_loader(True, 4, workers)
+        # one worker: the epoch's first 20 batches (the script's time)
+        ms, n, start_s = time_loader(
+            True, 4, workers, max_batches=20 if workers == 1 else None)
         res[f"train_ms_per_batch_w{workers}"] = ms
         res[f"train_first_batch_s_w{workers}"] = start_s
     res["train_batches_per_epoch"] = n
@@ -1642,7 +1682,7 @@ def phase_pipeline(report):
           f"epoch 0 at batch 4, 1 val batch at batch {EVAL_BATCH}; "
           f"{check_s:.1f} s); host ms per batch over train epoch 0 "
           f"({n} batches of 4, gt sampling, flip, rotation, scaling): "
-          f"{res['train_ms_per_batch_w1']:.2f} (1 worker), "
+          f"{res['train_ms_per_batch_w1']:.2f} (1 worker, first 20), "
           f"{res['train_ms_per_batch_w4']:.2f} (4 workers), after a first "
           f"batch in {res['train_first_batch_s_w4']:.2f} s (the loader's "
           f"process starting); val {res['val_ms_per_batch_w4']:.2f} ms per "
@@ -1663,7 +1703,7 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
                                                    ("canvas_grad", 1)),
                       eval_per_batch=(("canvas", 1),), batch_size=4,
                       nms_per_batch=(1, 2), val_anchor_scores=True,
-                      falling=None):
+                      falling=None, data_dir=KITTI_DIR):
     """``train / kitti``: ``tools/train.py``'s entry (its ``prepare``,
     ``train`` and ``evaluate``, as ``main`` runs them) with ``cfg_path``
     (``pointpillar.yaml``, bf16) as shipped at ``batch_size`` for one epoch
@@ -1684,7 +1724,8 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
     recorded, and those terms, not the total, must fall. Returns the
     checkpoint's path. ``eval_per_batch`` None skips the post-training
     eval, for a detector whose eval phase evaluates the checkpoint at
-    batch 8 right after (this one runs at the train batch)."""
+    batch 8 right after (this one runs at the train batch). ``data_dir``:
+    the tree (``data/kitti``, or a cut of it)."""
     import copy
     import shutil
 
@@ -1700,7 +1741,7 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
     argv = ["--cfg_file", str(cfg_path), "--epochs", "1", "--batch_size",
             str(batch_size), "--workers", "4", "--extra_tag", extra,
             "--fix_random_seed", "--set", "DATA_CONFIG.DATA_PATH",
-            str(KITTI_DIR)]
+            str(data_dir)]
     t0 = time.perf_counter()
     run = train_cli.prepare(argv)
     prep_s = time.perf_counter() - t0
@@ -1798,7 +1839,8 @@ def phase_train_kitti(report, kernels, cfg_path=CFG, tag="train / kitti",
     report[key] = out
     print(f"{tag}: tools/train.py, {cfg_path.name} "
           f"{out['compute_dtype']}, batch {batch_size}, "
-          f"1 epoch of data/kitti ({steps} steps) from the fresh init: "
+          f"1 epoch of {Path(data_dir).name} ({steps} steps) from the "
+          f"fresh init: "
           f"median step {out['median_step_ms']:.2f} ms (IQR "
           f"{out['step_ms_iqr'][0]:.2f}-{out['step_ms_iqr'][1]:.2f}; host "
           f"step {out['median_host_step_ms']:.2f}, loader wait "
@@ -2556,7 +2598,12 @@ def check_det6d_parity(out, post, ref, gamma=1.0, tol=PARITY_TOL):
             "picks_differing": n_diff, "partings": partings}
 
 
-def phase_det6d_parity(report):
+def det6d_parity_run(dev, cfg_path=DET6D_CFG, params=DET6D_PARAMS,
+                     ref_path=DET6D_REF, load=None):
+    """A Det6D-spine model of ``cfg_path`` in fp32 (the Det6D vote head or
+    the D.R. head) with ``params`` on the first 2 scans of ``load`` (the
+    Det6D scans clipped to its range) against ``ref_path``
+    (:func:`check_det6d_parity`)."""
     import numpy as np
     import torch
 
@@ -2564,20 +2611,28 @@ def phase_det6d_parity(report):
         post_processing,
     )
 
+    model, mc, nc = build_model("float32", dev, cfg_path, params)
+    gamma = float(mc["BACKBONE_3D"]["SA_CONFIG"].get("WEIGHT_GAMMA", 1.0))
+    pts, mask = (load or load_det6d_scans)()
+    with torch.no_grad():
+        out = model({"points": torch.from_numpy(pts[:2]).to(dev),
+                     "points_mask": torch.from_numpy(mask[:2]).to(dev)})
+        post = post_processing(out, mc["POST_PROCESSING"], nc)
+        return check_det6d_parity(out, post, dict(np.load(ref_path)), gamma)
+
+
+def phase_det6d_parity(report, name="det6d", **run):
+    """``parity / <name>``: :func:`det6d_parity_run` on the card, TF32
+    off."""
+    import torch
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    model, mc, nc = build_model("float32", "cuda", DET6D_CFG, DET6D_PARAMS)
-    gamma = float(mc["BACKBONE_3D"]["SA_CONFIG"].get("WEIGHT_GAMMA", 1.0))
-    pts, mask = load_det6d_scans()
-    with torch.no_grad():
-        out = model({"points": torch.from_numpy(pts[:2]).cuda(),
-                     "points_mask": torch.from_numpy(mask[:2]).cuda()})
-        post = post_processing(out, mc["POST_PROCESSING"], nc)
-        res = check_det6d_parity(out, post, dict(np.load(DET6D_REF)), gamma)
-    report["parity_det6d"] = res
+    res = det6d_parity_run("cuda", **run)
+    report[f"parity_{name}"] = res
     same = "identical" if not res["partings"] else (
         f"parting at near-ties only ({res['picks_differing']} differing)")
-    print(f"parity / det6d: fp32 (TF32 off) on 2 scans matches the JAX "
+    print(f"parity / {name}: fp32 (TF32 off) on 2 scans matches the JAX "
           f"reference: picks per layer {same}, counts {res['counts']}, max "
           f"|d box| {res['max_abs_diff']['pred_boxes']:.3g}, max |d score| "
           f"{res['max_abs_diff']['pred_scores']:.3g} (tol {PARITY_TOL})",
@@ -6885,6 +6940,606 @@ def phase_train_voxelrcnn(report, kernels, profile):
               f"{name[:90]}")
 
 
+# ---------------------------------------------------------------------
+# Det6D's direct-regression ablation (det6d_dr_car.yaml) served and
+# trained, IA-SSD trained: FPS and the fused NMS at their shapes, serve,
+# parity, train_model, tools/train.py and tools/test.py from their trees
+# ---------------------------------------------------------------------
+
+DET6D_DR_CFG = ROOT / "configs/slopedkitti_models/det6d_dr_car.yaml"
+DET6D_DR_REF = ROOT / "de6d_tpu_torch/testdata/det6d_dr_jax_ref.npz"
+DET6D_DR_SEED = 2028  # no trained D.R. weights in the repository
+POINT_TRAIN_STEPS = 10  # train / det6d_dr, ia_ssd (after one warm step)
+TREE_TRAIN_FRAMES = 80  # train / *_tree: 10 steps of 8
+TREE_VAL_FRAMES = 50  # eval / *_tree
+
+
+def load_det6d_dr_scans():
+    return load_clipped_scans(DET6D_DR_CFG, DET6D_SCANS)
+
+
+class PointTrain(typing.NamedTuple):
+    """A point detector's train phases: ``name`` (the phases' tags), its
+    yaml, the JAX step's fixture (``ref``; its batch of 8 in ``train8``
+    under ``train8_*``), the numpy seed of flax's initialisers, the
+    train-mode forward's target keys (``exact``: those held bit for
+    bit), FPS launches a step, how far an fp32 evaluation of the
+    fixture's step lies from a float64 one on the CPU (``f64``: the
+    larger of the JAX package's over the stored entries and the port's
+    over every entry), the tree it trains from and, for a loss that need
+    not fall in 10 steps, the terms ``train / *_tree`` gates on."""
+    name: str
+    cfg: Path
+    ref: Path
+    train8: Path
+    seed: int
+    targets: tuple
+    exact: tuple
+    fps: int
+    f64: dict
+    tree: Path
+    falling: tuple = None
+
+    @property
+    def tol(self):
+        """Twice the fp32-vs-float64 distance (each fp32 step lies within
+        it of the float64 one, the card checks its own); BatchNorm
+        statistics and the regression targets as :data:`TRAIN_TOL` holds
+        them."""
+        return {**{k: 2 * v for k, v in self.f64.items()},
+                "stats_rtol": 2e-4, "stats_atol": 1e-5, "reg_targets": 1e-5}
+
+
+DET6D_DR_TRAIN = PointTrain(
+    "det6d_dr", DET6D_DR_CFG,
+    ROOT / "de6d_tpu_torch/testdata/det6d_dr_train_jax_ref.npz",
+    DET6D_TRAIN_REF, DET6D_DR_SEED,
+    ("point_cls_labels", "point_reg_labels", "point_box_labels",
+     "point_rot_cls_labels", "point_rot_reg_labels"),
+    ("point_cls_labels", "point_box_labels", "point_rot_cls_labels"), 3,
+    # tests/test_torch_det6d_dr.py::test_full_width_train_step_against_float64:
+    # from flax's initialisers the JAX fp32 gradients lie up to 7.97e-2 of
+    # a leaf's largest entry from float64 (SA1's aggregation layer: the
+    # BatchNorm backward over 8192 x 128 grouped slots cancels), its loss
+    # terms 1.08e-5 and its gradient norm 6.02e-4 relative; the port's
+    # fp32 step 2.51e-3, 2.68e-7 and 3.67e-6
+    {"grad": 7.97e-2, "loss": 1.08e-5, "grad_norm": 6.02e-4},
+    SLOPEDKITTI_DIR)
+IASSD_TRAIN_REF = ROOT / "de6d_tpu_torch/testdata/iassd_train_jax_ref.npz"
+IASSD_TRAIN = PointTrain(
+    "ia_ssd", IASSD_CFG, IASSD_TRAIN_REF, IASSD_TRAIN_REF, 2029,
+    ("center_cls_labels", "center_box_labels", "center_gt_box_of_points",
+     "center_origin_cls_labels", "gt_box_of_center_origin",
+     "sa_ins_labels"),
+    ("center_cls_labels", "center_gt_box_of_points",
+     "center_origin_cls_labels", "gt_box_of_center_origin",
+     "sa_ins_labels"), 2,
+    # tests/test_torch_iassd_train.py::test_full_width_train_step_against_float64:
+    # from flax's initialisers the step is ill-conditioned (2 positive
+    # centres normalise the class loss over 2 x 256: loss 318.6, gradient
+    # norm 2673); with the reference's picks and vote centres replayed the
+    # JAX fp32 gradients lie up to 6.26e-2 of a leaf's largest entry from
+    # float64 (SA3's grouped MLPs: their BatchNorm backward cancels), its
+    # loss terms 2.83e-4 and its gradient norm 7.83e-4 relative; the
+    # port's fp32 step 2.12e-2, 3.21e-5 and 2.85e-5
+    {"grad": 6.26e-2, "loss": 2.83e-4, "grad_norm": 7.83e-4}, KITTI_DIR,
+    # from the fresh init the JAX run did not converge in 50 epochs, and
+    # within 10 steps neither the vote term (it rose 0.70 -> 1.10-1.18 in
+    # each of three runs on the card) nor the centres' class term (over
+    # 2-5 positive centres; 17.3 -> 32.8 in one of them) need fall: the
+    # box, corner and instance terms, means over positives, are gated
+    ("center_loss_box", "corner_loss_reg", "sa_loss_ins"))
+
+
+def point_train_model(dev, spec):
+    """``spec``'s detector as shipped (fp32) on ``dev``, its layers drawn
+    as flax initialises them from ``spec.seed``."""
+    return pvrcnn_train_model(dev, spec.cfg, spec.seed)[0]
+
+
+def point_train_batch(dev, spec, prefix=""):
+    """The fixture's batch of 2 (``prefix`` "train8_": the batch of 8)."""
+    import numpy as np
+    import torch
+
+    path = spec.train8 if prefix else spec.ref
+    with np.load(path) as ref:
+        return {k: torch.from_numpy(ref[prefix + k]).to(dev)
+                for k in ("points", "points_mask", "gt_boxes")}
+
+
+def fixture_targets(ref, key):
+    """A target of the fixture: an array, or for a per-layer target the
+    list of its layers' arrays (None where a layer has none)."""
+    if f"target/{key}" in ref:
+        return ref[f"target/{key}"]
+    n = max(int(k.rsplit("_", 1)[1]) for k in ref
+            if k.startswith(f"target/{key}_")) + 1
+    return [ref.get(f"target/{key}_{i}") for i in range(n)]
+
+
+def as_numpy(x):
+    if isinstance(x, (list, tuple)):
+        return [None if v is None else as_numpy(v) for v in x]
+    return x.detach().cpu().numpy()
+
+
+def targets_equal(got, want):
+    import numpy as np
+
+    if isinstance(want, list):
+        return (len(got) >= len(want) and all(
+            (w is None) == (g is None) and (w is None or np.array_equal(g, w))
+            for g, w in zip(got, want)))
+    return np.array_equal(got, want)
+
+
+# how far the port's vote centres may lie from the reference's (metres)
+# before they are replayed: twice the JAX fp32 centres' distance from a
+# float64 forward of the IA-SSD fixture's step on the CPU (2.77e-4 m; the
+# port's fp32 centres 2.82e-5 m), the train tolerances' rule
+VOTE_TOL = 5.6e-4
+
+
+@contextlib.contextmanager
+def forced_votes(ref_centres):
+    """Within the block IA-SSD's vote layer computes its own centres,
+    records how far they lie from the reference's ``ref_centres``, and
+    returns the reference's values with its own gradient (the shift is a
+    constant), so that the ball queries around the centres, their codes
+    and the statistics after them see the reference's points, as
+    :func:`forced_sampling` replays the picks."""
+    import torch
+
+    from de6d_tpu_torch.models.backbones_3d import iassd_backbone
+
+    orig = iassd_backbone.VoteLayer.forward
+    shifts = []
+
+    def run(self, xyz, features):
+        centres, offsets = orig(self, xyz, features)
+        shift = (torch.as_tensor(ref_centres, device=centres.device,
+                                 dtype=centres.dtype) - centres).detach()
+        shifts.append(float(shift.abs().max()))
+        return centres + shift, offsets + shift
+
+    iassd_backbone.VoteLayer.forward = run
+    try:
+        yield shifts
+    finally:
+        iassd_backbone.VoteLayer.forward = orig
+
+
+def point_train_forward(model, batch, ref, tag="train"):
+    """A train-mode forward and loss of ``model`` with every sampling call
+    forced to the fixture's picks and, where the fixture holds them, the
+    vote centres replayed (:func:`forced_votes`; more than
+    :data:`VOTE_TOL` from the reference's raises): (batch dict, loss,
+    terms, the calls with the port's own picks, the largest centre
+    shift or None)."""
+    picks = [ref[f"picks_{k}"] for k in range(sum(
+        k.startswith("picks_") for k in ref))]
+    model.train()
+    votes = (forced_votes(ref["centers"]) if "centers" in ref
+             else contextlib.nullcontext([]))
+    with forced_sampling(picks) as calls, votes as shifts:
+        out = model(dict(batch))
+    shift = max(shifts) if shifts else None
+    if shift is not None and not shift <= VOTE_TOL:
+        raise RuntimeError(f"{tag}: the vote centres lie {shift:.3g} m from "
+                           f"the reference's (> {VOTE_TOL})")
+    loss, tb = model.get_training_loss(out)
+    return out, loss, tb, list(calls), shift
+
+
+def flat_grads(model):
+    """{name: flat gradient} in float64 numpy; zeros where no loss term
+    reaches a parameter (JAX's gradient there)."""
+    import numpy as np
+
+    return {n: (np.zeros(p.numel()) if p.grad is None else
+                p.grad.detach().double().cpu().numpy().reshape(-1))
+            for n, p in model.named_parameters()}
+
+
+def point_train_gradients(dev, spec, ref, dtype):
+    """The port's loss terms and gradients (flat float64 numpy) of the
+    fixture's step from flax's initialisers, the fixture's picks forced,
+    every layer computing in ``dtype`` (the points stay fp32)."""
+    import torch
+
+    model = point_train_model(dev, spec)
+    if dtype == torch.float64:
+        model.double()
+        for mod in model.modules():
+            if isinstance(getattr(mod, "dtype", None), torch.dtype):
+                mod.dtype = torch.float64
+    out, loss, tb, _, _ = point_train_forward(model, point_train_batch(
+        dev, spec), ref)
+    loss.backward()
+    for k in spec.exact:
+        if not targets_equal(as_numpy(out[k]), fixture_targets(ref, k)):
+            raise RuntimeError(f"{spec.name} gradients in {dtype}: {k} "
+                               "differ from the fixture's")
+    return flat_grads(model), {k: float(v) for k, v in tb.items()}
+
+
+def check_point_train_parity(dev, spec, measure_f64=True):
+    """``spec``'s train step in fp32 from flax's initialisers on the
+    fixture's batch against the JAX step stored in ``spec.ref``, every
+    sampling call given the reference's picks (:func:`forced_sampling`):
+    each call's own picks equal the reference's or part at a certified
+    near-tie; the ``exact`` targets identical, the others within
+    ``tol["reg_targets"]``; the loss terms, the gradient norm, every
+    gradient (against its leaf's largest |entry|) and the BatchNorm
+    statistics after the step within ``spec.tol``; with ``measure_f64``,
+    this device's fp32 step no farther from its float64 step than
+    ``spec.f64``. Returns a report; raises RuntimeError where a check
+    fails."""
+    import numpy as np
+    import torch
+
+    tol = spec.tol
+    tag = f"parity / train_{spec.name}"
+    ref = dict(np.load(spec.ref))
+    batch = point_train_batch(dev, spec)
+    model = point_train_model(dev, spec)
+    out, loss, tb, calls, shift = point_train_forward(model, batch, ref, tag)
+    partings = []
+    for k, call in enumerate(calls):
+        partings += certify_sampling_call(tag, k, call,
+                                          ref.get(f"scores_{k}"), PARITY_TOL)
+    d_reg = 0.0
+    for k in spec.targets:
+        got, want = as_numpy(out[k]), fixture_targets(ref, k)
+        if k in spec.exact:
+            if not targets_equal(got, want):
+                raise RuntimeError(f"{tag}: {k} differ")
+            continue
+        d_reg = max(d_reg, float(np.abs(got - want).max()))
+    if d_reg > tol["reg_targets"]:
+        raise RuntimeError(f"{tag}: regression targets off by {d_reg}")
+    loss.backward()
+    grads = flat_grads(model)
+    metrics = {k: float(v) for k, v in tb.items()}
+    metrics["grad_norm"] = float(np.sqrt(sum(
+        float((g ** 2).sum()) for g in grads.values())))
+    rel = {}
+    for k, v in metrics.items():
+        want = float(ref[f"metric/{k}"])
+        rel[k] = abs(v - want) / max(abs(want), 1e-12)
+        if rel[k] > tol["grad_norm" if k == "grad_norm" else "loss"]:
+            raise RuntimeError(f"{tag}: {k} {v} vs {want} ({rel[k]:.3g} "
+                               "relative)")
+    grad_err = 0.0
+    for name, (err, scale) in leaf_report(
+            ref, "grad", {n: g.astype(np.float32) for n, g in grads.items()},
+            tol["grad"]).items():
+        e = float(err.max(initial=0)) / max(scale, 1e-30)
+        if e > tol["grad"]:
+            raise RuntimeError(f"{tag}: gradient {name} off by {e:.3g} of "
+                               f"its leaf's max {scale}")
+        grad_err = max(grad_err, e)
+    stat_err = 0.0
+    for name, b in model.named_buffers():
+        if "running" not in name:
+            continue
+        b, want = b.cpu().numpy(), ref[f"stats/{name}"]
+        if not np.allclose(b, want, rtol=tol["stats_rtol"],
+                           atol=tol["stats_atol"]):
+            raise RuntimeError(f"{tag}: {name} after the step off by "
+                               f"{np.abs(b - want).max()}")
+        stat_err = max(stat_err, float(np.abs(b - want).max()))
+    f64 = None
+    if measure_f64:
+        g64, m64 = point_train_gradients(dev, spec, ref, torch.float64)
+        m32 = {k: v for k, v in metrics.items() if k != "grad_norm"}
+        f64 = f64_distances(grads, m32, g64, m64)
+        for k, v in f64.items():
+            if v > spec.f64[k]:
+                raise RuntimeError(
+                    f"{tag}: the {k} of this device's fp32 step lies "
+                    f"{v:.3g} from the float64 step, more than the CPU "
+                    f"runs' {spec.f64[k]:.3g} the tolerance rests on")
+    labels = fixture_targets(ref, spec.targets[0])
+    return {"f64_distance": f64, "positives": int((labels > 0).sum()),
+            "partings": partings, "max_vote_shift_m": shift,
+            "max_reg_target_diff": d_reg,
+            "metrics": metrics, "metrics_rel_diff": rel,
+            "max_grad_diff_of_leaf_max": grad_err,
+            "max_batch_stats_diff": stat_err}
+
+
+def phase_point_train_parity(report, spec):
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = check_point_train_parity("cuda", spec)
+    report[f"train_parity_{spec.name}"] = r
+    print(f"parity / train_{spec.name}: fp32 (TF32 off) step from flax's "
+          f"initialisers on the fixture's batch matches the JAX step: "
+          f"picks {'identical' if not r['partings'] else 'certified partings ' + str(len(r['partings']))}; "
+          + ("" if r["max_vote_shift_m"] is None else
+             f"vote centres {r['max_vote_shift_m']:.3g} m from the "
+             f"reference's (replayed, tol {VOTE_TOL}); ")
+          + f"labels identical ({r['positives']} positives), regression "
+          f"targets {r['max_reg_target_diff']:.3g}; loss terms and "
+          f"grad_norm within {max(r['metrics_rel_diff'].values()):.3g} "
+          f"relative (loss {r['metrics']['loss']:.6f}, grad_norm "
+          f"{r['metrics']['grad_norm']:.6f}), gradients within "
+          f"{r['max_grad_diff_of_leaf_max']:.3g} of their leaf's max, BN "
+          f"statistics {r['max_batch_stats_diff']:.3g}; tolerances "
+          f"{ {k: spec.tol[k] for k in spec.f64} }; this card's fp32 step "
+          f"from its float64 step: "
+          f"{ {k: float(f'{v:.3g}') for k, v in r['f64_distance'].items()} }",
+          flush=True)
+
+
+DET6D_DR_PARITY = dict(cfg_path=DET6D_DR_CFG, params=DET6D_DR_SEED,
+                       ref_path=DET6D_DR_REF, load=load_det6d_dr_scans)
+
+
+def phase_point_kernels(report):
+    """FPS and the fused NMS at the new paths' shapes, against their plain
+    versions: the D.R. model (bf16, seeded) on the 8 scans (SA1 d-fps 8 ×
+    16384 → 4096, SA2 / SA3 s-fps → 1024, → 512; NMS over its 8 × 512
+    candidates → 500), and IA-SSD's train shapes on the fixture's batch of
+    8 (D-FPS 8 × 16384 → 4096, 8 × 4096 → 1024). Returns the D.R. model
+    and its config."""
+    import torch
+
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        select_candidates,
+    )
+    from de6d_tpu_torch.ops import sampling
+    from de6d_tpu_torch.ops.nms import NEG_INF
+
+    model, mc, _ = build_model("bfloat16", "cuda", DET6D_DR_CFG,
+                               DET6D_DR_SEED)
+    gamma = float(mc["BACKBONE_3D"]["SA_CONFIG"].get("WEIGHT_GAMMA", 1.0))
+    pts, mask = load_det6d_dr_scans()
+    points = torch.from_numpy(pts).cuda()
+    valid = torch.from_numpy(mask).cuda()
+    with torch.no_grad():
+        out = model({"points": points, "points_mask": valid})
+    xyz_l, valid_l = out["point_coords_list"], out["point_valid_list"]
+    scores_l = out["point_scores_list"]
+    train = point_train_batch("cuda", IASSD_TRAIN, "train8_")
+    ia_xyz = train["points"][..., :3].contiguous()
+    ia_sa1 = sampling.farthest_point_sample(ia_xyz, 4096,
+                                            train["points_mask"])
+    ia_l1 = sampling.gather_points(ia_xyz, ia_sa1)
+    ia_v1 = torch.gather(train["points_mask"], 1, ia_sa1.long())
+    cases = {
+        "det6d_dr_sa1_dfps": (points[..., :3].contiguous(), valid, 4096,
+                              None),
+        "det6d_dr_sa2_sfps": (xyz_l[0], valid_l[0], 1024,
+                              fps_weights(scores_l[0], gamma)),
+        "det6d_dr_sa3_sfps": (xyz_l[1], valid_l[1], 512,
+                              fps_weights(scores_l[1], gamma)),
+        "ia_ssd_train_sa1_dfps": (ia_xyz, train["points_mask"], 4096, None),
+        "ia_ssd_train_sa2_dfps": (ia_l1.contiguous(), ia_v1, 1024, None),
+    }
+    lines = check_fps(cases, report)
+    report["fps"]["cases"].update(lines)
+    post_cfg = mc["POST_PROCESSING"]
+    nms_cfg = post_cfg["NMS_CONFIG"]
+    boxes, scores, _ = select_candidates(out, post_cfg)
+    counts = (scores > NEG_INF / 2).sum(-1).to(torch.int32)
+    nms_lines = check_nms({"det6d_dr": (boxes.contiguous(), counts)},
+                          float(nms_cfg["NMS_THRESH"]),
+                          min(int(nms_cfg["NMS_POST_MAXSIZE"]),
+                              boxes.shape[1]))
+    report["nms"]["cases"].update(nms_lines)
+    for k, ln in {**lines, **nms_lines}.items():
+        print(f"kernels / point_train: {k}: "
+              + ", ".join(f"{f} {ln[f]:.4f}" if isinstance(ln.get(f), float)
+                          else f"{f} {ln.get(f)}"
+                          for f in ("ms", "plain_ms", "bound_ms", "cluster",
+                                    "device_ms", "survivor_share")
+                          if f in ln), flush=True)
+    return model, mc
+
+
+def phase_point_train(report, kernels, spec, profile):
+    """``train / <spec.name>``: :func:`measure_train` in fp32 at full width
+    from flax's initialisers over the fixture's 8 frames,
+    :data:`POINT_TRAIN_STEPS` steps and a profile of 3, exactly
+    ``spec.fps`` FPS launches a step and no other kernel launch."""
+    from de6d_tpu_torch.config import cfg_from_yaml_file
+
+    model = point_train_model("cuda", spec)
+    opt = dict(cfg_from_yaml_file(spec.cfg).OPTIMIZATION)
+    out, rows = measure_train(
+        f"train / {spec.name}", model,
+        point_train_batch("cuda", spec, "train8_"), opt, kernels,
+        {"fps": spec.fps}, steps=POINT_TRAIN_STEPS, profile_steps=3)
+    fps_us = sum(us for name, us, _ in rows if "fps" in name.lower())
+    out.update(compute_dtype="float32", fps_device_us_per_step=fps_us,
+               profile_top=[list(r) for r in rows[:25]])
+    report[f"train_{spec.name}"] = out
+    print(train_line(f"train / {spec.name}", out, "fp32 at full width "
+                     "through train_model") + f"; FPS kernels {fps_us:.1f} "
+          "us a step", flush=True)
+    for name, us, c in rows[:12 if profile else 6]:
+        print(f"train / {spec.name} profile: {us:10.1f} us  x{c:6.1f}  "
+              f"{name[:90]}")
+
+
+def cut_tree(src, dst, n_train, n_val, subdirs):
+    """A KITTI-layout tree cut from ``src`` into ``dst``: the first
+    ``n_train`` train and ``n_val`` val frames (the files of ``subdirs``),
+    their infos, and the sampling database of those train frames
+    (dbinfos filtered, the object files linked). Returns ``dst``."""
+    import pickle
+    import shutil
+
+    shutil.rmtree(dst, ignore_errors=True)
+    (dst / "ImageSets").mkdir(parents=True)
+    for sub in subdirs:
+        (dst / "training" / sub).mkdir(parents=True)
+    ext = {"velodyne": ".bin"}
+    for split, n in (("train", n_train), ("val", n_val)):
+        with open(src / f"kitti_infos_{split}.pkl", "rb") as f:
+            infos = pickle.load(f)[:n]
+        ids = [i["point_cloud"]["lidar_idx"] for i in infos]
+        (dst / "ImageSets" / f"{split}.txt").write_text("\n".join(ids) + "\n")
+        for idx in ids:
+            for sub in subdirs:
+                name = f"training/{sub}/{idx}{ext.get(sub, '.txt')}"
+                os.symlink(src / name, dst / name)
+        with open(dst / f"kitti_infos_{split}.pkl", "wb") as f:
+            pickle.dump(infos, f)
+    with open(src / "kitti_dbinfos_train.pkl", "rb") as f:
+        db = pickle.load(f)
+    keep = set((dst / "ImageSets/train.txt").read_text().split())
+    db = {k: [d for d in v if d["image_idx"] in keep] for k, v in db.items()}
+    (dst / "gt_database").mkdir()
+    for objs in db.values():
+        for d in objs:
+            os.symlink(src / d["path"], dst / d["path"])
+    with open(dst / "kitti_dbinfos_train.pkl", "wb") as f:
+        pickle.dump(db, f)
+    return dst
+
+
+def spec_tree(spec):
+    """``spec``'s tree cut to :data:`TREE_TRAIN_FRAMES` train and
+    :data:`TREE_VAL_FRAMES` val frames, under ``output/``."""
+    subdirs = ("velodyne", "calib", "label_2") + (
+        ("slope_planes",) if spec.tree == SLOPEDKITTI_DIR else ())
+    return cut_tree(spec.tree, ROOT / "output/chip_smoke_trees" / spec.name,
+                    TREE_TRAIN_FRAMES, TREE_VAL_FRAMES, subdirs)
+
+
+def phase_point_train_tree(report, kernels, spec):
+    """``train / <spec.name>_<tree>``: ``tools/train.py``'s entry
+    (``prepare``, ``train``) with ``spec``'s yaml as shipped at batch 8 for
+    one epoch of its tree cut to 10 steps (:func:`spec_tree`) from the
+    fresh init, 4 loader workers: steps/s, the loader's share of the loop,
+    the loss terms; finite losses, and the loss (or ``spec.falling``'s
+    terms) lower over the last 3 steps than over the first 3; exactly
+    ``spec.fps`` FPS launches a step and no other kernel; the checkpoint.
+    Returns (the checkpoint, the tree)."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.tools import train as train_cli
+
+    tree = spec_tree(spec)
+    tag = f"train / {spec.name}_{spec.tree.name}"
+    argv = ["--cfg_file", str(spec.cfg), "--epochs", "1", "--batch_size",
+            "8", "--workers", "4", "--extra_tag", "chip_smoke",
+            "--fix_random_seed", "--set", "DATA_CONFIG.DATA_PATH", str(tree)]
+    t0 = time.perf_counter()
+    run = train_cli.prepare(argv)
+    prep_s = time.perf_counter() - t0
+    terms = []
+    get_loss = run.model.get_training_loss
+
+    def recorded_loss(batch_dict):
+        loss, tb = get_loss(batch_dict)
+        terms.append({k: v.detach() for k, v in tb.items()})
+        return loss, tb
+
+    run.model.get_training_loss = recorded_loss
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    train_cli.train(run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del run.model.get_training_loss
+    terms = {k: np.array([float(t[k]) for t in terms]) for k in terms[0]}
+    launches = read_launches(kernels)
+    steps = len(run.step_log)
+    want = {k: steps * spec.fps if k == "fps" else 0 for k in kernels}
+    if steps != TREE_TRAIN_FRAMES // 8 or launches != want:
+        fail(f"{tag}: {steps} steps, launches {launches}, expected {want}")
+    losses = np.array([float(x[2]) for x in run.step_log])
+    if not np.isfinite(losses).all():
+        fail(f"{tag}: non-finite losses {losses}")
+    for k in spec.falling or ("loss",):
+        if not terms[k][-3:].mean() < terms[k][:3].mean():
+            fail(f"{tag}: {k} did not fall: first 3 {terms[k][:3]}, last 3 "
+                 f"{terms[k][-3:]}")
+    ckpt = run.ckpt_dir / "checkpoint_epoch_1"
+    if not ckpt.is_file():
+        fail(f"{tag}: no checkpoint at {ckpt}")
+    data_s = np.array([x[0] for x in run.step_log])
+    step_s = np.array([x[1] for x in run.step_log])
+    iter_ms = (data_s + step_s) * 1e3
+    out = {
+        "steps": steps, "batch": 8, "compute_dtype": "float32",
+        "prepare_s": prep_s, "wall_s": wall,
+        "median_step_ms": float(np.median(iter_ms)),
+        "median_host_step_ms": float(np.median(step_s) * 1e3),
+        "median_loader_wait_ms": float(np.median(data_s) * 1e3),
+        "loader_wait_share": float(data_s.sum() / (data_s + step_s).sum()),
+        "steps_per_s": steps / wall, "frames_per_s": 8 * steps / wall,
+        "terms": {k: v.tolist() for k, v in terms.items()},
+        "gated": list(spec.falling or ("loss",)), "launches": launches,
+        "checkpoint": str(ckpt),
+    }
+    report[f"train_{spec.name}_{spec.tree.name}"] = out
+    print(f"{tag}: tools/train.py, {spec.cfg.name} fp32, batch 8, 1 epoch "
+          f"of {spec.tree.name} cut to {TREE_TRAIN_FRAMES} frames ({steps} "
+          f"steps) from the fresh init: median step "
+          f"{out['median_step_ms']:.2f} ms (host step "
+          f"{out['median_host_step_ms']:.2f}, loader wait "
+          f"{out['median_loader_wait_ms']:.2f}), {out['steps_per_s']:.2f} "
+          f"steps/s, loader wait {out['loader_wait_share']:.1%} of the loop; "
+          "loss terms first 3 -> last 3: " + ", ".join(
+              f"{k} {v[:3].mean():.4g} -> {v[-3:].mean():.4g}"
+              for k, v in terms.items())
+          + f" (gated: {', '.join(out['gated'])}); launches {launches} "
+          f"(prepare {prep_s:.1f} s)", flush=True)
+    return ckpt, tree
+
+
+def phase_point_eval_tree(report, kernels, spec, ckpt, tree):
+    """``eval / <spec.name>_<tree>``: ``tools/test.py --ckpt`` on the train
+    checkpoint (fp32) over the cut tree's :data:`TREE_VAL_FRAMES` val
+    frames at batch 8: ms a frame, the recall counters and the tree's
+    metrics (SlopedKITTI: centre-distance AP, ODS; KITTI: AP), exactly
+    ``spec.fps`` FPS and 1 fused-NMS launch a batch and no other
+    kernel."""
+    import torch
+
+    from de6d_tpu_torch.tools import test as test_cli
+
+    tag = f"eval / {spec.name}_{spec.tree.name}"
+    argv = ["--cfg_file", str(spec.cfg), "--ckpt", str(ckpt),
+            "--extra_tag", "chip_smoke", "--batch_size", str(EVAL_BATCH),
+            "--workers", "4", "--allow-zero-recall", "--set",
+            "DATA_CONFIG.DATA_PATH", str(tree)]
+    reset_launches(kernels)
+    t0 = time.perf_counter()
+    ret = test_cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    n = -(-TREE_VAL_FRAMES // EVAL_BATCH)
+    want = {k: n * {"fps": spec.fps, "nms": 1}.get(k, 0) for k in kernels}
+    if launches != want:
+        fail(f"{tag}: launches {launches} in {n} batches, expected {want}")
+    metrics = {k: float(ret[k]) for k in ret
+               if k.startswith("Car_") and ("moderate_R40" in k
+                                            or "all_R40" in k)}
+    out = {"batches": n, "batch": EVAL_BATCH, "wall_s": wall,
+           "ms_per_frame": ret["sec_per_example"] * 1e3,
+           "steady_ms_per_frame": (ret["steady_sec_per_example"] or 0) * 1e3,
+           "recall_counts": ret["recall_counts"], "metrics": metrics,
+           "launches": launches}
+    report[f"eval_{spec.name}_{spec.tree.name}"] = out
+    print(f"{tag}: tools/test.py --ckpt on the train checkpoint, fp32 at "
+          f"batch {EVAL_BATCH} over {TREE_VAL_FRAMES} val frames in "
+          f"{wall:.1f} s: {out['ms_per_frame']:.2f} ms a frame (steady p50 "
+          f"{out['steady_ms_per_frame']:.2f}), recall "
+          f"{out['recall_counts']}, {metrics}; launches {launches} in {n} "
+          "batches", flush=True)
+
+
 def main():
     import torch
 
@@ -6950,7 +7605,9 @@ def main():
     stamp("train")
     phase_pipeline(report)
     stamp("pipeline")
-    ckpt = phase_train_kitti(report, every_kernel)
+    # no post-training eval: eval / kitti evaluates the checkpoint through
+    # tools/test.py at batch 8 right after
+    ckpt = phase_train_kitti(report, every_kernel, eval_per_batch=None)
     stamp("train_kitti")
     phase_eval_kitti(report, every_kernel, ckpt)
     stamp("eval_kitti")
@@ -7035,10 +7692,14 @@ def main():
     phase_train_second(report, every_kernel, profile)
     stamp("train_second")
     second_eval = (("neighbor_table", 8), ("sparse_conv", 12))
-    ckpt = phase_train_kitti(report, every_kernel, SECOND_CFG,
-                             "train / second_kitti", "train_second_kitti",
-                             tuple(SECOND_TRAIN_LAUNCHES.items()),
-                             second_eval)
+    # the script's time: 40 steps from data/kitti cut to 160 train frames,
+    # and no post-training eval (eval / second_kitti evaluates the
+    # checkpoint through tools/test.py at batch 8 right after)
+    ckpt = phase_train_kitti(
+        report, every_kernel, SECOND_CFG, "train / second_kitti",
+        "train_second_kitti", tuple(SECOND_TRAIN_LAUNCHES.items()), None,
+        data_dir=cut_tree(KITTI_DIR, ROOT / "output/chip_smoke_trees/second",
+                          160, 8, ("velodyne", "calib", "label_2")))
     stamp("train / second_kitti")
     phase_eval_kitti(report, every_kernel, ckpt, SECOND_CFG, SECOND_PARAMS,
                      SECOND_EVAL_REF, "eval / second_kitti",
@@ -7108,6 +7769,27 @@ def main():
                             "voxel_rcnn", VOXELRCNN_EVAL_LAUNCHES)
     stamp("eval / voxel_rcnn_kitti")
 
+    model, mc = phase_point_kernels(report)
+    stamp("kernels / point_train")
+    pts, mask = load_det6d_dr_scans()
+    report["serve_det6d_dr"] = phase_serve(
+        "serve / det6d_dr", model, mc, 1, pts, mask,
+        {"fps": fps.fps, "nms": nms}, 9, True,
+        per_batch={"fps": 3, "nms": 1}, profile_batches=5)
+    stamp("serve / det6d_dr")
+    del model
+    phase_det6d_parity(report, "det6d_dr", **DET6D_DR_PARITY)
+    stamp("parity / det6d_dr")
+    for spec in (DET6D_DR_TRAIN, IASSD_TRAIN):
+        phase_point_train_parity(report, spec)
+        stamp(f"parity / train_{spec.name}")
+        phase_point_train(report, every_kernel, spec, profile)
+        stamp(f"train / {spec.name}")
+        ckpt, tree = phase_point_train_tree(report, every_kernel, spec)
+        stamp(f"train / {spec.name}_{spec.tree.name}")
+        phase_point_eval_tree(report, every_kernel, spec, ckpt, tree)
+        stamp(f"eval / {spec.name}_{spec.tree.name}")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -7143,7 +7825,16 @@ def main():
                "voxel_rcnn_train_kitti":
                    report["train_voxel_rcnn_kitti"]["launches"],
                "voxel_rcnn_eval_kitti":
-                   report["eval_voxel_rcnn_kitti"]["launches"]}
+                   report["eval_voxel_rcnn_kitti"]["launches"],
+               "det6d_dr": report["serve_det6d_dr"]["launches"],
+               **{f"{s.name}_{what}": report[key]["launches"]
+                  for s in (DET6D_DR_TRAIN, IASSD_TRAIN)
+                  for what, key in (
+                      ("train", f"train_{s.name}"),
+                      (f"train_{s.tree.name}",
+                       f"train_{s.name}_{s.tree.name}"),
+                      (f"eval_{s.tree.name}",
+                       f"eval_{s.name}_{s.tree.name}"))}}
     kernels = []
     # the sparse conv's launches split by dtype: the train paths and the
     # evals from a train checkpoint run it in fp32 (second.yaml,

@@ -1,4 +1,4 @@
-"""IA-SSD encoder, inference only (counterpart of
+"""IA-SSD encoder (counterpart of
 ``de6d_tpu/models/backbones_3d/iassd_backbone.py``: ``SampleOnlyLayer``,
 ``VoteLayer``, ``run_sampling_iassd``, ``IASSD_Backbone``).
 
@@ -8,7 +8,11 @@ Layer plumbing from SA_CONFIG: ``LAYER_TYPE`` ('SA_Layer' | 'Vote_Layer'),
 without radii only samples and gathers. The confidence MLPs emit
 ``num_class`` logits per point, which the next layer's centre-aware
 sampling ranks. The vote layer shifts its input points by clamped
-offsets; the last SA layer aggregates at the votes.
+offsets; the last SA layer aggregates at the votes. In train mode the SA
+layers, the confidence MLPs and the vote layer take their BatchNorm
+statistics from the batch (``self.training``), the confidence logits
+keep their gradient for the head's instance-aware losses, and the picks
+(FPS, the centre-aware top-k) carry none.
 
 Batch keys written: centers, centers_origin, ctr_offsets,
 centers_features (fp32), centers_valid, encoder_coords, encoder_valid,

@@ -1,12 +1,15 @@
 """Per-point heads (counterpart of
 ``de6d_tpu/models/dense_heads/point_head_box.py``: ``assign_point_targets``,
-``PointHeadBox``, PointRCNN's first stage, in eval, and
-``PointHeadSimple``, PV-RCNN's keypoint segmentation, in eval and train).
+``point_head_box_loss``, ``PointHeadBox``, PointRCNN's first stage, in
+eval, and ``PointHeadSimple``, PV-RCNN's keypoint segmentation, in eval
+and train).
 
 ``PointHeadBox``: two fp32 FC stacks on the backbone's point features
 give class logits and box codes; the codes are decoded at the points
 with the head's box coder (per-class mean sizes picked by the first
-argmax of the logits); its targets and loss are not ported yet.
+argmax of the logits); its train branch is not ported yet (its targets
+and loss are: :func:`assign_point_targets` with a box coder,
+:func:`point_head_box_loss`).
 ``PointHeadSimple``: one fp32 FC stack gives the keypoints' foreground
 logits and scores; in train mode it also writes ``point_cls_labels``
 (:func:`assign_point_targets`: containment in the gt boxes, the
@@ -20,21 +23,29 @@ from torch import nn
 
 from ...ops import geometry
 from ...registry import POINT_HEADS
-from ...utils import box_coder_utils
+from ...utils import box_coder_utils, loss_utils
 from ..model_utils.mlp import FCStack
 
 
 @torch.no_grad()
-def assign_point_targets(points, valid, gt_boxes, extra_width=None):
+def assign_point_targets(points, valid, gt_boxes, extra_width=None,
+                         box_coder=None, num_class=1, encode_dims=None):
     """(B, N, 3) points vs (B, M, 7 | 9 + class) gt boxes → (B, N) int32
-    class-agnostic labels: 1 inside a gt box, 0 outside every box, -1 in
-    the ``extra_width`` ring around a box and at invalid points (the JAX
-    ``assign_point_targets``' labels for one class). Containment is 9-DoF
-    where the boxes have 9 columns. No gradient."""
+    labels: inside a gt box 1 (``num_class`` 1) or the box's class, 0
+    outside every box, -1 in the ``extra_width`` ring around a box and at
+    invalid points. Containment is 9-DoF where the boxes have 9 columns;
+    where boxes overlap the last one owns the point. No gradient.
+
+    With a ``box_coder`` returns (labels, reg labels (B, N, code): the
+    owning box's first ``encode_dims`` columns (all without) encoded at
+    the point, box labels (B, N, 7 | 9): the owning box), zero off the
+    foreground, as the JAX ``assign_point_targets`` returns them."""
     boxes = gt_boxes[..., :-1]
+    cls_ids = gt_boxes[..., -1].long()
     gt_valid = torch.any(boxes[..., :7].abs() > 0, dim=-1)
     use = boxes[..., :9] if boxes.shape[-1] >= 9 else boxes[..., :7]
-    fg = (geometry.points_in_boxes_index(points, use, gt_valid) >= 0) & valid
+    idx = geometry.points_in_boxes_index(points, use, gt_valid)
+    fg = (idx >= 0) & valid
     if extra_width is not None:
         big = geometry.enlarge_box3d(use, extra_width)
         inside_big = geometry.points_in_boxes_index(points, big,
@@ -42,8 +53,44 @@ def assign_point_targets(points, valid, gt_boxes, extra_width=None):
         ignore = (fg ^ (inside_big & valid)) & valid
     else:
         ignore = torch.zeros_like(fg)
-    label = torch.where(fg, 1, torch.where(ignore | ~valid, -1, 0))
-    return label.to(torch.int32)
+    safe = idx.clamp(min=0).long()
+    cls_at = torch.gather(cls_ids, 1, safe)
+    label = torch.where(fg, 1 if num_class == 1 else cls_at,
+                        torch.where(ignore | ~valid, -1, 0)).to(torch.int32)
+    if box_coder is None:
+        return label
+    own = torch.gather(boxes, 1, safe[..., None].expand(-1, -1,
+                                                         boxes.shape[-1]))
+    src = own if encode_dims is None else own[..., :encode_dims]
+    enc = box_coder.encode(src, points, cls_at)[..., :box_coder.code_size]
+    return (label, torch.where(fg[..., None], enc, 0.0),
+            torch.where(fg[..., None], own, 0.0))
+
+
+def point_head_box_loss(batch_dict, model_cfg, num_class, box_coder):
+    """Focal class loss over the positives and negatives and smooth-L1 box
+    codes over the positives, each normalised by the positives' count
+    (the JAX ``point_head_box_loss``). Returns (loss, terms)."""
+    w = model_cfg["LOSS_CONFIG"]["LOSS_WEIGHTS"]
+    labels = batch_dict["point_cls_labels"].reshape(-1)
+    cls_preds = batch_dict["point_cls_preds"].reshape(-1, num_class)
+    pos = labels > 0
+    cls_w = (pos | (labels == 0)).float()
+    pos_norm = torch.clamp(pos.float().sum(), min=1.0)
+    one_hot = torch.nn.functional.one_hot(
+        labels.clamp(min=0).long(), num_class + 1)[..., 1:].float()
+    cls_loss = loss_utils.sigmoid_focal_loss(
+        cls_preds, one_hot, weights=cls_w / pos_norm).sum() * float(
+            w["point_cls_weight"])
+    code = box_coder.code_size
+    reg_loss = loss_utils.smooth_l1_loss(
+        batch_dict["point_reg_preds"].reshape(-1, code),
+        batch_dict["point_reg_labels"].reshape(-1, code),
+        weights=pos.float() / pos_norm,
+        code_weights=w.get("code_weights")).sum() * float(
+            w["point_box_weight"])
+    return cls_loss + reg_loss, {"point_loss_cls": cls_loss,
+                                 "point_loss_box": reg_loss}
 
 
 @POINT_HEADS.register

@@ -148,13 +148,20 @@ def canonical_transform_targets(rois, gt_of_rois):
                       gt_of_rois[..., 7:]], dim=-1)
 
 
+# the largest size code a regressed RoI is decoded with for the corner
+# loss: a box exp(60) times its RoI's size has a finite corner loss and
+# finite gradients (``tests/test_torch_roi_code_cap.py``)
+CORNER_SIZE_CODE_CAP = 60.0
+
+
 def roi_head_loss(ret_dict, loss_cfg):
     """The RoI head's loss from its ``roi_targets_dict``: sigmoid BCE on
     ``rcnn_cls`` against the IoU-interpolated labels over the valid
     samples, smooth-L1 on the ``ResidualCoder`` residuals of the
     RoI-local gt boxes over the regression samples, and with
     ``CORNER_LOSS_REGULARIZATION`` the corner loss of the decoded boxes
-    against the world gt boxes. Returns (total, dict of scalar terms:
+    (size codes capped at :data:`CORNER_SIZE_CODE_CAP`) against the world
+    gt boxes. Returns (total, dict of scalar terms:
     ``rcnn_loss_cls``, ``rcnn_loss_reg``, ``rcnn_loss_corner``,
     ``rcnn_loss``)."""
     w = loss_cfg["LOSS_WEIGHTS"]
@@ -189,6 +196,13 @@ def roi_head_loss(ret_dict, loss_cfg):
         # finite
         regressed = ret_dict["reg_valid_mask"][..., None]
         codes = torch.where(regressed, ret_dict["rcnn_reg"], 0.0)
+        # a regressed RoI's size codes are capped for this term: past ~86
+        # the decode's exp overflows (loss inf, gradients NaN), where
+        # JAX's loss is already inf from ~43 (it squares the distances);
+        # up to the cap, the same loss and gradients
+        codes = torch.cat([codes[..., :3],
+                           codes[..., 3:6].clamp(max=CORNER_SIZE_CODE_CAP),
+                           codes[..., 6:]], dim=-1)
         decoded = rcnn_box_decode(ret_dict["rois"], codes).reshape(-1, 7)
         gt_world = ret_dict["gt_of_rois"].reshape(
             -1, ret_dict["gt_of_rois"].shape[-1])

@@ -2,7 +2,10 @@
 ``de6d_tpu/ops/geometry.py``: ``limit_period``, ``angles_to_matrix``,
 ``boxes_to_rotation_matrix``, ``rotate_points_along_z``,
 ``boxes_to_corners_3d``, ``boxes_to_corners_bev``,
-``points_in_boxes_mask``, ``points_in_boxes_index``, ``enlarge_box3d``).
+``points_in_boxes_mask``, ``points_in_boxes_index``, ``enlarge_box3d``,
+and the rotation conversions ``matrix_to_quat``, ``matrix_to_rotvec``,
+``rotvec_to_matrix``, ``matrix_to_euler_zyx``, ``rotvec_to_euler_zyx``,
+``euler_zyx_to_rotvec``).
 
 7-DoF box: ``[x, y, z, dx, dy, dz, yaw]``, yaw counter-clockwise about
 +z; 9-DoF box: ``[..., yaw, pitch, roll]`` with ``R = Rx(roll) @
@@ -120,6 +123,92 @@ def angles_to_matrix(yaw, pitch=None, roll=None):
         _fma(sx, sz, -(cxsy * cz)), _fma(sx, cz, cxsy * sz), cx * cy,
     ], dim=-1)
     return rot.reshape(*yaw.shape, 3, 3)
+
+
+def matrix_to_quat(rot):
+    """(..., 3, 3) → (..., 4) unit quaternion (w, x, y, z): of the four
+    candidates, each stable where its own component is largest, the one
+    with the largest ``sqrt(max(1e-12, 1 ± ...)) / 2`` (the first on ties),
+    then normalised."""
+    m = [[rot[..., i, j] for j in range(3)] for i in range(3)]
+
+    def half_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12)) / 2
+
+    tr = (m[0][0] + m[1][1]) + m[2][2]
+    qw = half_sqrt(1 + tr)
+    qx = half_sqrt(((1 + m[0][0]) - m[1][1]) - m[2][2])
+    qy = half_sqrt(((1 - m[0][0]) + m[1][1]) - m[2][2])
+    qz = half_sqrt(((1 - m[0][0]) - m[1][1]) + m[2][2])
+    c0 = [qw, (m[2][1] - m[1][2]) / (4 * qw), (m[0][2] - m[2][0]) / (4 * qw),
+          (m[1][0] - m[0][1]) / (4 * qw)]
+    c1 = [(m[2][1] - m[1][2]) / (4 * qx), qx, (m[0][1] + m[1][0]) / (4 * qx),
+          (m[0][2] + m[2][0]) / (4 * qx)]
+    c2 = [(m[0][2] - m[2][0]) / (4 * qy), (m[0][1] + m[1][0]) / (4 * qy), qy,
+          (m[1][2] + m[2][1]) / (4 * qy)]
+    c3 = [(m[1][0] - m[0][1]) / (4 * qz), (m[0][2] + m[2][0]) / (4 * qz),
+          (m[1][2] + m[2][1]) / (4 * qz), qz]
+    pick = torch.argmax(torch.stack([qw, qx, qy, qz], -1), dim=-1)
+    cands = torch.stack([torch.stack(c, -1) for c in (c0, c1, c2, c3)], -2)
+    q = torch.gather(cands, -2, pick[..., None, None].expand(
+        *pick.shape, 1, 4))[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def matrix_to_rotvec(rot):
+    """(..., 3, 3) → (..., 3) axis-angle, the angle in [0, pi] (scipy's
+    ``as_rotvec``); below a sine of 1e-8 the vector is twice the
+    quaternion's imaginary part."""
+    q = matrix_to_quat(rot)
+    q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+    s = torch.linalg.norm(q[..., 1:], dim=-1)
+    angle = 2 * torch.atan2(s, q[..., 0])
+    tiny = s < 1e-8
+    scale = torch.where(tiny, 2.0, angle / torch.where(tiny, 1.0, s))
+    return q[..., 1:] * scale[..., None]
+
+
+def rotvec_to_matrix(v):
+    """(..., 3) axis-angle → (..., 3, 3) (Rodrigues); below an angle of
+    1e-8 the first-order ``I + skew(v)``."""
+    theta = torch.linalg.norm(v, dim=-1, keepdim=True)
+    small = theta[..., 0] < 1e-8
+    axis = v / torch.where(theta < 1e-8, 1.0, theta)
+    x, y, z = axis.unbind(-1)
+    c, s = torch.cos(theta[..., 0]), torch.sin(theta[..., 0])
+    one_c = 1 - c
+    rot = torch.stack([
+        c + x * x * one_c, x * y * one_c - z * s, x * z * one_c + y * s,
+        y * x * one_c + z * s, c + y * y * one_c, y * z * one_c - x * s,
+        z * x * one_c - y * s, z * y * one_c + x * s, c + z * z * one_c,
+    ], -1).reshape(*v.shape[:-1], 3, 3)
+    zero = torch.zeros_like(x)
+    eye_skew = torch.stack([
+        zero + 1, -v[..., 2], v[..., 1],
+        v[..., 2], zero + 1, -v[..., 0],
+        -v[..., 1], v[..., 0], zero + 1,
+    ], -1).reshape(rot.shape)
+    return torch.where(small[..., None, None], eye_skew, rot)
+
+
+def matrix_to_euler_zyx(rot):
+    """(..., 3, 3) → (yaw, pitch, roll) of ``R = Rx(roll) @ Ry(pitch) @
+    Rz(yaw)`` (scipy's ``as_euler('zyx')`` for such matrices)."""
+    pitch = torch.asin(torch.clamp(rot[..., 0, 2], -1.0, 1.0))
+    yaw = torch.atan2(-rot[..., 0, 1], rot[..., 0, 0])
+    roll = torch.atan2(-rot[..., 1, 2], rot[..., 2, 2])
+    return yaw, pitch, roll
+
+
+def rotvec_to_euler_zyx(v):
+    """(..., 3) axis-angle → (..., 3) stacked (yaw, pitch, roll)."""
+    return torch.stack(matrix_to_euler_zyx(rotvec_to_matrix(v)), dim=-1)
+
+
+def euler_zyx_to_rotvec(yaw, pitch, roll):
+    """Euler (zyx) → (..., 3) axis-angle, through :func:`angles_to_matrix`
+    (glibc-rounded trig, as jitted XLA computes the JAX package's)."""
+    return matrix_to_rotvec(angles_to_matrix(yaw, pitch, roll))
 
 
 def boxes_to_rotation_matrix(boxes):

@@ -1,7 +1,7 @@
 """Box coders (counterpart of ``de6d_tpu/utils/box_coder_utils.py``):
-``ResidualCoder`` (anchor heads, RoI heads), the decodes of
-``PointResidualCoder`` (PointRCNN's first stage) and
-``PointResidual_BinOri_Coder`` (the IA-SSD head), and both ways of
+``ResidualCoder`` (anchor heads, RoI heads), and both ways of
+``PointResidualCoder`` (PointRCNN's first stage, Det6D's direct-regression
+head), ``PointResidual_BinOri_Coder`` (the IA-SSD head),
 ``PointBinResidualCoder`` (the 3DSSD / SASA vote head) and
 ``PointBinResidual6DCoder`` (the Det6D vote head).
 
@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.ball_query import _fma
-
+from ..ops.geometry import cos32, sin32
 from ..registry import BOX_CODERS
 
 
@@ -183,14 +183,25 @@ def _mean_size(use_mean_size, mean_size):
 
 @BOX_CODERS.register
 class PointResidualCoder:
-    """8-column point-to-box code with cos/sin yaw, decode only: 6
-    offsets (relative to per-class mean sizes when ``use_mean_size``),
-    then cos and sin of the yaw; further columns pass through."""
+    """8-column point-to-box code with cos/sin yaw: 6 offsets (relative to
+    per-class mean sizes when ``use_mean_size``), then cos and sin of the
+    yaw; further columns pass through."""
 
     def __init__(self, code_size=8, use_mean_size=True, mean_size=None,
                  **kwargs):
         self.code_size = code_size
         self.mean_size = _mean_size(use_mean_size, mean_size)
+
+    def encode(self, gt_boxes, points, gt_classes=None):
+        """gt boxes (..., 7+) at points (..., 3) → (..., 8 + extras); the
+        yaw's cosine and sine are glibc's (as jitted XLA's on the CPU)."""
+        gt_boxes = _clamp_sizes(gt_boxes)
+        parts = _point_offsets_encode(gt_boxes, points, self.mean_size,
+                                      gt_classes)
+        rg = gt_boxes[..., 6]
+        parts += [cos32(rg), sin32(rg)]
+        parts += [gt_boxes[..., i] for i in range(7, gt_boxes.shape[-1])]
+        return torch.stack(parts, dim=-1)
 
     def decode(self, encodings, points, pred_classes=None):
         out = _point_offsets_decode(encodings, points, self.mean_size,
@@ -245,10 +256,11 @@ class PointBinResidualCoder:
 
 @BOX_CODERS.register
 class PointResidual_BinOri_Coder:
-    """IA-SSD bin-orientation point coder, decode only. Code: [6 offsets
-    | bin logits x B | bin residuals x B], residuals in half bins; the
-    yaw is the chosen bin's centre in [-pi, pi) plus its residual.
-    Output (..., 7)."""
+    """IA-SSD bin-orientation point coder. Code: [6 offsets | bin logits x
+    B | bin residuals x B], residuals in half bins; the yaw is the chosen
+    bin's centre in [-pi, pi) plus its residual. Decode output (..., 7);
+    the encode writes the one-hot bin and its residual in the same
+    layout."""
 
     def __init__(self, code_size=8, use_mean_size=True, mean_size=None,
                  bin_size=12, **kwargs):
@@ -256,6 +268,29 @@ class PointResidual_BinOri_Coder:
         self.bin_size = int(bin_size)
         self.code_size = 6 + 2 * self.bin_size
         self.bin_inter = 2 * math.pi / self.bin_size
+
+    def encode(self, gt_boxes, points, gt_classes=None):
+        """gt boxes (..., 7+) at points (..., 3) → (..., 6 + 2B): the yaw
+        clamped to (-pi, pi) by 1e-5, its bin ``floor((yaw + pi) * 1 /
+        inter)`` (the fp32 reciprocal XLA folds the division into) and
+        residual ``(yaw + pi - fma(bin, inter, inter / 2)) * 1 / (inter /
+        2)``."""
+        gt_boxes = _clamp_sizes(gt_boxes)
+        parts = _point_offsets_encode(gt_boxes, points, self.mean_size,
+                                      gt_classes)
+        pi = _f32(math.pi)
+        inter, half = _f32(self.bin_inter), _f32(self.bin_inter / 2)
+        rg = torch.clamp(gt_boxes[..., 6], _f32(-math.pi + 1e-5),
+                         _f32(math.pi - 1e-5))
+        shifted = rg + pi
+        bin_f = torch.floor(shifted * _recip32(self.bin_inter))
+        centre = _fma(bin_f, torch.full_like(bin_f, inter),
+                      torch.full_like(bin_f, half))
+        res = (shifted - centre) * _recip32(self.bin_inter / 2)
+        onehot = torch.nn.functional.one_hot(bin_f.long(), self.bin_size).to(
+            rg.dtype)
+        return torch.cat([torch.stack(parts, -1), onehot,
+                          onehot * res[..., None]], dim=-1)
 
     def decode(self, encodings, points, pred_classes=None):
         nb = self.bin_size
