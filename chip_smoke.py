@@ -328,8 +328,9 @@ Phases, one status line each; any failure exits non-zero:
                     of which 7 mirrored, 12 weight gradients, 4 transposed
                     tables) and no other kernel launch.
 22d. train / pv_rcnn_kitti — ``tools/train.py`` on ``pv_rcnn.yaml`` for
-                    one epoch of ``data/kitti`` at batch 2 (150 steps)
-                    from the fresh init, as phase 4e: steps/s, the
+                    one epoch of ``data/kitti`` cut to 100 train frames
+                    at batch 2 (50 steps) from the fresh init, as phase
+                    4e: steps/s, the
                     loader's share, the loss falling, the launches of 22c
                     a step, the checkpoint (no post-training eval since PR
                     18: 22e evaluates the checkpoint).
@@ -362,7 +363,8 @@ Phases, one status line each; any failure exits non-zero:
 23d. train / voxel_rcnn — as 22c with ``voxel_rcnn_car.yaml``: exactly
                     :data:`VOXELRCNN_TRAIN_LAUNCHES` a step.
 23e. train / voxel_rcnn_kitti — ``tools/train.py`` for one epoch of
-                    ``data/kitti`` at the config's batch of 4 (75 steps):
+                    ``data/kitti`` cut to 160 train frames at the
+                    config's batch of 4 (40 steps):
                     the anchor head's loss and the RoI head's
                     classification loss fall (:data:`VOXELRCNN_FALLING`);
                     the launches of 23d a step, the checkpoint.
@@ -398,6 +400,25 @@ Phases, one status line each; any failure exits non-zero:
                     <name>_<tree>, ``tools/test.py --ckpt`` over the 50
                     val frames at batch 8, 3 or 2 FPS and 1 fused NMS a
                     batch.
+24g-m, PointRCNN then 3DSSD (:data:`POINTRCNN_TRAIN`, :data:`SSD3D_TRAIN`),
+                    as 24c-f at their config's batch (2 and 8), each
+                    after its kernels phase: kernels / pointrcnn_train,
+                    the mask and resolve at the 2 x 9000 train candidates
+                    and FPS at the RoI encoder's 256 pooled sets (512 ->
+                    128 -> 32) against their plain versions; kernels /
+                    3dssd_train, f-fps at the step's own matrices (8 x
+                    4096 -> 512, 8 x 512 -> 256). parity /
+                    train_pointrcnn also holds the proposals
+                    (:func:`check_point_proposals`, replayed where a list
+                    parts at a near-tie) and the sampled RoIs; its steps
+                    launch 6 FPS, 1 mask and 1 resolve, 3DSSD's 2 FPS and
+                    2 f-fps; after PointRCNN's tree phases, train /
+                    pointrcnn_slopeaug_kitti (``pointrcnn_slopeaug.yaml``:
+                    every batch's gt boxes 10 columns, some sloped) and
+                    eval / pointrcnn_slopeaug_slopedkitti (its checkpoint
+                    through ``tools/test.py`` with ``configs/
+                    slopedkitti_models/pointrcnn.yaml`` on 50 val frames
+                    of ``data/slopedkitti``: the SlopedKITTI protocol).
 
 The line before the last is the card's name and power limit, the one
 before it a JSON summary of the kernels, the last line
@@ -3679,12 +3700,10 @@ def sampling_segments(method, npoint):
     return [("exact", 0, npoint)]
 
 
-def ffps_parting(xyz, feats, gamma, valid, prefix, p, r):
-    """One sample's f-fps step after the picks ``prefix`` (a LongTensor):
-    the port's own keys (running minima over its own matrix) of its pick
-    ``p`` and of the reference's pick ``r`` → (key gap, the gap that
-    :func:`matrix_tolerance` allows for the two matrix entries that hold
-    those minima)."""
+def ffps_keys(xyz, feats, gamma, valid, prefix):
+    """One sample's f-fps keys after the picks ``prefix`` (a
+    LongTensor): each point's running minimum over the matrix rows of the
+    picks (-1 at invalid points), and the pick that holds it."""
     import torch
 
     from de6d_tpu_torch.ops import sampling
@@ -3692,15 +3711,24 @@ def ffps_parting(xyz, feats, gamma, valid, prefix, p, r):
     dm = sampling.calc_dist_matrix_for_sampling(
         xyz[None], None if feats is None else feats[None], gamma)[0]
     md, arg = dm[prefix].min(dim=0)
+    return torch.where(valid, md, -1.0), arg
+
+
+def ffps_parting(xyz, feats, gamma, valid, prefix, p, r):
+    """One sample's f-fps step after the picks ``prefix`` (a LongTensor):
+    the port's own keys (running minima over its own matrix) of its pick
+    ``p`` and of the reference's pick ``r`` → (key gap, the gap that
+    :func:`matrix_tolerance` allows for the two matrix entries that hold
+    those minima)."""
+    md, arg = ffps_keys(xyz, feats, gamma, valid, prefix)
     norm = (xyz * xyz).sum(-1)
     if feats is not None:
         norm = norm + gamma * (feats * feats).sum(-1)
     scale = norm + norm[prefix[arg]]  # |a|² + |b|² of the entry held
-    md = torch.where(valid, md, -1.0)
     return float(md[p] - md[r]), float(matrix_tolerance(scale[p] + scale[r]))
 
 
-def certify_sampling_call(tag, k, call, ref_scores, tol):
+def certify_sampling_call(tag, k, call, ref_scores, tol, ref_keys=None):
     """The k-th sampling call of a forced run: where the port's own picks
     differ from the reference's, each difference must be a near-tie, or
     RuntimeError. Returns the partings.
@@ -3709,7 +3737,12 @@ def certify_sampling_call(tag, k, call, ref_scores, tol):
     * 'ffps' / 'sfps': at a sample's first differing pick the port's key of
       its own pick exceeds its key of the reference's pick by no more than
       the matrix tolerance (:func:`ffps_parting`) or the weights'
-      differences (:func:`sfps_parting`) explain.
+      differences (:func:`sfps_parting`) explain. Given ``ref_keys``, the
+      reference's own key at each of its f-fps picks (a train step, whose
+      features carry each library's fp32 round-off into the matrix), the
+      gap may also reach twice the distance between the port's key of the
+      reference's pick and the reference's key of it (the train
+      tolerances' rule).
     * 'topk': the scores that are ranked lie within ``tol`` of the
       reference's (largest difference ``delta``); a position may hold
       another point only where the two points' reference scores lie within
@@ -3767,6 +3800,11 @@ def certify_sampling_call(tag, k, call, ref_scores, tol):
                 feats = None if feats is None else feats[b, lo:hi].float()
                 gap, allowed = ffps_parting(xyz[b], feats, gamma, valid[b],
                                             own[b, a:j], p, r)
+                if ref_keys is not None:
+                    md, _ = ffps_keys(xyz[b], feats, gamma, valid[b],
+                                      own[b, a:j])
+                    allowed += 2 * abs(float(md[r])
+                                       - float(ref_keys[b, j]))
             else:
                 w_ref = weights(torch.as_tensor(ref_scores,
                                                 device=xyz.device))
@@ -6960,14 +6998,19 @@ def load_det6d_dr_scans():
 
 class PointTrain(typing.NamedTuple):
     """A point detector's train phases: ``name`` (the phases' tags), its
-    yaml, the JAX step's fixture (``ref``; its batch of 8 in ``train8``
-    under ``train8_*``), the numpy seed of flax's initialisers, the
-    train-mode forward's target keys (``exact``: those held bit for
-    bit), FPS launches a step, how far an fp32 evaluation of the
-    fixture's step lies from a float64 one on the CPU (``f64``: the
-    larger of the JAX package's over the stored entries and the port's
-    over every entry), the tree it trains from and, for a loss that need
-    not fall in 10 steps, the terms ``train / *_tree`` gates on."""
+    yaml, the JAX step's fixture (``ref``; the batch of 8 the train phase
+    runs at in ``train8`` under ``train8_*``, or None: the fixture's own
+    batch), the numpy seed of flax's initialisers, the train-mode
+    forward's target keys (``exact``: those held bit for bit), its
+    hand-kernel launches a train step and an eval batch, how far an fp32
+    evaluation of the fixture's step lies from a float64 one (``f64``),
+    the tree it trains from and, for a loss that need not fall in 10
+    steps, the terms ``train / *_tree`` gates on; the batch its train
+    phases run at, whether its yaml applies SlopeAug, the phase that
+    holds its train step's kernels against their plain versions
+    (``kernels(report)``, or None), and a second arm trained from its own
+    tree after this one (``then``: evaluated with its ``eval_cfg`` on its
+    ``eval_tree`` where those are set)."""
     name: str
     cfg: Path
     ref: Path
@@ -6975,19 +7018,31 @@ class PointTrain(typing.NamedTuple):
     seed: int
     targets: tuple
     exact: tuple
-    fps: int
+    launches: dict
+    eval_launches: dict
     f64: dict
     tree: Path
     falling: tuple = None
+    batch: int = 8
+    slope_aug: bool = False
+    kernels: typing.Callable = None
+    then: typing.Any = None
+    eval_cfg: Path = None
+    eval_tree: Path = None
 
     @property
     def tol(self):
         """Twice the fp32-vs-float64 distance (each fp32 step lies within
         it of the float64 one, the card checks its own); BatchNorm
         statistics and the regression targets as :data:`TRAIN_TOL` holds
-        them."""
-        return {**{k: 2 * v for k, v in self.f64.items()},
-                "stats_rtol": 2e-4, "stats_atol": 1e-5, "reg_targets": 1e-5}
+        them, a RoI stage's proposal and sampled boxes (relative above 1
+        m) as :data:`PARITY_TOL` and their class targets as
+        :data:`PVRCNN_TRAIN_TOL`, but the regression targets and the boxes
+        at twice their float64 distance where ``f64`` holds it."""
+        return {"boxes": PARITY_TOL, "reg_targets": 1e-5,
+                "stats_rtol": 2e-4, "stats_atol": 1e-5,
+                "cls_targets": PVRCNN_TRAIN_TOL["cls_targets"],
+                **{k: 2 * v for k, v in self.f64.items()}}
 
 
 DET6D_DR_TRAIN = PointTrain(
@@ -6996,7 +7051,8 @@ DET6D_DR_TRAIN = PointTrain(
     DET6D_TRAIN_REF, DET6D_DR_SEED,
     ("point_cls_labels", "point_reg_labels", "point_box_labels",
      "point_rot_cls_labels", "point_rot_reg_labels"),
-    ("point_cls_labels", "point_box_labels", "point_rot_cls_labels"), 3,
+    ("point_cls_labels", "point_box_labels", "point_rot_cls_labels"),
+    {"fps": 3}, {"fps": 3, "nms": 1},
     # tests/test_torch_det6d_dr.py::test_full_width_train_step_against_float64:
     # from flax's initialisers the JAX fp32 gradients lie up to 7.97e-2 of
     # a leaf's largest entry from float64 (SA1's aggregation layer: the
@@ -7013,7 +7069,7 @@ IASSD_TRAIN = PointTrain(
      "sa_ins_labels"),
     ("center_cls_labels", "center_gt_box_of_points",
      "center_origin_cls_labels", "gt_box_of_center_origin",
-     "sa_ins_labels"), 2,
+     "sa_ins_labels"), {"fps": 2}, {"fps": 2, "nms": 1},
     # tests/test_torch_iassd_train.py::test_full_width_train_step_against_float64:
     # from flax's initialisers the step is ill-conditioned (2 positive
     # centres normalise the class loss over 2 x 256: loss 318.6, gradient
@@ -7031,18 +7087,89 @@ IASSD_TRAIN = PointTrain(
     ("center_loss_box", "corner_loss_reg", "sa_loss_ins"))
 
 
+# How far the fp32 steps of the fixtures lie from a float64 step with the
+# same picks and RoI decisions (point_f64_distances; tests/
+# test_torch_{pointrcnn,ssd3d}_train.py::test_full_width_train_step_
+# against_float64; the same figures on the CPU and on an H100), the larger
+# of the JAX package's and the port's, rounded up. PointRCNN: the JAX
+# fp32 gradients lie up to 2.34e-2 of a leaf's largest entry from float64
+# (SA2's second scale, the RoI head's xyz_up biases), its loss terms
+# 8.19e-6 and its gradient norm 1.35e-4 relative, its proposal boxes
+# 1.75e-3 relative above 1 m (the JAX package's jitted train-mode FP
+# layers on the CPU lie up to 0.1 from their eager forward,
+# tests/test_torch_pointrcnn_train.py::test_fp_module_train_mode_equals_
+# jax); the port's fp32 step 9.71e-3, 1.44e-6, 5.73e-5 and 2.7e-4.
+POINTRCNN_TRAIN_F64 = {"grad": 2.4e-2, "loss": 8.3e-6, "grad_norm": 1.4e-4,
+                       "boxes": 1.8e-3}
+# 3DSSD, measured on an H100 (its batch of 8 in float64 is ~20 GiB on the
+# CPU): the JAX fp32 gradients lie up to 1.25e-1 of a leaf's largest entry
+# from float64, its loss terms 2.76e-5 and its gradient norm 5.43e-3
+# relative, its regression targets (encoded at the votes) 5.73e-4; the
+# port's fp32 step 5.89e-2, 1.93e-5, 1.22e-3 and 1.49e-5. The float64
+# step is the port's: the JAX package's float64 step with the fp32 step's
+# decisions is made on the CPU at tiny widths only (tests/jax_float64.py;
+# at full width the votes' target assignment and the candidate layer's
+# ball query part between the two precisions), where the port's float64
+# gradients lie within 2.0e-6 of a leaf's largest entry of it
+# (tests/test_torch_ssd3d_train.py). What parts an fp32 gradient from
+# float64 is a ReLU input within fp32 round-off of 0 that a max-pool
+# selects: the tiny step's JAX fp32 gradient lies 0.18 from float64 for
+# one such entry of the candidate layer, the port's fp32 1.3e-5.
+SSD3D_TRAIN_F64 = {"grad": 1.26e-1, "loss": 2.8e-5, "grad_norm": 5.5e-3,
+                   "reg_targets": 5.8e-4}
+# the terms train / pointrcnn_kitti gates on: from the fresh init no RoI
+# overlaps a gt box enough to be regressed in the first steps (the RoI
+# regression and corner terms start at 0 and grow as the proposals
+# improve: 0 -> 1.59 and 0 -> 0.084 in 40 steps on an H100), the point
+# head's terms and the total fall (9.41 -> 4.03)
+POINTRCNN_FALLING = ("loss", "point_loss_cls", "point_loss_box")
+RCNN_SLOPEAUG_CFG = ROOT / "configs/kitti_models/pointrcnn_slopeaug.yaml"
+RCNN_SLOPED_CFG = ROOT / "configs/slopedkitti_models/pointrcnn.yaml"
+# a PointRCNN train step's hand-kernel launches: the backbone's 4 d-fps
+# and the RoI encoder's 2 (over B x 128 sampled RoIs), the proposal
+# layer's mask and resolve (NMS_CONFIG.TRAIN: 9000 candidates a sample,
+# 512 kept); an eval batch adds the final NMS's mask and resolve (100
+# RoIs: no multiple of 128, so not the fused kernel)
+POINTRCNN_TRAIN_LAUNCHES = {"fps": 6, "nms_mask": 1, "nms_resolve": 1}
+POINTRCNN_EVAL_LAUNCHES = {"fps": 6, "nms_mask": 2, "nms_resolve": 2}
+POINTRCNN_TRAIN = PointTrain(
+    "pointrcnn", RCNN_CFG,
+    ROOT / "de6d_tpu_torch/testdata/pointrcnn_train_jax_ref.npz", None,
+    2030, ("point_cls_labels", "point_reg_labels", "point_box_labels"),
+    ("point_cls_labels", "point_box_labels"), POINTRCNN_TRAIN_LAUNCHES,
+    POINTRCNN_EVAL_LAUNCHES, POINTRCNN_TRAIN_F64, KITTI_DIR,
+    POINTRCNN_FALLING, batch=2,
+    kernels=lambda report: phase_pointrcnn_train_kernels(report),
+    # the same network trained with SlopeAug (random_make_slope_in_scene)
+    # on flat KITTI, evaluated under the SlopedKITTI protocol with
+    # configs/slopedkitti_models/pointrcnn.yaml
+    then=PointTrain(
+        "pointrcnn_slopeaug", RCNN_SLOPEAUG_CFG, None, None, 2030, (), (),
+        POINTRCNN_TRAIN_LAUNCHES, POINTRCNN_EVAL_LAUNCHES, {}, KITTI_DIR,
+        POINTRCNN_FALLING, batch=2, slope_aug=True,
+        eval_cfg=RCNN_SLOPED_CFG, eval_tree=SLOPEDKITTI_DIR))
+SSD3D_TRAIN = PointTrain(
+    "3dssd", SSD3D_CFG,
+    ROOT / "de6d_tpu_torch/testdata/ssd3d_train_jax_ref.npz", None, 2031,
+    DET6D_TRAIN_TARGETS, ("vote_cls_labels", "point_cls_labels",
+                          "point_box_labels"),
+    {"fps": 2, "matrix_fps": 2}, {"fps": 2, "matrix_fps": 2, "nms": 1},
+    SSD3D_TRAIN_F64, KITTI_DIR, batch=8,
+    kernels=lambda report: phase_ssd3d_train_kernels(report))
+
+
 def point_train_model(dev, spec):
     """``spec``'s detector as shipped (fp32) on ``dev``, its layers drawn
     as flax initialises them from ``spec.seed``."""
     return pvrcnn_train_model(dev, spec.cfg, spec.seed)[0]
 
 
-def point_train_batch(dev, spec, prefix=""):
-    """The fixture's batch of 2 (``prefix`` "train8_": the batch of 8)."""
+def point_train_batch(dev, path, prefix=""):
+    """A fixture's batch (``prefix`` "train8_": the batch of 8 a Det6D
+    train fixture also holds)."""
     import numpy as np
     import torch
 
-    path = spec.train8 if prefix else spec.ref
     with np.load(path) as ref:
         return {k: torch.from_numpy(ref[prefix + k]).to(dev)
                 for k in ("points", "points_mask", "gt_boxes")}
@@ -7110,19 +7237,21 @@ def forced_votes(ref_centres):
         iassd_backbone.VoteLayer.forward = orig
 
 
-def point_train_forward(model, batch, ref, tag="train"):
+def point_train_forward(model, batch, ref, tag="train", stage=None):
     """A train-mode forward and loss of ``model`` with every sampling call
     forced to the fixture's picks and, where the fixture holds them, the
     vote centres replayed (:func:`forced_votes`; more than
-    :data:`VOTE_TOL` from the reference's raises): (batch dict, loss,
-    terms, the calls with the port's own picks, the largest centre
-    shift or None)."""
+    :data:`VOTE_TOL` from the reference's raises), within ``stage`` (a
+    :class:`RecordedRoIStage`) where given: (batch dict, loss, terms, the
+    calls with the port's own picks, the largest centre shift or
+    None)."""
     picks = [ref[f"picks_{k}"] for k in range(sum(
         k.startswith("picks_") for k in ref))]
     model.train()
     votes = (forced_votes(ref["centers"]) if "centers" in ref
              else contextlib.nullcontext([]))
-    with forced_sampling(picks) as calls, votes as shifts:
+    with forced_sampling(picks) as calls, votes as shifts, (
+            stage or contextlib.nullcontext()):
         out = model(dict(batch))
     shift = max(shifts) if shifts else None
     if shift is not None and not shift <= VOTE_TOL:
@@ -7142,10 +7271,12 @@ def flat_grads(model):
             for n, p in model.named_parameters()}
 
 
-def point_train_gradients(dev, spec, ref, dtype):
-    """The port's loss terms and gradients (flat float64 numpy) of the
-    fixture's step from flax's initialisers, the fixture's picks forced,
-    every layer computing in ``dtype`` (the points stay fp32)."""
+def point_train_run(dev, spec, ref, dtype, decisions=None):
+    """The fixture's step from flax's initialisers in train mode, every
+    layer computing in ``dtype`` (the points stay fp32), the fixture's
+    picks forced, a RoI stage replaying ``decisions`` (its proposals and
+    sampled RoIs: the fp32 step's, for its float64 twin), by default the
+    fixture's: (model, output, loss, terms)."""
     import torch
 
     model = point_train_model(dev, spec)
@@ -7154,8 +7285,20 @@ def point_train_gradients(dev, spec, ref, dtype):
         for mod in model.modules():
             if isinstance(getattr(mod, "dtype", None), torch.dtype):
                 mod.dtype = torch.float64
-    out, loss, tb, _, _ = point_train_forward(model, point_train_batch(
-        dev, spec), ref)
+    if decisions is None and "proposal_idx" in ref:
+        decisions = fixture_roi_decisions(ref, dev)
+    stage = None if decisions is None else RecordedRoIStage(
+        *decisions, dtype=dtype)
+    out, loss, tb, _, _ = point_train_forward(
+        model, point_train_batch(dev, spec.ref), ref, stage=stage)
+    return model, out, loss, tb
+
+
+def point_train_gradients(dev, spec, ref, dtype, decisions=None):
+    """The port's loss terms and gradients (flat float64 numpy) of
+    :func:`point_train_run`'s step."""
+    model, out, loss, tb = point_train_run(dev, spec, ref, dtype,
+                                           decisions)
     loss.backward()
     for k in spec.exact:
         if not targets_equal(as_numpy(out[k]), fixture_targets(ref, k)):
@@ -7164,13 +7307,116 @@ def point_train_gradients(dev, spec, ref, dtype):
     return flat_grads(model), {k: float(v) for k, v in tb.items()}
 
 
+def fixture_roi_decisions(ref, dev):
+    """The fixture's proposals and sampled RoIs with their targets, as
+    the port's proposal layer and ``assign_roi_targets`` return them (for
+    :class:`RecordedRoIStage` to replay)."""
+    import torch
+
+    targets = {k: torch.from_numpy(ref[f"target/{k}"]).to(dev) for k in (
+        "rois", "gt_of_rois", "rcnn_cls_labels", "reg_valid_mask",
+        "roi_labels", "roi_sample_valid")}
+    targets["roi_sample_idx"] = torch.from_numpy(
+        ref["roi_sample_idx"].astype("int64")).to(dev)
+    return [reference_proposals(ref, dev)], [targets]
+
+
+def point_f64_distances(dev, spec):
+    """How far the fixture's JAX fp32 step and this device's fp32 step of
+    ``spec``'s detector lie from this device's float64 step (the
+    fixture's picks and RoI decisions replayed in all three): the largest
+    gradient distance relative to each leaf's largest |entry| (JAX's over
+    the stored entries), the loss terms' and the gradient norm's relative
+    distances, the regression targets' (absolute; the targets not held
+    exactly), and for a RoI stage the proposal boxes' (relative above 1
+    m). Returns {"jax": ..., "port": ...}; the larger of the two is what
+    ``spec.f64`` holds."""
+    import numpy as np
+    import torch
+
+    ref = dict(np.load(spec.ref))
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        model, out, loss, tb = point_train_run(dev, spec, ref, dtype)
+        loss.backward()
+        boxes = None
+        if "proposal_idx" in ref:
+            idx = torch.from_numpy(ref["proposal_idx"].astype(np.int64)).to(
+                dev)
+            bp = out["batch_box_preds"].detach()
+            boxes = torch.gather(bp, 1, idx[..., None].expand(
+                -1, -1, bp.shape[-1])).double().cpu().numpy()
+        reg = {k: as_numpy(out[k]).astype(np.float64) for k in spec.targets
+               if k not in spec.exact}
+        runs[dtype] = (flat_grads(model),
+                       {k: float(v.detach()) for k, v in tb.items()}, boxes,
+                       reg)
+        del model, out, loss
+    (g32, m32, b32, r32), (g64, m64, b64, r64) = runs[torch.float32], runs[
+        torch.float64]
+    dist = {"port": f64_distances(g32, m32, g64, m64), "jax": {}}
+    jax_err = 0.0
+    for name, g in g64.items():
+        if f"grad/{name}" in ref:
+            jg, ours = ref[f"grad/{name}"], g
+        else:
+            jg = ref[f"grad_sample/{name}"]
+            ours = g[np.linspace(0, g.size - 1, jg.size).astype(np.int64)]
+        scale = max(float(np.abs(g).max()), 1e-30)
+        jax_err = max(jax_err, float(np.abs(jg - ours).max()) / scale)
+    norm64 = np.sqrt(sum(float((g ** 2).sum()) for g in g64.values()))
+    dist["jax"] = {
+        "grad": jax_err,
+        "loss": max(abs(float(ref[f"metric/{k}"]) / v - 1)
+                    for k, v in m64.items() if v != 0),
+        "grad_norm": abs(float(ref["metric/grad_norm"]) / norm64 - 1)}
+    if b64 is not None:
+        valid = ref["proposal_valid"]
+        for side, b in (("jax", ref["proposals"]), ("port", b32)):
+            dist[side]["boxes"] = float((np.abs(b - b64) / np.maximum(
+                1.0, np.abs(b64)))[valid].max())
+    for side, reg in (("jax", {k: fixture_targets(ref, k) for k in r64}),
+                      ("port", r32)):
+        dist[side]["reg_targets"] = max(
+            (float(np.abs(reg[k] - r64[k]).max()) for k in r64), default=0.0)
+    return dist
+
+
+def check_point_proposals(tag, model, out, stage, ref, tol):
+    """A point detector's proposal layer in a train step against the
+    fixture's (:func:`check_pvrcnn_proposals` with the first stage's
+    points in the anchors' place, scores and boxes within ``tol``; a
+    point's box has no direction bins, so a box turned by pi is no
+    near-tie): (report, whether every list and box is the
+    reference's)."""
+    import numpy as np
+    import torch
+
+    from de6d_tpu_torch.ops.nms import stable_top_k
+
+    nms_cfg = model.model_cfg["ROI_HEAD"]["NMS_CONFIG"]["TRAIN"]
+    scores = torch.sigmoid(out["batch_cls_preds"].detach()).amax(dim=-1)
+    _, order = stable_top_k(scores, int(nms_cfg["NMS_PRE_MAXSIZE"]))
+    prop = stage.proposals[0]
+    scores = scores.cpu().numpy()
+    return check_pvrcnn_proposals(
+        tag, scores, np.full(scores.shape, np.inf), order.cpu().numpy(),
+        torch.where(prop["roi_valid"], prop["roi_point_idx"], 0)
+        .cpu().numpy(), prop["roi_valid"].cpu().numpy(),
+        prop["rois"].cpu().numpy(), ref, tol)
+
+
 def check_point_train_parity(dev, spec, measure_f64=True):
     """``spec``'s train step in fp32 from flax's initialisers on the
     fixture's batch against the JAX step stored in ``spec.ref``, every
     sampling call given the reference's picks (:func:`forced_sampling`):
     each call's own picks equal the reference's or part at a certified
-    near-tie; the ``exact`` targets identical, the others within
-    ``tol["reg_targets"]``; the loss terms, the gradient norm, every
+    near-tie (f-fps with the reference's own keys where the fixture holds
+    them, ``ffps_keys_<k>``); the ``exact`` targets identical, the others within
+    ``tol["reg_targets"]``; a RoI stage's proposals and sampled RoIs by
+    :func:`check_point_proposals` and :func:`check_pvrcnn_sampling`
+    (where a proposal list parts at a near-tie, the step again on the
+    fixture's proposals); the loss terms, the gradient norm, every
     gradient (against its leaf's largest |entry|) and the BatchNorm
     statistics after the step within ``spec.tol``; with ``measure_f64``,
     this device's fp32 step no farther from its float64 step than
@@ -7182,13 +7428,31 @@ def check_point_train_parity(dev, spec, measure_f64=True):
     tol = spec.tol
     tag = f"parity / train_{spec.name}"
     ref = dict(np.load(spec.ref))
-    batch = point_train_batch(dev, spec)
+    batch = point_train_batch(dev, spec.ref)
     model = point_train_model(dev, spec)
-    out, loss, tb, calls, shift = point_train_forward(model, batch, ref, tag)
+    roi = "proposal_idx" in ref  # a RoI stage: its proposals and samples
+    init = copy.deepcopy(model) if roi else None
+    stage = RecordedRoIStage() if roi else None
+    out, loss, tb, calls, shift = point_train_forward(model, batch, ref, tag,
+                                                      stage)
+    roi_report = None
+    if roi:
+        roi_report, whole = check_point_proposals(tag, model, out, stage,
+                                                  ref, tol["boxes"])
+        if not whole:  # the RoI stage on the reference's proposals
+            model = copy.deepcopy(init)
+            stage = RecordedRoIStage(
+                replay_proposals=[reference_proposals(ref, dev)])
+            out, loss, tb, calls, shift = point_train_forward(
+                model, batch, ref, tag, stage)
+        roi_report["sampling"] = check_pvrcnn_sampling(
+            tag, stage.targets[0], ref, tol)
+        roi_report["proposals_replayed"] = not whole
     partings = []
     for k, call in enumerate(calls):
-        partings += certify_sampling_call(tag, k, call,
-                                          ref.get(f"scores_{k}"), PARITY_TOL)
+        partings += certify_sampling_call(
+            tag, k, call, ref.get(f"scores_{k}"), PARITY_TOL,
+            ref.get(f"ffps_keys_{k}"))
     d_reg = 0.0
     for k in spec.targets:
         got, want = as_numpy(out[k]), fixture_targets(ref, k)
@@ -7232,7 +7496,9 @@ def check_point_train_parity(dev, spec, measure_f64=True):
         stat_err = max(stat_err, float(np.abs(b - want).max()))
     f64 = None
     if measure_f64:
-        g64, m64 = point_train_gradients(dev, spec, ref, torch.float64)
+        g64, m64 = point_train_gradients(
+            dev, spec, ref, torch.float64,
+            None if stage is None else (stage.proposals, stage.targets))
         m32 = {k: v for k, v in metrics.items() if k != "grad_norm"}
         f64 = f64_distances(grads, m32, g64, m64)
         for k, v in f64.items():
@@ -7243,6 +7509,7 @@ def check_point_train_parity(dev, spec, measure_f64=True):
                     f"runs' {spec.f64[k]:.3g} the tolerance rests on")
     labels = fixture_targets(ref, spec.targets[0])
     return {"f64_distance": f64, "positives": int((labels > 0).sum()),
+            "roi_stage": roi_report,
             "partings": partings, "max_vote_shift_m": shift,
             "max_reg_target_diff": d_reg,
             "metrics": metrics, "metrics_rel_diff": rel,
@@ -7263,6 +7530,16 @@ def phase_point_train_parity(report, spec):
           + ("" if r["max_vote_shift_m"] is None else
              f"vote centres {r['max_vote_shift_m']:.3g} m from the "
              f"reference's (replayed, tol {VOTE_TOL}); ")
+          + ("" if r["roi_stage"] is None else
+             "proposals {proposal_counts} ({candidates_swapped} candidates "
+             "swapped at near-ties, {np} lists parted), ".format(
+                 np=len(r["roi_stage"]["partings"]), **r["roi_stage"])
+             + f"replayed: {r['roi_stage']['proposals_replayed']}; sampled "
+             f"RoIs {r['roi_stage']['sampling']['sampled_valid']} valid, "
+             f"{r['roi_stage']['sampling']['foreground']} regressed, "
+             f"identical, boxes {r['roi_stage']['sampling']['box_diff']:.3g},"
+             f" class targets "
+             f"{r['roi_stage']['sampling']['cls_target_diff']:.3g}; ")
           + f"labels identical ({r['positives']} positives), regression "
           f"targets {r['max_reg_target_diff']:.3g}; loss terms and "
           f"grad_norm within {max(r['metrics_rel_diff'].values()):.3g} "
@@ -7278,6 +7555,17 @@ def phase_point_train_parity(report, spec):
 
 DET6D_DR_PARITY = dict(cfg_path=DET6D_DR_CFG, params=DET6D_DR_SEED,
                        ref_path=DET6D_DR_REF, load=load_det6d_dr_scans)
+
+
+def kernel_line(tag, label, ln):
+    """One kernel check's result line: its shape, times and bounds."""
+    print(f"{tag}: {label}: " + ", ".join(
+        f"{f} {ln[f]:.4f}" if isinstance(ln.get(f), float)
+        else f"{f} {ln.get(f)}"
+        for f in ("shape", "ms", "resolve_ms", "plain_ms", "bound_ms",
+                  "cluster", "latency_floor_ms", "device_ms",
+                  "survivor_share", "kept")
+        if f in ln), flush=True)
 
 
 def phase_point_kernels(report):
@@ -7305,7 +7593,7 @@ def phase_point_kernels(report):
         out = model({"points": points, "points_mask": valid})
     xyz_l, valid_l = out["point_coords_list"], out["point_valid_list"]
     scores_l = out["point_scores_list"]
-    train = point_train_batch("cuda", IASSD_TRAIN, "train8_")
+    train = point_train_batch("cuda", IASSD_TRAIN.train8, "train8_")
     ia_xyz = train["points"][..., :3].contiguous()
     ia_sa1 = sampling.farthest_point_sample(ia_xyz, 4096,
                                             train["points_mask"])
@@ -7333,12 +7621,7 @@ def phase_point_kernels(report):
                               boxes.shape[1]))
     report["nms"]["cases"].update(nms_lines)
     for k, ln in {**lines, **nms_lines}.items():
-        print(f"kernels / point_train: {k}: "
-              + ", ".join(f"{f} {ln[f]:.4f}" if isinstance(ln.get(f), float)
-                          else f"{f} {ln.get(f)}"
-                          for f in ("ms", "plain_ms", "bound_ms", "cluster",
-                                    "device_ms", "survivor_share")
-                          if f in ln), flush=True)
+        kernel_line("kernels / point_train", k, ln)
     return model, mc
 
 
@@ -7346,22 +7629,29 @@ def phase_point_train(report, kernels, spec, profile):
     """``train / <spec.name>``: :func:`measure_train` in fp32 at full width
     from flax's initialisers over the fixture's 8 frames,
     :data:`POINT_TRAIN_STEPS` steps and a profile of 3, exactly
-    ``spec.fps`` FPS launches a step and no other kernel launch."""
+    ``spec.launches`` a step and no other kernel launch (the
+    fixture's batch of 8, or without ``spec.train8`` its own)."""
     from de6d_tpu_torch.config import cfg_from_yaml_file
 
     model = point_train_model("cuda", spec)
     opt = dict(cfg_from_yaml_file(spec.cfg).OPTIMIZATION)
+    batch = (point_train_batch("cuda", spec.ref) if spec.train8 is None
+             else point_train_batch("cuda", spec.train8, "train8_"))
     out, rows = measure_train(
-        f"train / {spec.name}", model,
-        point_train_batch("cuda", spec, "train8_"), opt, kernels,
-        {"fps": spec.fps}, steps=POINT_TRAIN_STEPS, profile_steps=3)
-    fps_us = sum(us for name, us, _ in rows if "fps" in name.lower())
+        f"train / {spec.name}", model, batch, opt, kernels,
+        spec.launches, steps=POINT_TRAIN_STEPS, profile_steps=3)
+    ours = {k: sum(us for name, us, _ in rows if k in name)
+            for k in ("fps_cluster_kernel", "matrix_fps_kernel",
+                      "nms_mask_kernel", "nms_resolve_kernel")}
+    fps_us = ours["fps_cluster_kernel"]
     out.update(compute_dtype="float32", fps_device_us_per_step=fps_us,
+               kernels_device_us_per_step=ours,
                profile_top=[list(r) for r in rows[:25]])
     report[f"train_{spec.name}"] = out
     print(train_line(f"train / {spec.name}", out, "fp32 at full width "
-                     "through train_model") + f"; FPS kernels {fps_us:.1f} "
-          "us a step", flush=True)
+                     "through train_model") + "; hand-written kernels "
+          + ", ".join(f"{k} {us:.1f} us" for k, us in ours.items() if us)
+          + " a step", flush=True)
     for name, us, c in rows[:12 if profile else 6]:
         print(f"train / {spec.name} profile: {us:10.1f} us  x{c:6.1f}  "
               f"{name[:90]}")
@@ -7404,24 +7694,32 @@ def cut_tree(src, dst, n_train, n_val, subdirs):
     return dst
 
 
+# the folders a frame of each tree spans
+TREE_SUBDIRS = {KITTI_DIR: ("velodyne", "calib", "label_2"),
+                SLOPEDKITTI_DIR: ("velodyne", "calib", "label_2",
+                                  "slope_planes")}
+
+
 def spec_tree(spec):
     """``spec``'s tree cut to :data:`TREE_TRAIN_FRAMES` train and
     :data:`TREE_VAL_FRAMES` val frames, under ``output/``."""
-    subdirs = ("velodyne", "calib", "label_2") + (
-        ("slope_planes",) if spec.tree == SLOPEDKITTI_DIR else ())
     return cut_tree(spec.tree, ROOT / "output/chip_smoke_trees" / spec.name,
-                    TREE_TRAIN_FRAMES, TREE_VAL_FRAMES, subdirs)
+                    TREE_TRAIN_FRAMES, TREE_VAL_FRAMES,
+                    TREE_SUBDIRS[spec.tree])
 
 
 def phase_point_train_tree(report, kernels, spec):
     """``train / <spec.name>_<tree>``: ``tools/train.py``'s entry
-    (``prepare``, ``train``) with ``spec``'s yaml as shipped at batch 8 for
-    one epoch of its tree cut to 10 steps (:func:`spec_tree`) from the
-    fresh init, 4 loader workers: steps/s, the loader's share of the loop,
-    the loss terms; finite losses, and the loss (or ``spec.falling``'s
-    terms) lower over the last 3 steps than over the first 3; exactly
-    ``spec.fps`` FPS launches a step and no other kernel; the checkpoint.
-    Returns (the checkpoint, the tree)."""
+    (``prepare``, ``train``) with ``spec``'s yaml as shipped at
+    ``spec.batch`` for one epoch of its tree cut to
+    :data:`TREE_TRAIN_FRAMES` frames (:func:`spec_tree`) from the fresh
+    init, 4 loader workers: steps/s, the loader's share of the loop, the
+    loss terms; finite losses, and the loss (or ``spec.falling``'s terms)
+    lower over the last 3 steps than over the first 3; exactly
+    ``spec.launches`` a step and no other kernel; the checkpoint;
+    with ``spec.slope_aug``, every batch's gt boxes 10 columns wide and
+    some sloped by SlopeAug (a non-zero pitch or roll). Returns (the
+    checkpoint, the tree)."""
     import numpy as np
     import torch
 
@@ -7430,17 +7728,20 @@ def phase_point_train_tree(report, kernels, spec):
     tree = spec_tree(spec)
     tag = f"train / {spec.name}_{spec.tree.name}"
     argv = ["--cfg_file", str(spec.cfg), "--epochs", "1", "--batch_size",
-            "8", "--workers", "4", "--extra_tag", "chip_smoke",
+            str(spec.batch), "--workers", "4", "--extra_tag", "chip_smoke",
             "--fix_random_seed", "--set", "DATA_CONFIG.DATA_PATH", str(tree)]
     t0 = time.perf_counter()
     run = train_cli.prepare(argv)
     prep_s = time.perf_counter() - t0
-    terms = []
+    terms, gts = [], []
     get_loss = run.model.get_training_loss
 
     def recorded_loss(batch_dict):
         loss, tb = get_loss(batch_dict)
         terms.append({k: v.detach() for k, v in tb.items()})
+        gt = batch_dict["gt_boxes"].detach()
+        gts.append((gt.shape[-1], (gt[..., 7:9].abs().sum(-1) > 0).sum()
+                    if gt.shape[-1] >= 10 else gt.new_zeros(())))
         return loss, tb
 
     run.model.get_training_loss = recorded_loss
@@ -7453,12 +7754,17 @@ def phase_point_train_tree(report, kernels, spec):
     terms = {k: np.array([float(t[k]) for t in terms]) for k in terms[0]}
     launches = read_launches(kernels)
     steps = len(run.step_log)
-    want = {k: steps * spec.fps if k == "fps" else 0 for k in kernels}
-    if steps != TREE_TRAIN_FRAMES // 8 or launches != want:
+    want = {k: steps * spec.launches.get(k, 0) for k in kernels}
+    if steps != TREE_TRAIN_FRAMES // spec.batch or launches != want:
         fail(f"{tag}: {steps} steps, launches {launches}, expected {want}")
     losses = np.array([float(x[2]) for x in run.step_log])
     if not np.isfinite(losses).all():
         fail(f"{tag}: non-finite losses {losses}")
+    gt_cols = sorted({c for c, _ in gts})
+    sloped = [int(n) for _, n in gts]
+    if spec.slope_aug and not (gt_cols == [10] and sum(sloped) > 0):
+        fail(f"{tag}: SlopeAug: gt boxes of {gt_cols} columns, sloped boxes "
+             f"a batch {sloped}")
     for k in spec.falling or ("loss",):
         if not terms[k][-3:].mean() < terms[k][:3].mean():
             fail(f"{tag}: {k} did not fall: first 3 {terms[k][:3]}, last 3 "
@@ -7470,7 +7776,8 @@ def phase_point_train_tree(report, kernels, spec):
     step_s = np.array([x[1] for x in run.step_log])
     iter_ms = (data_s + step_s) * 1e3
     out = {
-        "steps": steps, "batch": 8, "compute_dtype": "float32",
+        "steps": steps, "batch": spec.batch, "compute_dtype": "float32",
+        "gt_columns": gt_cols, "sloped_gt_boxes_per_batch": sloped,
         "prepare_s": prep_s, "wall_s": wall,
         "median_step_ms": float(np.median(iter_ms)),
         "median_host_step_ms": float(np.median(step_s) * 1e3),
@@ -7482,7 +7789,8 @@ def phase_point_train_tree(report, kernels, spec):
         "checkpoint": str(ckpt),
     }
     report[f"train_{spec.name}_{spec.tree.name}"] = out
-    print(f"{tag}: tools/train.py, {spec.cfg.name} fp32, batch 8, 1 epoch "
+    print(f"{tag}: tools/train.py, {spec.cfg.name} fp32, batch "
+          f"{spec.batch}, 1 epoch "
           f"of {spec.tree.name} cut to {TREE_TRAIN_FRAMES} frames ({steps} "
           f"steps) from the fresh init: median step "
           f"{out['median_step_ms']:.2f} ms (host step "
@@ -7493,23 +7801,28 @@ def phase_point_train_tree(report, kernels, spec):
               f"{k} {v[:3].mean():.4g} -> {v[-3:].mean():.4g}"
               for k, v in terms.items())
           + f" (gated: {', '.join(out['gated'])}); launches {launches} "
-          f"(prepare {prep_s:.1f} s)", flush=True)
+          + (f"; SlopeAug: gt boxes of {gt_cols} columns, sloped boxes a "
+             f"batch {sloped} " if spec.slope_aug else "")
+          + f"(prepare {prep_s:.1f} s)", flush=True)
     return ckpt, tree
 
 
-def phase_point_eval_tree(report, kernels, spec, ckpt, tree):
+def phase_point_eval_tree(report, kernels, spec, ckpt, tree, cfg=None,
+                          tree_name=None):
     """``eval / <spec.name>_<tree>``: ``tools/test.py --ckpt`` on the train
-    checkpoint (fp32) over the cut tree's :data:`TREE_VAL_FRAMES` val
-    frames at batch 8: ms a frame, the recall counters and the tree's
-    metrics (SlopedKITTI: centre-distance AP, ODS; KITTI: AP), exactly
-    ``spec.fps`` FPS and 1 fused-NMS launch a batch and no other
+    checkpoint (fp32; with ``spec``'s yaml, or ``cfg`` on the tree
+    ``tree_name``) over the cut tree's :data:`TREE_VAL_FRAMES` val frames
+    at batch 8: ms a frame, the recall counters and the tree's metrics
+    (SlopedKITTI: centre-distance AP, ATE / ASE / AOE, ODS; KITTI: AP),
+    exactly ``spec.eval_launches`` launches a batch and no other
     kernel."""
     import torch
 
     from de6d_tpu_torch.tools import test as test_cli
 
-    tag = f"eval / {spec.name}_{spec.tree.name}"
-    argv = ["--cfg_file", str(spec.cfg), "--ckpt", str(ckpt),
+    tree_name = tree_name or spec.tree.name
+    tag = f"eval / {spec.name}_{tree_name}"
+    argv = ["--cfg_file", str(cfg or spec.cfg), "--ckpt", str(ckpt),
             "--extra_tag", "chip_smoke", "--batch_size", str(EVAL_BATCH),
             "--workers", "4", "--allow-zero-recall", "--set",
             "DATA_CONFIG.DATA_PATH", str(tree)]
@@ -7520,7 +7833,7 @@ def phase_point_eval_tree(report, kernels, spec, ckpt, tree):
     wall = time.perf_counter() - t0
     launches = read_launches(kernels)
     n = -(-TREE_VAL_FRAMES // EVAL_BATCH)
-    want = {k: n * {"fps": spec.fps, "nms": 1}.get(k, 0) for k in kernels}
+    want = {k: n * spec.eval_launches.get(k, 0) for k in kernels}
     if launches != want:
         fail(f"{tag}: launches {launches} in {n} batches, expected {want}")
     metrics = {k: float(ret[k]) for k in ret
@@ -7531,13 +7844,131 @@ def phase_point_eval_tree(report, kernels, spec, ckpt, tree):
            "steady_ms_per_frame": (ret["steady_sec_per_example"] or 0) * 1e3,
            "recall_counts": ret["recall_counts"], "metrics": metrics,
            "launches": launches}
-    report[f"eval_{spec.name}_{spec.tree.name}"] = out
-    print(f"{tag}: tools/test.py --ckpt on the train checkpoint, fp32 at "
+    report[f"eval_{spec.name}_{tree_name}"] = out
+    print(f"{tag}: tools/test.py --ckpt on the train checkpoint "
+          f"({(cfg or spec.cfg).name}), fp32 at "
           f"batch {EVAL_BATCH} over {TREE_VAL_FRAMES} val frames in "
           f"{wall:.1f} s: {out['ms_per_frame']:.2f} ms a frame (steady p50 "
           f"{out['steady_ms_per_frame']:.2f}), recall "
           f"{out['recall_counts']}, {metrics}; launches {launches} in {n} "
           "batches", flush=True)
+
+
+def point_train_phases(report, kernels, spec, profile, stamp):
+    """``spec``'s phases in order: its kernels phase, ``parity /
+    train_<name>``, ``train / <name>``, then for it and each arm after it
+    (``then``) ``train / <arm>_<tree>`` and ``eval / <arm>_<tree>`` (the
+    arm's ``eval_tree`` cut to :data:`TREE_VAL_FRAMES` val frames where it
+    has one); ``stamp(tag)`` after each."""
+    if spec.kernels is not None:
+        spec.kernels(report)
+        stamp(f"kernels / {spec.name}_train")
+    phase_point_train_parity(report, spec)
+    stamp(f"parity / train_{spec.name}")
+    phase_point_train(report, kernels, spec, profile)
+    stamp(f"train / {spec.name}")
+    arm = spec
+    while arm is not None:
+        ckpt, tree = phase_point_train_tree(report, kernels, arm)
+        stamp(f"train / {arm.name}_{arm.tree.name}")
+        where = arm.tree
+        if arm.eval_tree is not None:
+            where = arm.eval_tree
+            tree = cut_tree(where, ROOT / "output/chip_smoke_trees"
+                            / f"{arm.name}_{where.name}", 8,
+                            TREE_VAL_FRAMES, TREE_SUBDIRS[where])
+        phase_point_eval_tree(report, kernels, arm, ckpt, tree,
+                              arm.eval_cfg, where.name)
+        stamp(f"eval / {arm.name}_{where.name}")
+        arm = arm.then
+
+
+def point_train_calls(spec):
+    """One fp32 train-mode forward of ``spec``'s detector on its fixture's
+    batch (flax's initialisers, every sampling call given the fixture's
+    picks): (output, the sampling calls with their inputs, the model's
+    config)."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = point_train_model("cuda", spec)
+    ref = dict(np.load(spec.ref))
+    out, _, _, calls, _ = point_train_forward(
+        model, point_train_batch("cuda", spec.ref), ref,
+        f"kernels / {spec.name}_train")
+    return out, calls, model.model_cfg
+
+
+def phase_pointrcnn_train_kernels(report):
+    """``kernels / pointrcnn_train``: from one fp32 train-mode forward of
+    PointRCNN at ``pointrcnn.yaml``'s full width on its fixture's batch of
+    2, the kernels of its train step against their plain versions at the
+    step's inputs: the mask and resolve on the 2 x 9000 train candidates
+    (thresh 0.8, 512 kept), and FPS at the RoI encoder's two layers (2 x
+    128 pooled sets of 512 points, padded with repeats, -> 128, then ->
+    32)."""
+    import torch
+
+    from de6d_tpu_torch.ops.nms import stable_top_k
+
+    tag = "kernels / pointrcnn_train"
+    out, calls, mc = point_train_calls(POINTRCNN_TRAIN)
+    roi_cfg = mc["ROI_HEAD"]["NMS_CONFIG"]["TRAIN"]
+    scores = torch.sigmoid(out["batch_cls_preds"].detach()).amax(dim=-1)
+    _, order = stable_top_k(scores, int(roi_cfg["NMS_PRE_MAXSIZE"]))
+    boxes = out["batch_box_preds"].detach()
+    cand = torch.gather(boxes, 1, order[..., None].expand(
+        -1, -1, boxes.shape[-1])).contiguous()
+    b, pre = cand.shape[:2]
+    nms_lines = check_nms_mask({"pointrcnn_train_proposals": (
+        cand, torch.full((b,), pre, dtype=torch.int32, device="cuda"),
+        float(roi_cfg["NMS_THRESH"]), int(roi_cfg["NMS_POST_MAXSIZE"]))})
+    if [c["npoint"] for c in calls] != [4096, 1024, 256, 64, 128, 32]:
+        fail(f"{tag}: sampling calls {[c['npoint'] for c in calls]}")
+    fps_lines = check_fps({
+        f"pointrcnn_train_roi_sa{i + 1}": (
+            c["xyz"].detach().float().contiguous(), c["valid"],
+            c["npoint"], None) for i, c in enumerate(calls[4:])}, report)
+    report["fps"]["cases"].update(fps_lines)
+    report["nms_mask"]["cases"].update(nms_lines)
+    report["pointrcnn_train_kernels"] = {"fps": fps_lines,
+                                         "nms_mask": nms_lines}
+    for k, ln in {**nms_lines, **fps_lines}.items():
+        kernel_line(tag, k, ln)
+
+
+def phase_ssd3d_train_kernels(report):
+    """``kernels / 3dssd_train``: from one fp32 train-mode forward of
+    3DSSD at ``3dssd_car.yaml``'s full width on its fixture's batch of 8,
+    the f-fps kernel against its plain version at the step's own
+    matrices (SA2: 8 x 4096 -> 512 over xyz and SA1's features; SA3's
+    F-FPS half: 8 x 512 -> 256), built as the step builds them (fp32,
+    TF32 off, no gradient)."""
+    from de6d_tpu_torch.ops import sampling
+
+    tag = "kernels / 3dssd_train"
+    _, calls, _ = point_train_calls(SSD3D_TRAIN)
+    cases = {}
+    for k, c in enumerate(calls):
+        if c["method"] != "f-fps":
+            continue
+        lo, hi = c["range"]
+        hi = c["xyz"].shape[1] if hi == -1 else hi
+        dm = sampling.calc_dist_matrix_for_sampling(
+            c["xyz"][:, lo:hi], c["features"][:, lo:hi].float(), c["gamma"])
+        cases[f"3dssd_train_call{k}"] = (dm, c["valid"][:, lo:hi].contiguous(),
+                                         c["npoint"])
+    if [dm.shape[1:] for dm, _, _ in cases.values()] != [(4096, 4096),
+                                                         (512, 512)]:
+        fail(f"{tag}: f-fps matrices "
+             f"{[tuple(dm.shape) for dm, _, _ in cases.values()]}")
+    lines = check_matrix_fps(cases, report)
+    report["matrix_fps"]["cases"].update(lines)
+    report["ssd3d_train_kernels"] = lines
+    for k, ln in lines.items():
+        kernel_line(tag, k, ln)
 
 
 def main():
@@ -7557,8 +7988,9 @@ def main():
     t_start = time.perf_counter()
 
     def stamp(what):
-        report.setdefault("seconds_at", {})[what] = (time.perf_counter()
-                                                     - t_start)
+        at = time.perf_counter() - t_start
+        report.setdefault("seconds_at", {})[what] = at
+        print(f"time: {what} ends at {at:.1f} s", flush=True)
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
               "device": torch.cuda.get_device_name(0)}
 
@@ -7730,10 +8162,15 @@ def main():
     stamp("pvrcnn_train_kernels")
     phase_train_pvrcnn(report, every_kernel, profile)
     stamp("train_pvrcnn")
+    # the script's time: 50 steps from data/kitti cut to
+    # 100 train frames (was the whole 150-step epoch)
     ckpt = phase_train_kitti(
         report, every_kernel, PVRCNN_CFG, "train / pv_rcnn_kitti",
         "train_pv_rcnn_kitti", tuple(PVRCNN_TRAIN_LAUNCHES.items()),
-        None, batch_size=2, val_anchor_scores=False)
+        None, batch_size=2, val_anchor_scores=False,
+        data_dir=cut_tree(KITTI_DIR, ROOT / "output/chip_smoke_trees/"
+                          "pv_rcnn", 100, 8, ("velodyne", "calib",
+                                              "label_2")))
     stamp("train / pv_rcnn_kitti")
     phase_eval_pvrcnn_kitti(report, every_kernel, ckpt)
     stamp("eval / pv_rcnn_kitti")
@@ -7759,11 +8196,16 @@ def main():
     stamp("voxelrcnn_train_parity")
     phase_train_voxelrcnn(report, every_kernel, profile)
     stamp("train_voxelrcnn")
+    # the script's time: 40 steps from data/kitti cut to
+    # 160 train frames (was 75)
     ckpt = phase_train_kitti(
         report, every_kernel, VOXELRCNN_CFG, "train / voxel_rcnn_kitti",
         "train_voxel_rcnn_kitti", tuple(VOXELRCNN_TRAIN_LAUNCHES.items()),
         None, batch_size=4, val_anchor_scores=False,
-        falling=VOXELRCNN_FALLING)
+        falling=VOXELRCNN_FALLING,
+        data_dir=cut_tree(KITTI_DIR, ROOT / "output/chip_smoke_trees/"
+                          "voxel_rcnn", 160, 8, ("velodyne", "calib",
+                                                 "label_2")))
     stamp("train / voxel_rcnn_kitti")
     phase_eval_pvrcnn_kitti(report, every_kernel, ckpt, VOXELRCNN_CFG,
                             "voxel_rcnn", VOXELRCNN_EVAL_LAUNCHES)
@@ -7780,15 +8222,8 @@ def main():
     del model
     phase_det6d_parity(report, "det6d_dr", **DET6D_DR_PARITY)
     stamp("parity / det6d_dr")
-    for spec in (DET6D_DR_TRAIN, IASSD_TRAIN):
-        phase_point_train_parity(report, spec)
-        stamp(f"parity / train_{spec.name}")
-        phase_point_train(report, every_kernel, spec, profile)
-        stamp(f"train / {spec.name}")
-        ckpt, tree = phase_point_train_tree(report, every_kernel, spec)
-        stamp(f"train / {spec.name}_{spec.tree.name}")
-        phase_point_eval_tree(report, every_kernel, spec, ckpt, tree)
-        stamp(f"eval / {spec.name}_{spec.tree.name}")
+    for spec in (DET6D_DR_TRAIN, IASSD_TRAIN, POINTRCNN_TRAIN, SSD3D_TRAIN):
+        point_train_phases(report, every_kernel, spec, profile, stamp)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7828,13 +8263,18 @@ def main():
                    report["eval_voxel_rcnn_kitti"]["launches"],
                "det6d_dr": report["serve_det6d_dr"]["launches"],
                **{f"{s.name}_{what}": report[key]["launches"]
-                  for s in (DET6D_DR_TRAIN, IASSD_TRAIN)
+                  for s in (DET6D_DR_TRAIN, IASSD_TRAIN, POINTRCNN_TRAIN,
+                            SSD3D_TRAIN)
                   for what, key in (
                       ("train", f"train_{s.name}"),
                       (f"train_{s.tree.name}",
                        f"train_{s.name}_{s.tree.name}"),
                       (f"eval_{s.tree.name}",
-                       f"eval_{s.name}_{s.tree.name}"))}}
+                       f"eval_{s.name}_{s.tree.name}"))},
+               "pointrcnn_slopeaug_train_kitti":
+                   report["train_pointrcnn_slopeaug_kitti"]["launches"],
+               "pointrcnn_slopeaug_eval_slopedkitti":
+                   report["eval_pointrcnn_slopeaug_slopedkitti"]["launches"]}
     kernels = []
     # the sparse conv's launches split by dtype: the train paths and the
     # evals from a train checkpoint run it in fp32 (second.yaml,

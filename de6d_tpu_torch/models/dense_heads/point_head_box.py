@@ -1,15 +1,17 @@
 """Per-point heads (counterpart of
 ``de6d_tpu/models/dense_heads/point_head_box.py``: ``assign_point_targets``,
-``point_head_box_loss``, ``PointHeadBox``, PointRCNN's first stage, in
-eval, and ``PointHeadSimple``, PV-RCNN's keypoint segmentation, in eval
-and train).
+``point_head_box_loss``, ``PointHeadBox``, PointRCNN's first stage, and
+``PointHeadSimple``, PV-RCNN's keypoint segmentation, both in eval and
+train).
 
 ``PointHeadBox``: two fp32 FC stacks on the backbone's point features
 give class logits and box codes; the codes are decoded at the points
 with the head's box coder (per-class mean sizes picked by the first
-argmax of the logits); its train branch is not ported yet (its targets
-and loss are: :func:`assign_point_targets` with a box coder,
-:func:`point_head_box_loss`).
+argmax of the logits), in train mode too (a RoI head follows and reads
+the decoded boxes). In train mode it also writes ``point_cls_labels``,
+``point_reg_labels`` and ``point_box_labels``
+(:func:`assign_point_targets` with the head's coder, ``GT_EXTRA_WIDTH``
+and its class count), which :func:`point_head_box_loss` reads.
 ``PointHeadSimple``: one fp32 FC stack gives the keypoints' foreground
 logits and scores; in train mode it also writes ``point_cls_labels``
 (:func:`assign_point_targets`: containment in the gt boxes, the
@@ -95,10 +97,12 @@ def point_head_box_loss(batch_dict, model_cfg, num_class, box_coder):
 
 @POINT_HEADS.register
 class PointHeadBox(nn.Module):
-    def __init__(self, model_cfg, input_channels, num_class, **kwargs):
+    def __init__(self, model_cfg, input_channels, num_class,
+                 predict_boxes_when_training=False, **kwargs):
         super().__init__()
         self.model_cfg = model_cfg
         self.num_class = num_class
+        self.predict_boxes_when_training = predict_boxes_when_training
         target_cfg = model_cfg["TARGET_CONFIG"]
         self.box_coder = box_coder_utils.build_box_coder(
             target_cfg["BOX_CODER"],
@@ -115,15 +119,27 @@ class PointHeadBox(nn.Module):
         coords = batch_dict["point_coords"]  # (B, N, 3)
         cls_preds = self.cls_layers(feats)  # (B, N, ncls) fp32
         box_preds = self.box_layers(feats)  # (B, N, code) fp32
-        boxes = self.box_coder.decode(
-            box_preds, coords, torch.argmax(cls_preds, dim=-1) + 1)
         batch_dict["point_cls_preds"] = cls_preds
         batch_dict["point_reg_preds"] = box_preds
         batch_dict["point_cls_scores"] = torch.sigmoid(cls_preds).amax(dim=-1)
-        batch_dict["batch_cls_preds"] = cls_preds
-        batch_dict["batch_box_preds"] = boxes
-        batch_dict["point_box_preds"] = boxes
-        batch_dict["cls_preds_normalized"] = False
+        if not self.training or self.predict_boxes_when_training:
+            boxes = self.box_coder.decode(
+                box_preds, coords, torch.argmax(cls_preds, dim=-1) + 1)
+            batch_dict["batch_cls_preds"] = cls_preds
+            batch_dict["batch_box_preds"] = boxes
+            batch_dict["point_box_preds"] = boxes
+            batch_dict["cls_preds_normalized"] = False
+        if self.training:
+            valid = batch_dict.get("point_valid")
+            if valid is None:
+                valid = torch.ones(coords.shape[:2], dtype=torch.bool,
+                                   device=coords.device)
+            (batch_dict["point_cls_labels"], batch_dict["point_reg_labels"],
+             batch_dict["point_box_labels"]) = assign_point_targets(
+                coords, valid, batch_dict["gt_boxes"],
+                extra_width=self.model_cfg["TARGET_CONFIG"].get(
+                    "GT_EXTRA_WIDTH"),
+                box_coder=self.box_coder, num_class=self.num_class)
         return batch_dict
 
 

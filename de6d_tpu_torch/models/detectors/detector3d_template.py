@@ -179,12 +179,13 @@ class Detector3DTemplate(nn.Module):
         box and class, or (B, M, 10): 9-DoF box and class, read by the head
         that writes its predictions and targets for
         :meth:`get_training_loss` (the detectors with ``TRAINABLE``:
-        PointPillars, Det6D, 3DSSD, IA-SSD, SECOND, PV-RCNN, Voxel-RCNN)."""
+        PointPillars, Det6D, 3DSSD, IA-SSD, PointRCNN, SECOND, PV-RCNN,
+        Voxel-RCNN)."""
         if self.training and not self.TRAINABLE:
             raise NotImplementedError(
                 f"{type(self).__name__}: training is not ported yet (the "
-                "port trains IA-SSD, PointPillars, Det6D, 3DSSD, SECOND, "
-                "PV-RCNN and Voxel-RCNN)")
+                "port trains IA-SSD, PointPillars, Det6D, 3DSSD, PointRCNN, "
+                "SECOND, PV-RCNN and Voxel-RCNN)")
         with torch.set_grad_enabled(self.training):
             batch_dict = self.maybe_voxelize(dict(batch_dict))
             for name in self.module_names:
@@ -196,8 +197,8 @@ class Detector3DTemplate(nn.Module):
         ported for the detectors with ``TRAINABLE``."""
         raise NotImplementedError(
             f"{type(self).__name__}: training is not ported yet (the port "
-            "trains IA-SSD, PointPillars, Det6D, 3DSSD, SECOND, PV-RCNN and "
-            "Voxel-RCNN)")
+            "trains IA-SSD, PointPillars, Det6D, 3DSSD, PointRCNN, SECOND, "
+            "PV-RCNN and Voxel-RCNN)")
 
 
 def rank_candidates(batch_dict, post_cfg):

@@ -1,6 +1,6 @@
-"""PointRCNN second-stage RoI head, inference only (counterpart of
+"""PointRCNN's second-stage RoI head (counterpart of
 ``de6d_tpu/models/roi_heads/pointrcnn_head.py``: ``roipoint_pool3d`` and
-``PointRCNNHead`` in eval).
+``PointRCNNHead``, in eval and train).
 
 Per RoI: pool the first ``NUM_SAMPLED_POINTS`` points inside the box (in
 point order, padded with the first hit), move them into the RoI's frame,
@@ -9,6 +9,15 @@ run an SA encoder over each RoI's point set (d-fps picks, then one
 global group at the origin), then class and box FCs. All of it is fp32,
 whatever the model's compute dtype: the JAX head builds its MLPs without
 a dtype. Empty RoIs carry zero features and ``rcnn_cls = -1e4``.
+
+The proposal layer takes ``NMS_CONFIG.TEST`` in eval and
+``NMS_CONFIG.TRAIN`` in train mode; in train mode ``TARGET_CONFIG`` then
+samples ``ROI_PER_IMAGE`` of the proposals (``roi_head_utils.
+assign_roi_targets`` on JAX's ``PRNGKey(0)`` draws), those are pooled,
+and ``roi_targets_dict`` is written for ``roi_head_utils.roi_head_loss``.
+As in the JAX head the RoIs and the gt boxes carry no gradient, but the
+pooled point features and scores do: the RoI head's loss reaches the
+backbone and the first stage's class layers through the gathers.
 """
 
 from __future__ import annotations
@@ -82,10 +91,17 @@ class PointRCNNHead(nn.Module):
         self.reg_layers = FCStack(cin, model_cfg["REG_FC"], 7, use_bn=use_bn)
 
     def forward(self, batch_dict):
-        nms_cfg = self.model_cfg["NMS_CONFIG"]["TEST"]
+        train = self.training
+        nms_cfg = self.model_cfg["NMS_CONFIG"]["TRAIN" if train else "TEST"]
         num_rois = int(nms_cfg.get("NMS_POST_MAXSIZE", 512))
         batch_dict = roi_head_utils.proposal_layer(batch_dict, nms_cfg,
                                                    num_rois)
+        if train:
+            tcfg = self.model_cfg["TARGET_CONFIG"]
+            targets = roi_head_utils.sample_rois(
+                batch_dict, roi_per_image=int(tcfg.get("ROI_PER_IMAGE", 128)),
+                fg_ratio=float(tcfg.get("FG_RATIO", 0.5)),
+                fg_thresh=float(tcfg.get("REG_FG_THRESH", 0.55)))
         rois = batch_dict["rois"]
         coords = batch_dict["point_coords"]  # (B, N, 3)
         feats = batch_dict["point_features"]  # (B, N, C) fp32
@@ -128,6 +144,11 @@ class PointRCNNHead(nn.Module):
         batch_dict["rcnn_cls"] = rcnn_cls
         batch_dict["rcnn_reg"] = rcnn_reg
         batch_dict["roi_empty"] = empty
+        if train:
+            targets["rcnn_cls"] = rcnn_cls
+            targets["rcnn_reg"] = rcnn_reg
+            batch_dict["roi_targets_dict"] = targets
+            return batch_dict
         batch_dict["batch_box_preds"] = roi_head_utils.rcnn_box_decode(
             rois[..., :7], rcnn_reg)
         batch_dict["batch_cls_preds"] = rcnn_cls[..., None]

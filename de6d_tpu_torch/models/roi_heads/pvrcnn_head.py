@@ -79,18 +79,10 @@ class PVRCNNHead(nn.Module):
                                                    num_rois)
         if train:
             tcfg = self.model_cfg["TARGET_CONFIG"]
-            targets = roi_head_utils.assign_roi_targets(
-                batch_dict["rois"], batch_dict["roi_valid"],
-                batch_dict["roi_labels"], batch_dict["gt_boxes"],
-                roi_per_image=int(tcfg.get("ROI_PER_IMAGE", 128)),
+            targets = roi_head_utils.sample_rois(
+                batch_dict, roi_per_image=int(tcfg.get("ROI_PER_IMAGE", 128)),
                 fg_ratio=float(tcfg.get("FG_RATIO", 0.5)),
                 fg_thresh=float(tcfg.get("REG_FG_THRESH", 0.55)))
-            batch_dict["rois"] = targets["rois"]
-            batch_dict["roi_labels"] = targets["roi_labels"]
-            batch_dict["roi_valid"] = targets["roi_sample_valid"]
-            targets["gt_of_rois_local"] = (
-                roi_head_utils.canonical_transform_targets(
-                    targets["rois"][..., :7], targets["gt_of_rois"][..., :7]))
         rois = batch_dict["rois"]
         b, r = rois.shape[:2]
         grid = roi_grid_points(rois[..., :7], self.grid_size)

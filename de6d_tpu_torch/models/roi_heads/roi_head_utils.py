@@ -1,7 +1,8 @@
 """Shared RoI-stage functions (counterpart of
 ``de6d_tpu/models/roi_heads/roi_head_utils.py``: ``proposal_layer``,
 ``assign_roi_targets``, ``canonical_transform_targets``,
-``rcnn_box_decode``, ``roi_head_loss``).
+``rcnn_box_decode``, ``roi_head_loss``; ``sample_rois`` is the train
+branch the RoI heads share).
 
 Training samples ``ROI_PER_IMAGE`` of each sample's proposals as the JAX
 package does: class-aware max-IoU matching to the gt boxes, then the
@@ -133,6 +134,23 @@ def assign_roi_targets(rois, roi_valid, roi_labels, gt_boxes, key=None,
         "roi_sample_valid": sel_valid,
         "roi_sample_idx": sel,
     }
+
+
+def sample_rois(batch_dict, **sampler):
+    """A train step's RoI sampling after the proposal layer:
+    :func:`assign_roi_targets` (``sampler``: its keyword arguments) over
+    the batch's proposals; the sampled RoIs, their labels and validity
+    replace the proposals' in ``batch_dict``. Returns the targets, with
+    ``gt_of_rois_local`` (:func:`canonical_transform_targets`)."""
+    targets = assign_roi_targets(
+        batch_dict["rois"], batch_dict["roi_valid"], batch_dict["roi_labels"],
+        batch_dict["gt_boxes"], **sampler)
+    batch_dict["rois"] = targets["rois"]
+    batch_dict["roi_labels"] = targets["roi_labels"]
+    batch_dict["roi_valid"] = targets["roi_sample_valid"]
+    targets["gt_of_rois_local"] = canonical_transform_targets(
+        targets["rois"][..., :7], targets["gt_of_rois"][..., :7])
+    return targets
 
 
 def canonical_transform_targets(rois, gt_of_rois):

@@ -113,17 +113,9 @@ class VoxelRCNNHead(nn.Module):
         batch_dict = roi_head_utils.proposal_layer(batch_dict, nms_cfg,
                                                    num_rois)
         if train:  # the JAX head passes only ROI_PER_IMAGE to the sampler
-            targets = roi_head_utils.assign_roi_targets(
-                batch_dict["rois"], batch_dict["roi_valid"],
-                batch_dict["roi_labels"], batch_dict["gt_boxes"],
-                roi_per_image=int(self.model_cfg["TARGET_CONFIG"].get(
-                    "ROI_PER_IMAGE", 128)))
-            batch_dict["rois"] = targets["rois"]
-            batch_dict["roi_labels"] = targets["roi_labels"]
-            batch_dict["roi_valid"] = targets["roi_sample_valid"]
-            targets["gt_of_rois_local"] = (
-                roi_head_utils.canonical_transform_targets(
-                    targets["rois"][..., :7], targets["gt_of_rois"][..., :7]))
+            targets = roi_head_utils.sample_rois(
+                batch_dict, roi_per_image=int(self.model_cfg[
+                    "TARGET_CONFIG"].get("ROI_PER_IMAGE", 128)))
         rois = batch_dict["rois"]
         b, r = rois.shape[:2]
         grid_pts = roi_grid_points(rois[..., :7], self.grid_size)

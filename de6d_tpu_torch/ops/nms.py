@@ -1,6 +1,6 @@
 """Rotated NMS over fixed-size candidate buffers (counterpart of
 ``de6d_tpu/ops/nms.py``: ``top_k_two_stage``, ``nms``, ``nms_candidates``,
-``nms_candidates_batched``).
+``nms_candidates_batched``, ``class_agnostic_nms``).
 
 Greedy semantics: candidates are score-descending, invalid ones (score
 ``NEG_INF``) form a suffix, and
@@ -140,3 +140,30 @@ def nms_candidates_batched(cand, top_scores, thresh: float,
         return _compact(keep, post)
 
     return nms_candidates(cand, top_scores, thresh, post_maxsize, iou_kind)
+
+
+def class_agnostic_nms(box_scores, box_preds, nms_config, score_thresh=None,
+                       valid_mask=None):
+    """:func:`nms` over one sample's (N,) scores and (N, 7+) boxes, gated
+    by ``score_thresh``, with ``nms_config``'s ``NMS_THRESH``,
+    ``NMS_PRE_MAXSIZE``, ``NMS_POST_MAXSIZE`` and ``NMS_TYPE``
+    (``nms_normal_gpu``, the aligned IoU, raises as :func:`nms` does):
+    the JAX ``class_agnostic_nms``. Returns (selected indices (post,)
+    int32, padded with the top candidate's; their count; their scores,
+    ``NEG_INF`` past the count)."""
+    if valid_mask is None:
+        valid_mask = torch.ones_like(box_scores, dtype=torch.bool)
+    if score_thresh is not None:
+        valid_mask = valid_mask & (box_scores >= score_thresh)
+    idx, count = nms(
+        box_preds[None], box_scores[None],
+        thresh=float(nms_config["NMS_THRESH"]),
+        pre_maxsize=int(nms_config["NMS_PRE_MAXSIZE"]),
+        post_maxsize=int(nms_config["NMS_POST_MAXSIZE"]),
+        valid_mask=valid_mask[None],
+        iou_kind=("aligned" if "normal" in str(nms_config["NMS_TYPE"])
+                  else "rotated"))
+    idx, count = idx[0], count[0]
+    in_range = torch.arange(idx.shape[0], device=idx.device) < count
+    return idx, count, torch.where(in_range, box_scores[idx.long()],
+                                   NEG_INF)

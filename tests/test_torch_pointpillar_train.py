@@ -599,19 +599,22 @@ def test_jax_train_state_resumes_in_the_port(tiny_train):
 
 
 def test_other_detectors_refuse_training():
-    """A detector whose loss is not ported (PointRCNN) raises in train
-    mode, naming the ones that train, and the head raises on an assigner
-    it does not port."""
-    from de6d_tpu_torch.models.detectors.point_rcnn import PointRCNN
+    """A detector whose loss is not ported (the bare template: every
+    registered detector trains) raises in train mode, naming the ones
+    that train, and the head raises on an assigner it does not port."""
+    from de6d_tpu_torch.models.detectors.detector3d_template import (
+        Detector3DTemplate,
+    )
 
-    model = PointRCNN.__new__(PointRCNN)
+    model = Detector3DTemplate.__new__(Detector3DTemplate)
     torch.nn.Module.__init__(model)
     model.train()
     with pytest.raises(NotImplementedError,
-                       match="PointRCNN.*PointPillars, Det6D, 3DSSD, SECOND, "
-                             "PV-RCNN and Voxel-RCNN"):
+                       match="Detector3DTemplate.*PointPillars, Det6D, "
+                             "3DSSD, PointRCNN, SECOND, PV-RCNN and "
+                             "Voxel-RCNN"):
         model({"points": torch.zeros(1, 4, 4)})
-    with pytest.raises(NotImplementedError, match="PointRCNN"):
+    with pytest.raises(NotImplementedError, match="Detector3DTemplate"):
         model.get_training_loss({})
 
     head = anchor_head.AnchorHeadSingle(
